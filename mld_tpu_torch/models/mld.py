@@ -1,0 +1,245 @@
+"""MLD text-to-motion generation (port of ``mld_tpu/models/mld.py`` for the
+text condition).
+
+  generate():  texts -> tokens (host, EOT buckets) -> CLIP -> 50 DDIM steps
+               with classifier-free guidance over a doubled batch (uncond
+               half first) -> VAE decode -> de-norm -> recover_from_ric -> joints
+
+The denoiser's encoder stack runs as one CUDA kernel per step on the card
+(ops/fused_layer.py); everything else is plain PyTorch on the same device.
+Conventions: batch-first; latents [B, latent_size, latent_dim]; masks [B, T]
+bool, True = valid.
+"""
+from __future__ import annotations
+
+from typing import List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from mld_tpu_torch.config import Config
+from mld_tpu_torch.data.humanml.motion_process import recover_from_ric
+from mld_tpu_torch.diffusion.schedulers import DDIMScheduler, DiffusionSchedule
+from mld_tpu_torch.models.clip_text import ClipTextModel, ClipTokenizer
+from mld_tpu_torch.models.denoiser import MldDenoiser
+from mld_tpu_torch.models.vae import MldVae
+from mld_tpu_torch.ops.fused_denoiser import precompute_cond
+from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
+                                         flax_to_state_dict)
+
+TEXT_BUCKETS = (16, 24, 32, 48, 64)
+
+
+def lengths_to_mask(lengths, max_len: int, device=None) -> torch.Tensor:
+    """[B] -> [B, max_len] bool."""
+    lengths = torch.as_tensor(lengths, device=device)
+    return torch.arange(max_len, device=lengths.device)[None] < lengths[:, None]
+
+
+def _check_supported(cfg: Config):
+    m = cfg.model
+    unsupported = [
+        (m.condition != "text", f"condition={m.condition}"),
+        (not m.vae or m.vae_type != "mld", f"vae_type={m.vae_type}"),
+        (m.vae_arch != "encoder_decoder", f"vae_arch={m.vae_arch}"),
+        (m.mlp_dist, "mlp_dist"),
+        (m.denoiser_arch != "trans_enc", f"denoiser_arch={m.denoiser_arch}"),
+        (not m.skip_connect, "skip_connect=False"),
+        (m.normalize_before, "normalize_before"),
+        (m.position_embedding not in ("v3", "learned"),
+         f"position_embedding={m.position_embedding}"),
+        (m.clip_last_hidden, "clip_last_hidden"),
+        (m.scheduler.kind != "ddim", f"scheduler={m.scheduler.kind}"),
+        (m.dtype != "float32", f"dtype={m.dtype}"),
+    ]
+    bad = [msg for cond, msg in unsupported if cond]
+    if bad:
+        raise NotImplementedError(
+            f"the PyTorch port covers text-to-motion with the MLD VAE and "
+            f"the skip trans_enc denoiser; unsupported: {', '.join(bad)}")
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator):
+    """Random weights with the JAX package's initialiser families:
+    lecun-normal Linear weights, xavier-uniform packed QKV and motion tokens,
+    zero biases, unit LayerNorm scales, uniform [0, 1) learned PE,
+    normal(0.02 / 0.01) CLIP embeddings and projection. CPU parameters."""
+    g = generator
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "pe":
+            p.uniform_(0.0, 1.0, generator=g)
+        elif "token_embedding" in name or "text_projection" in name:
+            p.normal_(0.0, 0.02, generator=g)
+        elif "position_embedding" in name:
+            p.normal_(0.0, 0.01, generator=g)
+        elif leaf in ("in_proj_weight", "global_motion_token"):
+            bound = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
+            p.uniform_(-bound, bound, generator=g)
+        elif leaf == "weight" and p.dim() == 2:
+            p.normal_(0.0, p.shape[1] ** -0.5, generator=g)
+        elif leaf == "weight":
+            p.fill_(1.0)
+        else:
+            p.zero_()
+
+
+class MLD(nn.Module):
+    """Module set built from a Config, on an explicit device.
+
+    Parameters are initialised from `generator` (a CPU torch.Generator;
+    default: seeded with cfg.seed) and can be replaced with
+    `load_flax_params` or `load_state_dict` (reference torch names)."""
+
+    def __init__(self, cfg: Config, mean: Optional[np.ndarray] = None,
+                 std: Optional[np.ndarray] = None, *, device="cpu",
+                 weight_dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        m = cfg.model
+        self.nfeats = cfg.dataset.nfeats
+        self.njoints = cfg.dataset.njoints
+        self.max_frames = cfg.dataset.max_motion_len
+        self.latent_size = m.latent_size
+        self.latent_dim = m.latent_dim
+        self.guidance_scale = m.guidance_scale
+        self.do_cfg = m.guidance_scale > 1.0
+        self.clip_mode = "features"
+
+        with torch.device("meta"):
+            self.vae = MldVae(self.nfeats, m.latent_size, m.latent_dim,
+                              m.ff_size, m.num_layers, m.num_heads,
+                              m.activation)
+            self.denoiser = MldDenoiser(
+                m.latent_size, m.latent_dim, m.ff_size,
+                m.denoiser_num_layers, m.num_heads, m.text_encoded_dim,
+                pe_max_len=max(500, self.max_frames + 8),
+                activation=m.activation, weight_dtype=weight_dtype)
+            self.clip = ClipTextModel(width=m.text_encoded_dim,
+                                      layers=m.clip_layers,
+                                      heads=m.clip_heads,
+                                      projection_dim=m.text_encoded_dim,
+                                      compute_dtype=m.clip_compute_dtype)
+        self.to_empty(device="cpu")
+        init_params(self, generator if generator is not None
+                    else torch.Generator().manual_seed(cfg.seed))
+        # normalisation stats: constants of the run, not checkpoint params
+        for name, val, default in (("mean", mean, 0.0), ("std", std, 1.0)):
+            arr = np.full(self.nfeats, default) if val is None else val
+            self.register_buffer(name, torch.as_tensor(arr, dtype=torch.float32),
+                                 persistent=False)
+        self.to(device)
+        self.device = torch.device(device)
+
+        sc = m.scheduler
+        schedule = DiffusionSchedule.create(
+            sc.num_train_timesteps, sc.beta_start, sc.beta_end,
+            sc.beta_schedule,
+            "epsilon" if cfg.train.predict_epsilon else "sample",
+            sc.clip_sample)
+        self.scheduler = DDIMScheduler(schedule, sc.num_inference_timesteps,
+                                       sc.eta, sc.steps_offset,
+                                       sc.set_alpha_to_one)
+
+        self.tokenizer = ClipTokenizer(m.clip_path)
+        # features mode: the empty prompt is [BOS, EOS, pad...]; under causal
+        # attention + EOT pooling only the first 2 positions matter, so the
+        # uncond row is encoded at context 8 (exact)
+        self.uncond_ids = self.tokenizer([""])[:, :8]
+        self.denoiser.restack()
+
+    def load_flax_params(self, tree: Mapping):
+        """Load a JAX-package param tree {vae, denoiser, clip} of numpy (or
+        jax) arrays. The kernel's stacked weights are rebuilt on load."""
+        sd = {}
+        for top in ("vae", "denoiser"):
+            sd.update({f"{top}.{k}": v
+                       for k, v in flax_to_state_dict(tree[top]).items()})
+        sd.update({f"clip.{k}": v
+                   for k, v in flax_clip_to_state_dict(tree["clip"]).items()})
+        self.load_state_dict(sd, strict=True)
+
+    # --------------------------------------------------------------- text
+    def tokenize(self, texts: Sequence[str]) -> torch.Tensor:
+        """Serving-path ids [B, L] on the device, cropped to the smallest
+        EOT bucket (exact under causal attention + EOT pooling)."""
+        ids = self.tokenizer(list(texts), buckets=TEXT_BUCKETS)
+        return torch.as_tensor(ids, dtype=torch.long, device=self.device)
+
+    @torch.no_grad()
+    def encode_text_tokens(self, token_ids: torch.Tensor) -> torch.Tensor:
+        """[B, L] ids -> [B, 1, text_dim] CLIP text features (f32)."""
+        return self.clip(token_ids.to(self.device, torch.long),
+                         mode=self.clip_mode)[:, None, :]
+
+    # ----------------------------------------------------------- sampling
+    @torch.no_grad()
+    def diffusion_reverse(self, cond_emb: torch.Tensor,
+                          generator: Optional[torch.Generator] = None,
+                          init_latents: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """cond_emb [2B, S, D] under CFG (uncond half first) else [B, S, D]
+        -> latents [B, latent_size, latent_dim]. `init_latents` replaces the
+        drawn initial noise (already scaled by init_noise_sigma)."""
+        B = cond_emb.shape[0] // 2 if self.do_cfg else cond_emb.shape[0]
+        if init_latents is None:
+            shape = (B, self.latent_size, self.latent_dim)
+            dev = generator.device if generator is not None else self.device
+            init_latents = (torch.randn(shape, generator=generator, device=dev)
+                            * self.scheduler.init_noise_sigma)
+        latents = init_latents.to(self.device, torch.float32)
+        timesteps = self.scheduler.timesteps()
+        # step-invariant preamble hoisted out of the loop: the time-embedding
+        # table and the projected condition tokens, computed once
+        time_tab, cond_lat = precompute_cond(
+            self.denoiser, torch.as_tensor(timesteps, device=self.device),
+            cond_emb)
+        for i, t in enumerate(timesteps):
+            model_in = torch.cat([latents, latents]) if self.do_cfg else latents
+            out = self.denoiser(model_in, int(t), cond_emb,
+                                time_emb=time_tab[i], cond_lat=cond_lat)
+            if self.do_cfg:
+                out_uncond, out_text = out.chunk(2)
+                out = out_uncond + self.guidance_scale * (out_text - out_uncond)
+            latents = self.scheduler.step(out, int(t), latents)
+        return latents
+
+    @torch.no_grad()
+    def decode_latent(self, z: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        return self.vae.decode(z, mask)
+
+    def feats2joints(self, feats: torch.Tensor) -> torch.Tensor:
+        """de-normalise + RIC decode (HumanML3D.py:41-45)."""
+        return recover_from_ric(feats * self.std + self.mean, self.njoints)
+
+    @torch.no_grad()
+    def generate_joints(self, token_ids: torch.Tensor, mask: torch.Tensor, *,
+                        generator: Optional[torch.Generator] = None,
+                        init_latents: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """prompt ids [B, L] + mask [B, T] -> [B, T, njoints, 3] joints,
+        zero outside the mask."""
+        mask = mask.to(self.device)
+        cond_emb = self.encode_text_tokens(token_ids)
+        if self.do_cfg:
+            # the uncond embedding is prompt-independent: encode ONE row
+            # and broadcast it over the uncond half
+            uncond = self.encode_text_tokens(
+                torch.as_tensor(self.uncond_ids, device=self.device))
+            cond_emb = torch.cat([uncond.expand_as(cond_emb), cond_emb])
+        z = self.diffusion_reverse(cond_emb, generator, init_latents)
+        joints = self.feats2joints(self.decode_latent(z, mask))
+        return joints * mask[..., None, None]
+
+    def generate(self, texts: Sequence[str], lengths: Sequence[int],
+                 generator: Optional[torch.Generator] = None
+                 ) -> List[np.ndarray]:
+        """list[str] + list[int] -> list of [len, njoints, 3] numpy arrays."""
+        mask = lengths_to_mask(list(lengths), self.max_frames, self.device)
+        joints = self.generate_joints(self.tokenize(texts), mask,
+                                      generator=generator).cpu().numpy()
+        return [joints[i, : int(n)] for i, n in enumerate(lengths)]

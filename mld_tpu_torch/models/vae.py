@@ -1,0 +1,69 @@
+"""MldVae — transformer motion VAE, ``encoder_decoder`` arch (port of
+``mld_tpu/models/vae.py``), batch-first and mask-driven.
+
+Parameter names follow the reference torch module
+(mld/models/architectures/mld_vae.py:33-248): ``query_pos_encoder.pe``,
+``query_pos_decoder.pe``, ``encoder.*``, ``decoder.*``,
+``global_motion_token``, ``skel_embedding``, ``final_layer``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from mld_tpu_torch.ops.embeddings import PositionEmbeddingLearned1D
+from mld_tpu_torch.ops.transformer import (SkipTransformerDecoder,
+                                           SkipTransformerEncoder)
+
+
+class MldVae(nn.Module):
+    def __init__(self, nfeats: int, latent_size: int = 1,
+                 latent_dim: int = 256, ff_size: int = 1024,
+                 num_layers: int = 9, num_heads: int = 4,
+                 activation: str = "gelu"):
+        super().__init__()
+        d = latent_dim
+        self.latent_size = latent_size
+        self.latent_dim = latent_dim
+        self.query_pos_encoder = PositionEmbeddingLearned1D(d)
+        self.query_pos_decoder = PositionEmbeddingLearned1D(d)
+        self.encoder = SkipTransformerEncoder(d, num_heads, num_layers,
+                                              ff_size, activation)
+        self.decoder = SkipTransformerDecoder(d, num_heads, num_layers,
+                                              ff_size, activation)
+        self.global_motion_token = nn.Parameter(torch.empty(2 * latent_size, d))
+        self.skel_embedding = nn.Linear(nfeats, d)
+        self.final_layer = nn.Linear(d, nfeats)
+
+    @torch.no_grad()
+    def encode(self, features: torch.Tensor, mask: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               sample_mean: bool = False, fact: float = 1.0
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """features [B, T, nfeats], mask [B, T] bool -> (z, (mu, logvar)),
+        each [B, latent_size, latent_dim]. Without a generator (or with
+        sample_mean) z is mu."""
+        B = features.shape[0]
+        x = self.skel_embedding(features)
+        dist = self.global_motion_token[None].expand(B, -1, -1)
+        xseq = self.query_pos_encoder(torch.cat([dist, x], dim=1))
+        valid = torch.cat([mask.new_ones(B, dist.shape[1]), mask], dim=1)
+        out = self.encoder(xseq, valid)[:, : dist.shape[1]]
+        mu, logvar = out[:, : self.latent_size], out[:, self.latent_size:]
+        if sample_mean or generator is None:
+            return mu, (mu, logvar)
+        eps = torch.randn(mu.shape, generator=generator,
+                          device=generator.device).to(mu)
+        return mu + fact * eps * torch.exp(0.5 * logvar), (mu, logvar)
+
+    @torch.no_grad()
+    def decode(self, z: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """z [B, latent_size, latent_dim], mask [B, T] -> feats [B, T, nfeats],
+        zero outside the mask."""
+        B, T = mask.shape
+        queries = self.query_pos_decoder(
+            z.new_zeros(B, T, self.latent_dim))
+        output = self.decoder(queries, z, tgt_valid=mask)
+        return self.final_layer(output) * mask[..., None]

@@ -1,0 +1,58 @@
+"""Positional and timestep embeddings (port of ``mld_tpu/ops/embeddings.py``).
+
+Parity targets:
+  learned 1D PE        — mld/models/operator/position_encoding.py:138-159
+  timestep sinusoid    — mld/models/architectures/tools/embeddings.py:245-322
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
+                           flip_sin_to_cos: bool = False,
+                           downscale_freq_shift: float = 1.0,
+                           scale: float = 1.0,
+                           max_period: int = 10000) -> torch.Tensor:
+    """DDPM sinusoidal timestep embedding. timesteps: [N] -> [N, dim] f32."""
+    half_dim = embedding_dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half_dim, dtype=torch.float32, device=timesteps.device)
+    exponent = exponent / (half_dim - downscale_freq_shift)
+    emb = torch.exp(exponent)
+    emb = timesteps.to(torch.float32)[:, None] * emb[None, :]
+    emb = scale * emb
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if flip_sin_to_cos:
+        emb = torch.cat([emb[:, half_dim:], emb[:, :half_dim]], dim=-1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class PositionEmbeddingLearned1D(nn.Module):
+    """Learned additive PE over the (batch-first) sequence axis; the table
+    keeps the reference's ``pe [max_len, 1, D]`` layout."""
+
+    def __init__(self, d_model: int, max_len: int = 500):
+        super().__init__()
+        self.pe = nn.Parameter(torch.empty(max_len, 1, d_model))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # x: [B, S, D]
+        return x + self.pe[: x.shape[1], 0][None]
+
+
+class TimestepEmbedding(nn.Module):
+    """2-layer SiLU MLP over the sinusoid (embeddings.py:288-305)."""
+
+    def __init__(self, in_channels: int, time_embed_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_channels, time_embed_dim)
+        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+
+    def forward(self, sample: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(sample)))

@@ -1,0 +1,69 @@
+"""Inference forward of the latent denoiser over the fused encoder stack
+(port of ``mld_tpu/ops/fused_denoiser.py``, text condition).
+
+Everything around the stack (timestep sinusoid + MLP, text projection,
+learned PE, the final norm) is plain PyTorch; the stack itself is
+``ops.fused_layer.skip_encoder_stack`` (the CUDA kernel on the card).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .embeddings import get_timestep_embedding
+from .fused_layer import LN_EPS, skip_encoder_stack
+
+
+def _time_embedding(denoiser, timesteps: torch.Tensor) -> torch.Tensor:
+    t_sin = get_timestep_embedding(timesteps, denoiser.text_encoded_dim,
+                                   denoiser.flip_sin_to_cos,
+                                   denoiser.freq_shift)
+    return denoiser.time_embedding(t_sin)
+
+
+def _cond_tokens(denoiser, text_emb: torch.Tensor) -> torch.Tensor:
+    # emb_proj is Sequential(ReLU, Linear): the reference applies ReLU
+    # before the projection (denoiser.py:161-163)
+    if denoiser.emb_proj is None:
+        return text_emb
+    return denoiser.emb_proj(text_emb)
+
+
+@torch.no_grad()
+def precompute_cond(denoiser, timesteps: torch.Tensor,
+                    encoder_hidden_states: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step-invariant preamble, computed once per generate call: the
+    time-embedding table [n_steps, d] and the projected condition tokens
+    [B, S_cond, d]."""
+    return (_time_embedding(denoiser, timesteps),
+            _cond_tokens(denoiser, encoder_hidden_states))
+
+
+@torch.no_grad()
+def fused_denoiser_forward(denoiser, sample: torch.Tensor,
+                           timestep, encoder_hidden_states: torch.Tensor,
+                           time_emb: Optional[torch.Tensor] = None,
+                           cond_lat: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """sample [B, L, d]; encoder_hidden_states [B, S_text, text_dim].
+    time_emb [d] and cond_lat [B, S_cond, d] come from precompute_cond
+    (both or neither). Returns [B, L, d]."""
+    B, L, D = sample.shape
+    if time_emb is None:
+        timesteps = torch.as_tensor(timestep, device=sample.device)
+        time_emb = _time_embedding(denoiser, timesteps.expand(B))[:, None]
+        cond_lat = _cond_tokens(denoiser, encoder_hidden_states)
+    else:
+        time_emb = time_emb.to(sample.dtype).reshape(1, 1, D).expand(B, 1, D)
+    xseq = torch.cat([sample, time_emb, cond_lat], dim=1)
+    xseq = xseq + denoiser.query_pos.pe[: xseq.shape[1], 0][None]
+
+    enc = denoiser.encoder
+    x = skip_encoder_stack(xseq.contiguous(), denoiser.stacked_encoder(),
+                           len(enc.input_blocks), enc.num_heads)
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    x = (x - mu) / torch.sqrt(var + LN_EPS) * enc.norm.weight + enc.norm.bias
+    return x[:, :L]

@@ -1,0 +1,205 @@
+"""The denoiser's whole skip-connected encoder stack as one CUDA kernel.
+
+Port of ``mld_tpu/ops/fused_layer.py:fused_skip_encoder`` (the Pallas
+``_skip_encoder_kernel``). The kernel is ``csrc/skip_encoder.cu``, built by
+``ops/_build.py``; ``skip_encoder_stack_plain`` is the same function in plain
+PyTorch. The wrapper ``skip_encoder_stack`` takes the plain version only for
+tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
+
+The per-layer weights are stacked once, when parameters are loaded
+(``stack_skip_encoder``), into ``[L, in, out]`` matrices (f32, or bf16 for the
+bf16-weight arm) and f32 ``[L, K]`` vectors. LayerNorm eps is 1e-5, as in the
+TPU kernel (``fused_layer.py:78``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+MAX_S = 8            # short-sequence regime; the latent denoiser has S=3
+MAX_TILE_ROWS = 16   # rows (sequences x S) a kernel block holds
+LN_EPS = 1e-5
+
+# kernel launches made by skip_encoder_stack (CUDA only)
+LAUNCHES = 0
+
+
+class StackedSkipEncoder(NamedTuple):
+    """Weights of a SkipTransformerEncoder, stacked for the kernel.
+
+    Layer order: input_blocks[0..n-1], middle_block, output_blocks[0..n-1].
+    Matrices are [in, out]; the skip linears split into the rows that
+    multiply x (wsx) and the popped skip (wss)."""
+    wqkv: torch.Tensor   # [L, D, 3D]
+    bqkv: torch.Tensor   # [L, 3D]
+    wo: torch.Tensor     # [L, D, D]
+    bo: torch.Tensor     # [L, D]
+    ln1s: torch.Tensor   # [L, D]
+    ln1b: torch.Tensor
+    w1: torch.Tensor     # [L, D, F]
+    b1: torch.Tensor     # [L, F]
+    w2: torch.Tensor     # [L, F, D]
+    b2: torch.Tensor     # [L, D]
+    ln2s: torch.Tensor
+    ln2b: torch.Tensor
+    wsx: torch.Tensor    # [n, D, D]
+    wss: torch.Tensor    # [n, D, D]
+    bs: torch.Tensor     # [n, D]
+
+
+_MATRICES = ("wqkv", "wo", "w1", "w2", "wsx", "wss")
+
+
+@torch.no_grad()
+def stack_skip_encoder(encoder, weight_dtype=torch.float32
+                       ) -> StackedSkipEncoder:
+    """ops.transformer.SkipTransformerEncoder -> StackedSkipEncoder, on the
+    encoder's device. Matrices in `weight_dtype`, vectors in f32."""
+    layers = [*encoder.input_blocks, encoder.middle_block,
+              *encoder.output_blocks]
+    D = encoder.norm.normalized_shape[0]
+
+    def mat(ws):
+        return torch.stack([w.t() for w in ws]).to(weight_dtype).contiguous()
+
+    def vec(vs):
+        return torch.stack(list(vs)).float().contiguous()
+
+    skips = list(encoder.linear_blocks)
+    if skips:
+        wsx = mat(s.weight[:, :D] for s in skips)
+        wss = mat(s.weight[:, D:] for s in skips)
+        bs = vec(s.bias for s in skips)
+    else:
+        dev = encoder.norm.weight.device
+        wsx = wss = torch.empty(0, D, D, dtype=weight_dtype, device=dev)
+        bs = torch.empty(0, D, device=dev)
+    return StackedSkipEncoder(
+        wqkv=mat(l.self_attn.in_proj_weight for l in layers),
+        bqkv=vec(l.self_attn.in_proj_bias for l in layers),
+        wo=mat(l.self_attn.out_proj.weight for l in layers),
+        bo=vec(l.self_attn.out_proj.bias for l in layers),
+        ln1s=vec(l.norm1.weight for l in layers),
+        ln1b=vec(l.norm1.bias for l in layers),
+        w1=mat(l.linear1.weight for l in layers),
+        b1=vec(l.linear1.bias for l in layers),
+        w2=mat(l.linear2.weight for l in layers),
+        b2=vec(l.linear2.bias for l in layers),
+        ln2s=vec(l.norm2.weight for l in layers),
+        ln2b=vec(l.norm2.bias for l in layers),
+        wsx=wsx, wss=wss, bs=bs)
+
+
+def _layer_norm(h, scale, bias):
+    mu = h.mean(-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(-1, keepdim=True)
+    return (h - mu) * torch.rsqrt(var + LN_EPS) * scale + bias
+
+
+def _mm(a, w):
+    # bf16 weights multiply activations rounded to bf16, accumulating in
+    # f32 (the TPU kernel's _mm); f32 weights multiply f32 activations
+    if w.dtype != torch.float32:
+        a, w = a.to(w.dtype).float(), w.float()
+    return a @ w
+
+
+def skip_encoder_stack_plain(x: torch.Tensor, stacked: StackedSkipEncoder,
+                             n_block: int, num_heads: int) -> torch.Tensor:
+    """The kernel's function in plain PyTorch. x [B, S, D] f32 -> [B, S, D],
+    before the stack's final norm."""
+    st = stacked
+    B, S, D = x.shape
+    H = num_heads
+    scale = 1.0 / float((D // H) ** 0.5)
+    stack = []
+    for l in range(2 * n_block + 1):
+        if l > n_block:
+            i = l - n_block - 1
+            x = _mm(x, st.wsx[i]) + _mm(stack.pop(), st.wss[i]) + st.bs[i]
+        q, k, v = (_mm(x, st.wqkv[l]) + st.bqkv[l]).split(D, dim=-1)
+        q = (q * scale).reshape(B, S, H, D // H)
+        k = k.reshape(B, S, H, D // H)
+        v = v.reshape(B, S, H, D // H)
+        probs = torch.einsum("bqhd,bkhd->bhqk", q, k).softmax(dim=-1)
+        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, D)
+        x = _layer_norm(x + _mm(attn, st.wo[l]) + st.bo[l],
+                        st.ln1s[l], st.ln1b[l])
+        ff = F.gelu(_mm(x, st.w1[l]) + st.b1[l])
+        x = _layer_norm(x + _mm(ff, st.w2[l]) + st.b2[l],
+                        st.ln2s[l], st.ln2b[l])
+        if l < n_block:
+            stack.append(x)
+    return x
+
+
+def _check(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
+           num_heads: int):
+    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous f32 [B, S, D], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    B, S, D = x.shape
+    L = 2 * n_block + 1
+    F_ = st.w1.shape[-1]
+    if not 1 <= S <= MAX_S:
+        raise ValueError(f"the kernel is for S <= {MAX_S} tokens (S={S})")
+    if D % num_heads or D % 8 or F_ % 8:
+        raise ValueError(f"unsupported widths D={D} H={num_heads} F={F_}")
+    shapes = {"wqkv": (L, D, 3 * D), "bqkv": (L, 3 * D), "wo": (L, D, D),
+              "bo": (L, D), "ln1s": (L, D), "ln1b": (L, D),
+              "w1": (L, D, F_), "b1": (L, F_), "w2": (L, F_, D), "b2": (L, D),
+              "ln2s": (L, D), "ln2b": (L, D), "wsx": (n_block, D, D),
+              "wss": (n_block, D, D), "bs": (n_block, D)}
+    wdt = st.wqkv.dtype
+    if wdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"weights must be f32 or bf16, got {wdt}")
+    for name, shape in shapes.items():
+        t = getattr(st, name)
+        want = wdt if name in _MATRICES else torch.float32
+        if (tuple(t.shape) != shape or t.dtype != want
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(
+                f"stacked.{name}: want contiguous {want} {shape} on "
+                f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def seq_per_block(n_seq: int, S: int, num_sms: int) -> int:
+    """Sequences in one kernel block: the fewest that still give every SM a
+    block, at most MAX_TILE_ROWS // S."""
+    return max(1, min(MAX_TILE_ROWS // S, -(-n_seq // num_sms)))
+
+
+def skip_encoder_stack(x: torch.Tensor, stacked: StackedSkipEncoder,
+                       n_block: int, num_heads: int) -> torch.Tensor:
+    """x [B, S, D] f32 -> [B, S, D], the whole stack before its final norm.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream (no synchronisation) or raise."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return skip_encoder_stack_plain(x, stacked, n_block, num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"no skip-encoder kernel for device {x.device}")
+    _check(x, stacked, n_block, num_heads)
+    B, S, D = x.shape
+    lib = _build.library()
+    out = torch.empty_like(x)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    st = stacked
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mld_skip_encoder_forward(
+            x.data_ptr(), out.data_ptr(),
+            *(getattr(st, f).data_ptr() for f in StackedSkipEncoder._fields),
+            B, S, D, num_heads, st.w1.shape[-1], n_block,
+            seq_per_block(B, S, sms),
+            int(st.wqkv.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"skip-encoder kernel launch failed: cudaError "
+                           f"{err}")
+    LAUNCHES += 1
+    return out

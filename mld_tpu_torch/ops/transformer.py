@@ -1,0 +1,160 @@
+"""DETR-style post-norm transformer stack (port of
+``mld_tpu/ops/transformer.py``), batch-first and mask-driven.
+
+Module and parameter names follow the reference torch modules
+(mld/models/operator/cross_attention.py:18-382): ``input_blocks.N``,
+``middle_block``, ``output_blocks.N``, ``linear_blocks.N``, ``norm``, and
+``self_attn.in_proj_weight`` / ``out_proj`` inside each layer, so a reference
+``state_dict`` loads with a plain ``load_state_dict``.
+
+LayerNorm epsilon mirrors the JAX path each module is held against: the flax
+modules use flax's default 1e-6 (``transformer.py:101-102``, ``142-144``,
+``199``, ``235``), which is what these modules default to. The fused
+denoiser path uses 1e-5 (``ops/fused_layer.py``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import sdpa
+
+FLAX_LN_EPS = 1e-6
+
+
+def get_activation(name: str):
+    if name == "relu":
+        return F.relu
+    if name == "gelu":
+        return F.gelu  # exact (erf) gelu
+    raise ValueError(f"activation {name} not supported")
+
+
+class MultiheadAttention(nn.Module):
+    """Packed-QKV multi-head attention with torch MHA's parameter names."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+
+    def forward(self, query, key, value, key_valid=None):
+        d = query.shape[-1]
+        w, b = self.in_proj_weight, self.in_proj_bias
+        if query is key and key is value:
+            q, k, v = F.linear(query, w, b).split(d, dim=-1)
+        else:
+            q = F.linear(query, w[:d], b[:d])
+            k = F.linear(key, w[d:2 * d], b[d:2 * d])
+            v = F.linear(value, w[2 * d:], b[2 * d:])
+        B, Sq, _ = query.shape
+        H = self.num_heads
+
+        def split(t):
+            return t.reshape(B, t.shape[1], H, d // H).transpose(1, 2)
+
+        out = sdpa(split(q), split(k), split(v), key_valid)
+        return self.out_proj(out.transpose(1, 2).reshape(B, Sq, d))
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-norm encoder layer (cross_attention.py:236-294), inference."""
+
+    def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
+                 activation: str = "gelu", eps: float = FLAX_LN_EPS):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, num_heads)
+        self.linear1 = nn.Linear(d_model, ff_size)
+        self.linear2 = nn.Linear(ff_size, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=eps)
+        self.norm2 = nn.LayerNorm(d_model, eps=eps)
+        self.activation = get_activation(activation)
+
+    def forward(self, src, key_valid=None):
+        src = self.norm1(src + self.self_attn(src, src, src, key_valid))
+        return self.norm2(src + self.linear2(self.activation(self.linear1(src))))
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-norm decoder layer: self-attn over tgt, cross-attn to memory,
+    FFN (cross_attention.py:297-382), inference."""
+
+    def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
+                 activation: str = "gelu", eps: float = FLAX_LN_EPS):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, num_heads)
+        self.multihead_attn = MultiheadAttention(d_model, num_heads)
+        self.linear1 = nn.Linear(d_model, ff_size)
+        self.linear2 = nn.Linear(ff_size, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=eps)
+        self.norm2 = nn.LayerNorm(d_model, eps=eps)
+        self.norm3 = nn.LayerNorm(d_model, eps=eps)
+        self.activation = get_activation(activation)
+
+    def forward(self, tgt, memory, tgt_valid=None, memory_valid=None):
+        tgt = self.norm1(tgt + self.self_attn(tgt, tgt, tgt, tgt_valid))
+        tgt = self.norm2(tgt + self.multihead_attn(tgt, memory, memory,
+                                                   memory_valid))
+        return self.norm3(tgt + self.linear2(self.activation(self.linear1(tgt))))
+
+
+class _SkipStack(nn.Module):
+    """(n-1)/2 down blocks, a middle block and (n-1)/2 up blocks whose input
+    is concat([x, stack.pop()]) @ linear_blocks[i] (LIFO)."""
+
+    def __init__(self, make_layer, d_model: int, num_layers: int,
+                 eps: float):
+        super().__init__()
+        if num_layers % 2 != 1:
+            raise ValueError("skip stack needs an odd num_layers")
+        n_block = (num_layers - 1) // 2
+        self.input_blocks = nn.ModuleList(make_layer() for _ in range(n_block))
+        self.middle_block = make_layer()
+        self.output_blocks = nn.ModuleList(make_layer() for _ in range(n_block))
+        self.linear_blocks = nn.ModuleList(
+            nn.Linear(2 * d_model, d_model) for _ in range(n_block))
+        self.norm = nn.LayerNorm(d_model, eps=eps)
+
+    def _run(self, x, layer_fn):
+        stack = []
+        for layer in self.input_blocks:
+            x = layer_fn(layer, x)
+            stack.append(x)
+        x = layer_fn(self.middle_block, x)
+        for linear, layer in zip(self.linear_blocks, self.output_blocks):
+            x = linear(torch.cat([x, stack.pop()], dim=-1))
+            x = layer_fn(layer, x)
+        return self.norm(x)
+
+
+class SkipTransformerEncoder(_SkipStack):
+    def __init__(self, d_model: int, num_heads: int, num_layers: int,
+                 ff_size: int = 1024, activation: str = "gelu",
+                 eps: float = FLAX_LN_EPS):
+        super().__init__(
+            lambda: TransformerEncoderLayer(d_model, num_heads, ff_size,
+                                            activation, eps),
+            d_model, num_layers, eps)
+        self.num_heads = num_heads
+
+    def forward(self, src, key_valid: Optional[torch.Tensor] = None):
+        return self._run(src, lambda layer, x: layer(x, key_valid))
+
+
+class SkipTransformerDecoder(_SkipStack):
+    def __init__(self, d_model: int, num_heads: int, num_layers: int,
+                 ff_size: int = 1024, activation: str = "gelu",
+                 eps: float = FLAX_LN_EPS):
+        super().__init__(
+            lambda: TransformerDecoderLayer(d_model, num_heads, ff_size,
+                                            activation, eps),
+            d_model, num_layers, eps)
+
+    def forward(self, tgt, memory, tgt_valid=None, memory_valid=None):
+        return self._run(
+            tgt, lambda layer, x: layer(x, memory, tgt_valid, memory_valid))

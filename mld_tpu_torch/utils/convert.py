@@ -1,0 +1,93 @@
+"""Flax param tree -> torch ``state_dict`` (the inverse of
+``mld_tpu/utils/torch_convert.py:torch_state_dict_to_flax`` and of
+``mld_tpu/models/clip_text.py:convert_hf_clip_text``).
+
+Works on trees of numpy arrays, so the port loads weights produced by the
+JAX package without importing it.
+
+Rules for the denoiser and VAE subtrees:
+  ``kernel`` [in, out]         -> ``weight`` [out, in]
+  ``in_proj_kernel``           -> ``in_proj_weight`` (transposed)
+  LayerNorm ``scale``          -> ``weight``
+  ``input_blocks_0``           -> ``input_blocks.0`` (and output_blocks,
+                                  linear_blocks)
+  ``emb_proj``                 -> ``emb_proj.1`` (Sequential(ReLU, Linear))
+  ``pe``, ``global_motion_token`` and every other leaf pass unchanged.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_INDEXED = re.compile(r"^(input_blocks|output_blocks|linear_blocks)_(\d+)$")
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, order="C"))
+
+
+def _module_name(part: str) -> str:
+    m = _INDEXED.match(part)
+    if m:
+        return f"{m.group(1)}.{m.group(2)}"
+    if part == "emb_proj":
+        return "emb_proj.1"
+    return part
+
+
+def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A denoiser or VAE flax param tree -> torch state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                walk(val, path + [_module_name(key)])
+                continue
+            arr = np.asarray(val)
+            if key == "kernel":
+                key, arr = "weight", arr.T
+            elif key == "in_proj_kernel":
+                key, arr = "in_proj_weight", arr.T
+            elif key == "scale":
+                key = "weight"
+            out[".".join(path + [key])] = _tensor(arr)
+
+    walk(tree, [])
+    return out
+
+
+def flax_clip_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The CLIP text tower's flax param tree -> HF
+    ``CLIPTextModelWithProjection`` state_dict names."""
+    out = {
+        "text_model.embeddings.token_embedding.weight":
+            _tensor(tree["token_embedding"]),
+        "text_model.embeddings.position_embedding.weight":
+            _tensor(tree["position_embedding"]),
+        "text_projection.weight": _tensor(np.asarray(tree["text_projection"]).T),
+    }
+    final = tree["final_layer_norm"]
+    out["text_model.final_layer_norm.weight"] = _tensor(final["scale"])
+    out["text_model.final_layer_norm.bias"] = _tensor(final["bias"])
+    for name, layer in tree.items():
+        m = re.match(r"^layers_(\d+)$", name)
+        if not m:
+            continue
+        pre = f"text_model.encoder.layers.{m.group(1)}"
+        for sub, p in layer.items():
+            if sub == "self_attn":
+                for proj, q in p.items():
+                    out[f"{pre}.self_attn.{proj}.weight"] = _tensor(
+                        np.asarray(q["kernel"]).T)
+                    out[f"{pre}.self_attn.{proj}.bias"] = _tensor(q["bias"])
+            elif sub in ("layer_norm1", "layer_norm2"):
+                out[f"{pre}.{sub}.weight"] = _tensor(p["scale"])
+                out[f"{pre}.{sub}.bias"] = _tensor(p["bias"])
+            else:  # fc1, fc2
+                out[f"{pre}.mlp.{sub}.weight"] = _tensor(np.asarray(p["kernel"]).T)
+                out[f"{pre}.mlp.{sub}.bias"] = _tensor(p["bias"])
+    return out

@@ -1,0 +1,169 @@
+"""Port's denoiser stack (K1) vs the JAX package: the plain PyTorch stack
+against ``fused_skip_encoder`` run in interpret mode, and the port's fused
+denoiser forward against JAX's. Same numpy inputs and weights on both sides
+(weights carried by ``flax_to_state_dict``). The CUDA kernel itself is
+checked against the same plain stack on the card by ``chip_smoke.py``.
+
+Tolerances: f32 atol 5e-5 / rtol 1e-4, the bar ``tests/test_fused_layer.py``
+holds the TPU kernel to; both sides use LayerNorm eps 1e-5 (the kernel's).
+"""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+import mld_tpu  # noqa: F401
+from mld_tpu.models.denoiser import MldDenoiser as JaxDenoiser
+from mld_tpu.ops.fused_denoiser import (
+    fused_denoiser_forward as jax_fused_denoiser_forward)
+from mld_tpu.ops.fused_layer import fused_skip_encoder
+from mld_tpu.ops.transformer import SkipTransformerEncoder as JaxSkipEncoder
+
+from mld_tpu_torch.models.denoiser import MldDenoiser
+from mld_tpu_torch.ops import fused_layer
+from mld_tpu_torch.ops.fused_denoiser import (fused_denoiser_forward,
+                                              precompute_cond)
+from mld_tpu_torch.ops.fused_layer import (seq_per_block,
+                                           skip_encoder_stack,
+                                           skip_encoder_stack_plain,
+                                           stack_skip_encoder)
+from mld_tpu_torch.ops.transformer import SkipTransformerEncoder
+from mld_tpu_torch.utils.convert import flax_to_state_dict
+
+
+def _stack_pair(L, D, H, F, B, S=3, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, S, D).astype(np.float32)
+    jax_stack = JaxSkipEncoder(d_model=D, num_heads=H, num_layers=L,
+                               ff_size=F, dropout=0.0)
+    params = jax_stack.init({"params": jax.random.PRNGKey(seed)},
+                            jnp.asarray(x))["params"]
+    enc = SkipTransformerEncoder(D, H, L, F)
+    enc.load_state_dict(flax_to_state_dict(params))
+    return x, params, enc
+
+
+@pytest.mark.parametrize("L,D,H,F,B", [
+    (3, 64, 2, 128, 8),
+    (9, 256, 4, 1024, 2),   # flagship width, small batch
+])
+def test_plain_stack_matches_jax_kernel(L, D, H, F, B):
+    x, params, enc = _stack_pair(L, D, H, F, B)
+    ref = fused_skip_encoder(jnp.asarray(x), params, L, H, interpret=True)
+    out = skip_encoder_stack_plain(torch.from_numpy(x),
+                                   stack_skip_encoder(enc), (L - 1) // 2, H)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               atol=5e-5, rtol=1e-4)
+
+
+def test_plain_stack_bf16_weights_matches_jax_kernel():
+    # both sides round weights AND the activation operand to bf16 and
+    # accumulate exact products in f32, so they agree to f32 summation
+    # order; an activation that sits on a bf16 rounding boundary can round
+    # the other way on one side and move a product by one bf16 ulp of the
+    # operand (2^-8 relative), which 3 layers and their LayerNorms carry to
+    # the output: hence 1e-3, two orders below the bf16-vs-f32 gap checked
+    # by the second assertion
+    L, D, H, F, B = 3, 64, 2, 128, 8
+    x, params, enc = _stack_pair(L, D, H, F, B)
+    ref = fused_skip_encoder(jnp.asarray(x), params, L, H, interpret=True,
+                             weight_dtype=jnp.bfloat16)
+    st = stack_skip_encoder(enc, torch.bfloat16)
+    assert st.wqkv.dtype == torch.bfloat16 and st.bqkv.dtype == torch.float32
+    out = skip_encoder_stack_plain(torch.from_numpy(x), st, 1, H)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3)
+    f32 = skip_encoder_stack_plain(torch.from_numpy(x),
+                                   stack_skip_encoder(enc), 1, H)
+    assert np.abs(f32.numpy() - out.numpy()).max() > 1e-3
+
+
+def test_wrapper_takes_plain_version_on_cpu_only():
+    L, D, H, F, B = 3, 64, 2, 128, 4
+    x, _, enc = _stack_pair(L, D, H, F, B)
+    st = stack_skip_encoder(enc)
+    xt = torch.from_numpy(x)
+    before = fused_layer.LAUNCHES
+    out = skip_encoder_stack(xt, st, 1, H)
+    np.testing.assert_array_equal(
+        out.numpy(), skip_encoder_stack_plain(xt, st, 1, H).numpy())
+    assert fused_layer.LAUNCHES == before
+    with pytest.raises(ValueError, match="no skip-encoder kernel"):
+        skip_encoder_stack(xt.to("meta"), st, 1, H)
+
+
+def test_kernel_argument_checks():
+    L, D, H, F, B = 3, 64, 2, 128, 4
+    x, _, enc = _stack_pair(L, D, H, F, B)
+    st = stack_skip_encoder(enc)
+    xt = torch.from_numpy(x)
+    fused_layer._check(xt, st, 1, H)                       # accepted
+    with pytest.raises(ValueError, match="f32"):
+        fused_layer._check(xt.double(), st, 1, H)
+    with pytest.raises(ValueError, match="S <= 8"):
+        fused_layer._check(torch.zeros(2, 9, D), st, 1, H)
+    with pytest.raises(ValueError, match="stacked.wqkv"):
+        fused_layer._check(xt, st._replace(wqkv=st.wqkv[:2]), 1, H)
+    with pytest.raises(ValueError, match="stacked.b1"):
+        fused_layer._check(xt, st._replace(b1=st.b1.double()), 1, H)
+
+
+@pytest.mark.parametrize("n_seq,expect", [(2, 1), (132, 1), (133, 2),
+                                          (256, 2), (4096, 5)])
+def test_tile_choice(n_seq, expect):
+    # S=3 on a 132-SM card: at most 16 rows (5 sequences) a block
+    assert seq_per_block(n_seq, 3, 132) == expect
+
+
+def _denoiser_pair(D, TD, layers, seed=0):
+    rng = np.random.RandomState(seed)
+    B = 8
+    sample = rng.randn(B, 1, D).astype(np.float32)
+    cond = rng.randn(B, 1, TD).astype(np.float32)
+    jden = JaxDenoiser(nfeats=263, condition="text", latent_size=1,
+                       latent_dim=D, ff_size=4 * D, num_layers=layers,
+                       num_heads=4, dropout=0.1, arch="trans_enc",
+                       skip_connect=True, text_encoded_dim=TD)
+    params = jden.init({"params": jax.random.PRNGKey(seed)},
+                       jnp.asarray(sample), jnp.asarray(0),
+                       jnp.asarray(cond))["params"]
+    den = MldDenoiser(1, D, 4 * D, layers, 4, TD)
+    den.load_state_dict(flax_to_state_dict(params))
+    return sample, cond, params, den
+
+
+@pytest.mark.parametrize("D,TD,layers", [(64, 48, 3), (256, 768, 9)])
+def test_fused_denoiser_matches_jax(D, TD, layers):
+    sample, cond, params, den = _denoiser_pair(D, TD, layers)
+    ref = jax_fused_denoiser_forward(
+        params, jnp.asarray(sample), jnp.asarray(981), jnp.asarray(cond),
+        num_heads=4, num_layers=layers, latent_dim=D, text_encoded_dim=TD,
+        interpret=True)
+    out = fused_denoiser_forward(den, torch.from_numpy(sample), 981,
+                                 torch.from_numpy(cond))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=5e-5)
+
+
+def test_hoisted_preamble_matches_inline():
+    sample, cond, _, den = _denoiser_pair(64, 48, 3)
+    s, c = torch.from_numpy(sample), torch.from_numpy(cond)
+    timesteps = torch.tensor([981, 761, 41])
+    time_tab, cond_lat = precompute_cond(den, timesteps, c)
+    assert time_tab.shape == (3, 64) and cond_lat.shape == (8, 1, 64)
+    for i, t in enumerate(timesteps.tolist()):
+        inline = den(s, t, c)
+        hoisted = den(s, t, c, time_emb=time_tab[i], cond_lat=cond_lat)
+        np.testing.assert_allclose(hoisted.numpy(), inline.numpy(),
+                                   atol=1e-6, rtol=0)
+
+
+def test_stacked_weights_follow_loads():
+    _, _, params, den = _denoiser_pair(64, 48, 3)
+    first = den.stacked_encoder().wqkv.clone()
+    other = {k: v * 2 for k, v in flax_to_state_dict(params).items()}
+    den.load_state_dict(other)
+    w = den.encoder.input_blocks[0].self_attn.in_proj_weight
+    np.testing.assert_array_equal(den.stacked_encoder().wqkv[0].numpy(),
+                                  w.detach().t().numpy())
+    np.testing.assert_array_equal(den.stacked_encoder().wqkv.numpy(),
+                                  2 * first.numpy())
