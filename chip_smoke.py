@@ -7,16 +7,35 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: require CUDA; print the nvidia-smi name/power-limit line and the
      TF32 settings of the run;
   2. build: compile the CUDA kernels from mld_tpu_torch/csrc/ with nvcc for
-     sm_90a and print the build time and ptxas resource lines;
-  3. kernel vs plain: the skip-encoder kernel against its plain PyTorch
-     version at the flagship denoiser shapes (S=3, D=256, H=4, F=1024, L=9),
-     f32 and bf16 weights, with times;
+     sm_90a (one nvcc a source, in parallel) and print the build time and the
+     ptxas register / shared-memory lines;
+  3. kernel vs plain, each kernel against its plain PyTorch version on the
+     card at the main path's shapes, with times; each wrapper call compared
+     must launch its kernel once (K5: the C entry's count of kernels too):
+       K1 skip_encoder  the denoiser stack (S=3, D=256, H=4, F=1024, L=9),
+                        f32 and bf16 weights;
+       K2 encoder_layer one fused layer (S=3, the same widths), 2 and 256
+                        sequences, f32 and bf16 weights;
+       K5 skip_decoder  the VAE decoder stack (T=196, D=256, H=4, F=1024,
+                        L=9) at B=1, 6, 128 with the demo prompts' lengths,
+                        f32 and bf16 weights, and once with 2 latent tokens;
+                        the device kernels of one B=128 call counted by
+                        torch.profiler against the C entry's count;
+       K4 flash_causal  CLIP causal attention [128, 12, S, 64] for
+                        S = 8, 16, 32, 64, 77, f32 and bf16;
+     and the bf16 rounding check: K2 and K5 cut to one layer, whose RMS
+     error must stay below a bar that the plain version of a kernel without
+     the activation rounding, and of f32 weights, both exceed on the card;
   4. main path: MLD for the mld_humanml3d preset at full width from seeded
-     random weights answers the prompts of demo/example.txt through
-     MLD.generate, then one generate_joints at B=128; checks shapes,
-     finiteness, masking and 50 kernel launches per call; then holds the
-     card's joints for one prompt against the same model run on the CPU
-     (plain versions, f32 text tower);
+     random weights, first in the default configuration (K1, K4), then with
+     fused_decode=True (K1, K4, K5): the prompts of demo/example.txt
+     through MLD.generate, then one generate_joints at B=128 and 3 timed
+     calls; checks shapes, finiteness, masking and the launch counts per
+     call (K1 50; K4 24 = 12 layers x 2 tower calls; K5 1 entry call, and
+     the kernels the C entry counted in it); times the text tower and the
+     VAE decode alone at B=128; then holds the card's joints for one prompt
+     against the same model on the CPU (plain versions, f32 text tower), in
+     each configuration;
   5. prints the kernels JSON line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
@@ -28,6 +47,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -40,6 +60,14 @@ B_LARGE = 128
 # sequences per call: B=1 and B=128 under CFG, plus counts that leave a
 # ragged last tile (the wrapper packs 2 and 5 sequences a block there)
 KERNEL_SEQS = (2, 2 * B_LARGE, 201, 1001)
+LAYER_SEQS = (2, 2 * B_LARGE)
+# VAE decode: 196 frames; B=6 leaves a ragged last 64-row GEMM tile and every
+# B a ragged last 64-query attention tile
+T_FRAMES = 196
+DECODE_BATCHES = (1, 6, B_LARGE)
+# CLIP: EOT buckets, the uncond row (8) and the uncropped context (77)
+CLIP_SEQS = (8, 16, 32, 64, 77)
+CLIP_HEADS, CLIP_DH = 12, 64
 F32_ATOL = 1e-4
 # bf16 weights: kernel and plain version both round weights and the
 # activation operand to bf16 and accumulate exact products in f32, so they
@@ -51,10 +79,33 @@ F32_ATOL = 1e-4
 # f32 weights. 5e-2 leaves room for that and still fails a wrong weight,
 # layout or rounding, which moves outputs of scale ~4 by O(1)
 BF16_ATOL = 5e-2
-# card (kernel, bf16-free f32 path) vs CPU (plain versions) joints after 50
-# CFG steps: f32 summation order on two devices, the end-to-end bar of
+# The decoder stack's bf16 arm takes the same bar for the same reason: a
+# 1e-7 relative perturbation of its queries moves the plain bf16 stack by up
+# to 1.3e-2 at these weights (B=128 with the demo lengths, T=196, on the
+# CPU), against 2.4e-6 for f32 weights, at outputs of scale ~4.6.
+# At nine layers that bar cannot tell a wrong rounding from a right one:
+# the plain stack with the activation operand left in f32 differs from the
+# bf16 stack by at most 1.8e-2 (K5, B=128) and 2.1e-2 (K1, 256 seqs), with
+# f32 weights by 2.7e-2 and 2.9e-2, about what the 1e-7 perturbation does.
+# One layer is not yet chaotic, so the rounding is held there, by RMS over
+# the compared elements (on the CPU, these weights): a 1e-7 perturbation
+# moves K5's first layer by 1.4-1.6e-4 and K2's by 1.1-1.8e-4; activations
+# left in f32 move them by 2.2e-3 and 1.65e-3, f32 weights by 3.3e-3 and
+# 2.35e-3. 6e-4 sits between; the card run asserts that both gaps, there,
+# are above it
+BF16_RMS_ATOL = 6e-4
+# CLIP attention, the bars of tests/test_attention.py. v is drawn at half the
+# scale of q and k so that outputs stay below 2, where one bf16 ulp of the
+# output (2^-7) plus a flipped probability (2^-9 of |v|) stays under 2e-2
+ATTN_F32_ATOL = 1e-5
+ATTN_BF16_ATOL = 2e-2
+# card (kernels, f32 weights) vs CPU (plain versions) joints after 50 CFG
+# steps: f32 summation order on two devices, the end-to-end bar of
 # tests/test_full_sampler_parity.py
 E2E_RTOL = 1e-3
+# the two configurations of the main path: the default (K1, K4) and the
+# JAX package's fused decode (K1, K4, K5)
+CONFIGS = (("default", {}), ("kernels", {"fused_decode": True}))
 
 
 def log(*args):
@@ -89,9 +140,10 @@ def phase_build():
 
     info = _build.build()
     log(f"[build] {'built' if info['built'] else 'found'} {info['path']} "
-        f"in {info['seconds']:.1f} s (nvcc sm_90a)")
+        f"in {info['seconds']:.1f} s (nvcc sm_90a, one process a source)")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or "smem" in line):
             log(f"[build] {line.strip()}")
     _build.library()
 
@@ -109,39 +161,271 @@ def _time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def phase_kernels(torch, encoder):
+def _hold(torch, name, kernel, plain, atol, what, count, mask=None,
+          iters=20):
+    """Run kernel() and plain() once, compare, then time both. Raises on a
+    non-finite output, an error above atol, or a first kernel() call that
+    does not add one to the wrapper's launch count (count() reads it).
+    Returns (err, ms, plain_ms, launches of the compared call)."""
+    before = count()
+    out = kernel()
+    launches = count() - before
+    if launches != 1:
+        raise RuntimeError(f"{name} ({what}): {launches} launches counted "
+                           f"for one call")
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    if mask is not None:
+        out, ref = out[mask], ref[mask]
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{name} gave non-finite output ({what})")
+    err = (out.float() - ref.float()).abs().max().item()
+    ms = _time_ms(torch, kernel, iters)
+    plain_ms = _time_ms(torch, plain, iters)
+    log(f"[kernel] {name} {what} max_abs_err={err:.3e} (atol {atol:g}) "
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    if not err <= atol:
+        raise RuntimeError(f"{name} disagrees with its plain version: "
+                           f"{err:.3e} > {atol:g} ({what})")
+    return err, ms, plain_ms, launches
+
+
+def _rms(a, b):
+    return (a.float() - b.float()).pow(2).mean().sqrt().item()
+
+
+def _upcast(torch, st):
+    """The stack with its bf16 matrices held in f32: the plain version then
+    multiplies f32 activations by the bf16-rounded weights."""
+    return st._replace(**{f: t.float() for f, t in st._asdict().items()
+                          if t.dtype == torch.bfloat16})
+
+
+def _hold_rounding(torch, name, kernel, plain, mutants, what, mask=None):
+    """bf16 weights at one layer: the RMS of kernel - plain must stay below
+    BF16_RMS_ATOL, and the plain version of each wrong rounding in
+    `mutants` must differ from the plain version by more than that.
+    Returns (rms_err, {mutant: rms_gap})."""
+    out, ref = kernel(), plain()
+    alts = {k: fn() for k, fn in mutants.items()}
+    torch.cuda.synchronize()
+    if mask is not None:
+        out, ref = out[mask], ref[mask]
+        alts = {k: v[mask] for k, v in alts.items()}
+    err = _rms(out, ref)
+    gaps = {k: _rms(v, ref) for k, v in alts.items()}
+    log(f"[kernel] {name} bf16 rounding {what}: rms_err={err:.3e} (bar "
+        f"{BF16_RMS_ATOL:g}), plain with "
+        + ", ".join(f"{k} rms {v:.3e}" for k, v in gaps.items()))
+    if not err <= BF16_RMS_ATOL:
+        raise RuntimeError(f"{name} bf16 rounding disagrees with its plain "
+                           f"version: rms {err:.3e} > {BF16_RMS_ATOL:g}")
+    for k, v in gaps.items():
+        if not v > BF16_RMS_ATOL:
+            raise RuntimeError(f"the rounding bar {BF16_RMS_ATOL:g} would "
+                               f"pass {k} (rms {v:.3e}) for {name}")
+    return err, gaps
+
+
+WEIGHT_ARMS = (("f32", "float32", F32_ATOL), ("bf16", "bfloat16", BF16_ATOL))
+
+
+def check_skip_encoder(torch, encoder, g):
     """K1 vs its plain version on the main path's weights."""
+    from mld_tpu_torch.ops import fused_layer
     from mld_tpu_torch.ops.fused_layer import (skip_encoder_stack,
                                                skip_encoder_stack_plain,
                                                stack_skip_encoder)
+    res = {}
+    for wname, wdt, atol in WEIGHT_ARMS:
+        st = stack_skip_encoder(encoder, getattr(torch, wdt))
+        for n in KERNEL_SEQS:
+            x = torch.randn(n, S, D, device=DEVICE, generator=g)
+            res[(wname, n)] = _hold(
+                torch, "skip_encoder",
+                lambda: skip_encoder_stack(x, st, N_BLOCK, H),
+                lambda: skip_encoder_stack_plain(x, st, N_BLOCK, H),
+                atol, f"{wname} seqs={n} rows={n * S}",
+                lambda: fused_layer.LAUNCHES)
+    return res
 
+
+def check_encoder_layer(torch, layer, g):
+    """K2 (K1's entry at n_block = 0) vs the plain stack at n_block = 0,
+    and the bf16 rounding of that one layer."""
+    from mld_tpu_torch.ops import fused_layer
+    from mld_tpu_torch.ops.fused_layer import (fused_encoder_layer,
+                                               skip_encoder_stack_plain,
+                                               stack_encoder_layer)
+    res = {}
+    for wname, wdt, atol in WEIGHT_ARMS:
+        st = stack_encoder_layer(layer, getattr(torch, wdt))
+        for n in LAYER_SEQS:
+            x = torch.randn(n, S, D, device=DEVICE, generator=g)
+            res[(wname, n)] = _hold(
+                torch, "encoder_layer",
+                lambda: fused_encoder_layer(x, layer, st),
+                lambda: skip_encoder_stack_plain(x, st, 0, H),
+                atol, f"{wname} seqs={n}",
+                lambda: fused_layer.LAYER_LAUNCHES)
+    st16 = stack_encoder_layer(layer, torch.bfloat16)
+    st32 = stack_encoder_layer(layer)
+    x = torch.randn(2 * B_LARGE, S, D, device=DEVICE, generator=g)
+    rounding = _hold_rounding(
+        torch, "encoder_layer",
+        lambda: fused_encoder_layer(x, layer, st16),
+        lambda: skip_encoder_stack_plain(x, st16, 0, H),
+        {"f32 activations": lambda: skip_encoder_stack_plain(
+            x, _upcast(torch, st16), 0, H),
+         "f32 weights": lambda: skip_encoder_stack_plain(x, st32, 0, H)},
+        f"seqs={2 * B_LARGE}")
+    return res, rounding
+
+
+def _decode_inputs(torch, vae, lengths, B, M, g):
+    from mld_tpu_torch.models.mld import lengths_to_mask
+
+    lens = (lengths * -(-B // len(lengths)))[:B]
+    valid = lengths_to_mask(lens, T_FRAMES, DEVICE)
+    tgt = vae.query_pos_decoder.pe[:T_FRAMES, 0][None].expand(
+        B, T_FRAMES, D).contiguous().detach()
+    mem = torch.randn(B, M, D, device=DEVICE, generator=g)
+    return tgt, mem, valid
+
+
+def _first_layer(st):
+    """A stacked decoder cut to its first layer (n_block = 0)."""
+    return st._replace(**{f: t[:1].contiguous() if f not in ("wsx", "wss",
+                                                            "bs")
+                          else t[:0].contiguous()
+                          for f, t in st._asdict().items()})
+
+
+def check_skip_decoder(torch, vae, lengths, g):
+    """K5 vs its plain version on the main path's weights, at the queries the
+    main path gives it (learned PE) and random latents; padded query rows
+    are not compared (the TPU kernel's rows there are discarded too). Each
+    compared call must launch the kernels the design fixes, as the C entry
+    counts them, and torch.profiler must see that many on the device."""
+    from mld_tpu_torch.ops import fused_seq_decoder as fsd
+    from mld_tpu_torch.ops.fused_seq_decoder import (launch_count,
+                                                     skip_decoder_stack,
+                                                     skip_decoder_stack_plain,
+                                                     stack_skip_decoder)
+
+    def kernel(tgt, mem, valid, st, n_block=N_BLOCK):
+        before = fsd.KERNELS
+        out = skip_decoder_stack(tgt, mem, valid, st, n_block, H)
+        counted = fsd.KERNELS - before
+        want = launch_count(n_block, mem.shape[1])
+        if counted != want:
+            raise RuntimeError(f"skip_decoder entry launched {counted} "
+                               f"kernels, the design fixes {want}")
+        return out
+
+    res = {}
+    for wname, wdt, atol in WEIGHT_ARMS:
+        st = stack_skip_decoder(vae.decoder, getattr(torch, wdt))
+        for B in DECODE_BATCHES:
+            tgt, mem, valid = _decode_inputs(torch, vae, lengths, B, 1, g)
+            res[(wname, B)] = _hold(
+                torch, "skip_decoder",
+                lambda: kernel(tgt, mem, valid, st),
+                lambda: skip_decoder_stack_plain(tgt, mem, valid, st,
+                                                 N_BLOCK, H),
+                atol, f"{wname} B={B} T={T_FRAMES} M=1",
+                lambda: fsd.LAUNCHES, mask=valid, iters=10)
+    # the general cross-attention path (can_fuse_decode admits M <= 8)
+    st = stack_skip_decoder(vae.decoder)
+    tgt, mem, valid = _decode_inputs(torch, vae, lengths, 6, 2, g)
+    _hold(torch, "skip_decoder",
+          lambda: kernel(tgt, mem, valid, st),
+          lambda: skip_decoder_stack_plain(tgt, mem, valid, st, N_BLOCK, H),
+          F32_ATOL, f"f32 B=6 T={T_FRAMES} M=2", lambda: fsd.LAUNCHES,
+          mask=valid, iters=5)
+    # the bf16 rounding, at the first layer
+    st16 = _first_layer(stack_skip_decoder(vae.decoder, torch.bfloat16))
+    st32 = _first_layer(stack_skip_decoder(vae.decoder))
+    tgt, mem, valid = _decode_inputs(torch, vae, lengths, B_LARGE, 1, g)
+    rounding = _hold_rounding(
+        torch, "skip_decoder",
+        lambda: kernel(tgt, mem, valid, st16, 0),
+        lambda: skip_decoder_stack_plain(tgt, mem, valid, st16, 0, H),
+        {"f32 activations": lambda: skip_decoder_stack_plain(
+            tgt, mem, valid, _upcast(torch, st16), 0, H),
+         "f32 weights": lambda: skip_decoder_stack_plain(
+            tgt, mem, valid, st32, 0, H)},
+        f"first layer B={B_LARGE} T={T_FRAMES}", mask=valid)
+    return res, rounding, profile_decoder(torch, vae, lengths, g)
+
+
+def profile_decoder(torch, vae, lengths, g):
+    """The device kernels of one K5 call at B=128, as torch.profiler traces
+    them, held to the count of the C entry and of the design."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mld_tpu_torch.ops import fused_seq_decoder as fsd
+
+    st = fsd.stack_skip_decoder(vae.decoder)
+    tgt, mem, valid = _decode_inputs(torch, vae, lengths, B_LARGE, 1, g)
+    valid = valid.to(torch.int32).contiguous()   # no cast inside the trace
+    torch.cuda.synchronize()
+    before = fsd.KERNELS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fsd.skip_decoder_stack(tgt, mem, valid, st, N_BLOCK, H)
+        torch.cuda.synchronize()
+    counted = fsd.KERNELS - before
+    traced = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith(("Memcpy", "Memset"))]
+    want = fsd.launch_count(N_BLOCK, 1)
+    names = Counter(n.replace("(anonymous namespace)::", "")
+                    .removeprefix("void ").split("<")[0].split("(")[0]
+                    for n in traced)
+    log(f"[kernel] skip_decoder B={B_LARGE}: {len(traced)} device kernels "
+        f"traced, {counted} counted by the C entry, {want} by design "
+        f"({', '.join(f'{k} x{v}' for k, v in sorted(names.items()))})")
+    if not len(traced) == counted == want:
+        raise RuntimeError(f"skip_decoder kernels: traced {len(traced)}, "
+                           f"counted {counted}, designed {want}")
+    return len(traced)
+
+
+def check_flash_causal(torch, g):
+    """K4 vs its plain version at [128, 12, S, 64]."""
+    from mld_tpu_torch.ops import attention
+    from mld_tpu_torch.ops.attention import (flash_causal_plain,
+                                             sdpa_flash_causal)
+    res = {}
+    scale = CLIP_DH ** -0.5
+    for dname, dt, atol in (("f32", torch.float32, ATTN_F32_ATOL),
+                            ("bf16", torch.bfloat16, ATTN_BF16_ATOL)):
+        for s in CLIP_SEQS:
+            shape = (B_LARGE, CLIP_HEADS, s, CLIP_DH)
+            q, k = (torch.randn(shape, device=DEVICE, generator=g).to(dt)
+                    for _ in range(2))
+            v = (0.5 * torch.randn(shape, device=DEVICE, generator=g)).to(dt)
+            res[(dname, s)] = _hold(
+                torch, "flash_causal",
+                lambda: sdpa_flash_causal(q, k, v, scale),
+                lambda: flash_causal_plain(q, k, v, scale),
+                atol, f"{dname} [{B_LARGE}, {CLIP_HEADS}, {s}, {CLIP_DH}]",
+                lambda: attention.LAUNCHES)
+    return res
+
+
+def phase_kernels(torch, mld, lengths):
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-    results = {}
-    for wname, wdt, atol in (("f32", torch.float32, F32_ATOL),
-                             ("bf16", torch.bfloat16, BF16_ATOL)):
-        st = stack_skip_encoder(encoder, wdt)
-        for n_seq in KERNEL_SEQS:
-            x = torch.randn(n_seq, S, D, device=DEVICE, generator=g)
-            out = skip_encoder_stack(x, st, N_BLOCK, H)
-            torch.cuda.synchronize()
-            ref = skip_encoder_stack_plain(x, st, N_BLOCK, H)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out).all():
-                raise RuntimeError(f"kernel gave non-finite output "
-                                   f"({wname}, {n_seq} seqs)")
-            err = (out - ref).abs().max().item()
-            ms = _time_ms(torch, lambda: skip_encoder_stack(x, st, N_BLOCK, H))
-            plain_ms = _time_ms(
-                torch, lambda: skip_encoder_stack_plain(x, st, N_BLOCK, H))
-            log(f"[kernel] skip_encoder {wname} seqs={n_seq} rows="
-                f"{n_seq * S} max_abs_err={err:.3e} (atol {atol:g}) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-            if not err <= atol:
-                raise RuntimeError(f"kernel disagrees with plain version: "
-                                   f"{err:.3e} > {atol:g} ({wname}, "
-                                   f"{n_seq} seqs)")
-            results[(wname, n_seq)] = (err, ms, plain_ms)
-    return results
+    with torch.no_grad():
+        return {
+            "skip_encoder": check_skip_encoder(torch, mld.denoiser.encoder, g),
+            "encoder_layer": check_encoder_layer(
+                torch, mld.denoiser.encoder.middle_block, g),
+            "skip_decoder": check_skip_decoder(torch, mld.vae, lengths, g),
+            "flash_causal": check_flash_causal(torch, g),
+        }
 
 
 def _demo_prompts():
@@ -166,62 +450,73 @@ def _check_joints(torch, joints, mask, shape):
         raise RuntimeError("joints are not zero outside the mask")
 
 
-def phase_main_path(torch):
+def _counters():
+    from mld_tpu_torch.ops import attention, fused_layer, fused_seq_decoder
+    return ((fused_layer, "LAUNCHES", "skip_encoder"),
+            (fused_seq_decoder, "LAUNCHES", "skip_decoder"),
+            (fused_seq_decoder, "KERNELS", "skip_decoder_kernels"),
+            (attention, "LAUNCHES", "flash_causal"))
+
+
+def _reset_counts():
+    for mod, attr, _ in _counters():
+        setattr(mod, attr, 0)
+
+
+def _read_counts():
+    return {name: getattr(mod, attr) for mod, attr, name in _counters()}
+
+
+def _check_counts(counts, want, what):
+    if counts != want:
+        raise RuntimeError(f"{what}: kernel launches {counts}, expected "
+                           f"{want}")
+
+
+def drive(torch, mld, label, texts, lengths):
+    """The main path in one configuration: demo prompts, then B=128."""
     import numpy as np
 
-    from mld_tpu_torch.config import load_config
-    from mld_tpu_torch.models.mld import MLD, lengths_to_mask
-    from mld_tpu_torch.ops import fused_layer
+    from mld_tpu_torch.models.mld import lengths_to_mask
+    from mld_tpu_torch.ops.fused_seq_decoder import launch_count
 
-    cfg = load_config(preset="mld_humanml3d")
-    m = cfg.model
-    log(f"[main] mld_humanml3d: CLIP {m.clip_layers}x{m.text_encoded_dim} "
-        f"{m.clip_compute_dtype}, denoiser {m.denoiser_num_layers}x"
-        f"{m.latent_dim}, VAE {m.num_layers}x{m.latent_dim}, "
-        f"{cfg.dataset.max_motion_len} frames, DDIM-"
-        f"{m.scheduler.num_inference_timesteps}, CFG {m.guidance_scale}")
-    t0 = time.perf_counter()
-    mld = MLD(cfg, device=DEVICE,
-              generator=torch.Generator().manual_seed(SEED))
-    torch.cuda.synchronize()
-    log(f"[main] built MLD on {DEVICE} in {time.perf_counter() - t0:.1f} s")
     n_steps = len(mld.scheduler.timesteps())
-    kernel_results = phase_kernels(torch, mld.denoiser.encoder)
-
-    # prompts of demo/example.txt through MLD.generate
-    texts, lengths = _demo_prompts()
+    n_clip = mld.cfg.model.clip_layers
+    want = {"skip_encoder": n_steps,
+            "skip_decoder": int(mld.fused_decode),
+            "skip_decoder_kernels": int(mld.fused_decode) * launch_count(
+                N_BLOCK, mld.latent_size),
+            "flash_causal": 2 * n_clip}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    fused_layer.LAUNCHES = 0
+
+    _reset_counts()
     t0 = time.perf_counter()
     motions = mld.generate(texts, lengths, generator=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches_demo = fused_layer.LAUNCHES
-    if launches_demo != n_steps:
-        raise RuntimeError(f"generate launched the kernel {launches_demo} "
-                           f"times, expected {n_steps}")
+    counts = _read_counts()
+    _check_counts(counts, want, f"{label} generate")
     for motion, n in zip(motions, lengths):
-        if motion.shape != (n, mld.njoints, 3) or not np.isfinite(motion).all():
+        if motion.shape != (n, mld.njoints, 3):
             raise RuntimeError(f"bad motion {motion.shape} for length {n}")
-    log(f"[main] generate: {len(texts)} prompts in {wall:.3f} s (first call), "
-        f"{launches_demo} kernel launches, shapes "
+        if not np.isfinite(motion).all():
+            raise RuntimeError(f"non-finite motion for length {n}")
+    log(f"[main:{label}] generate: {len(texts)} prompts in {wall:.3f} s "
+        f"(first call), launches {counts}, shapes "
         f"{[tuple(x.shape) for x in motions]}")
 
-    # one batch of B=128 through generate_joints
     reps = -(-B_LARGE // len(texts))
     btexts = (texts * reps)[:B_LARGE]
     blengths = (lengths * reps)[:B_LARGE]
     ids = mld.tokenize(btexts)
     mask = lengths_to_mask(blengths, mld.max_frames, mld.device)
-    fused_layer.LAUNCHES = 0
+    _reset_counts()
     t0 = time.perf_counter()
     joints = mld.generate_joints(ids, mask, generator=gen)
     torch.cuda.synchronize()
     wall_b = time.perf_counter() - t0
-    launches_b = fused_layer.LAUNCHES
-    if launches_b != n_steps:
-        raise RuntimeError(f"generate_joints launched the kernel "
-                           f"{launches_b} times, expected {n_steps}")
+    counts_b = _read_counts()
+    _check_counts(counts_b, want, f"{label} generate_joints B={B_LARGE}")
     _check_joints(torch, joints, mask,
                   (B_LARGE, mld.max_frames, mld.njoints, 3))
     times = []
@@ -231,16 +526,65 @@ def phase_main_path(torch):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = sorted(times)[1]
-    log(f"[main] generate_joints B={B_LARGE}: first {wall_b:.4f} s, then "
-        f"{', '.join(f'{t:.4f}' for t in times)} s (median {med:.4f} s, "
-        f"{B_LARGE / med:.1f} motions/s), {launches_b} kernel launches")
+    log(f"[main:{label}] generate_joints B={B_LARGE}: first {wall_b:.4f} s, "
+        f"then {', '.join(f'{t:.4f}' for t in times)} s (median {med:.4f} s, "
+        f"{B_LARGE / med:.1f} motions/s), launches a call {counts_b}")
 
-    phase_reference(torch, cfg, texts[0], lengths[0])
-    return kernel_results, launches_b, med
+    # the two stages the kernel configuration changes, alone at B=128
+    z = torch.randn(B_LARGE, mld.latent_size, mld.latent_dim, device=DEVICE,
+                    generator=gen)
+    text_ms = _time_ms(torch, lambda: mld.encode_text_tokens(ids), 10, 2)
+    dec_ms = _time_ms(torch, lambda: mld.decode_latent(z, mask), 10, 2)
+    log(f"[main:{label}] stages at B={B_LARGE}: text tower {text_ms:.4f} ms "
+        f"(ids {tuple(ids.shape)}), VAE decode {dec_ms:.4f} ms")
+    return {"counts": counts_b, "median_s": med, "text_ms": text_ms,
+            "decode_ms": dec_ms, "prompt_len": ids.shape[1]}
 
 
-def phase_reference(torch, cfg, text, length):
-    """One prompt on the card (kernel) and on the CPU (plain versions),
+def phase_main_path(torch):
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.models.mld import MLD
+
+    cfg = load_config(preset="mld_humanml3d")
+    m = cfg.model
+    log(f"[main] mld_humanml3d: CLIP {m.clip_layers}x{m.text_encoded_dim} "
+        f"{m.clip_compute_dtype}, denoiser {m.denoiser_num_layers}x"
+        f"{m.latent_dim}, VAE {m.num_layers}x{m.latent_dim}, "
+        f"{cfg.dataset.max_motion_len} frames, DDIM-"
+        f"{m.scheduler.num_inference_timesteps}, CFG {m.guidance_scale}")
+    texts, lengths = _demo_prompts()
+    runs = {}
+    kernel_results = None
+    for label, kw in CONFIGS:
+        t0 = time.perf_counter()
+        mld = MLD(cfg, device=DEVICE,
+                  generator=torch.Generator().manual_seed(SEED), **kw)
+        torch.cuda.synchronize()
+        log(f"[main:{label}] built MLD on {DEVICE} in "
+            f"{time.perf_counter() - t0:.1f} s (fused_decode="
+            f"{mld.fused_decode})")
+        if kernel_results is None:
+            kernel_results = phase_kernels(torch, mld, lengths)
+        runs[label] = drive(torch, mld, label, texts, lengths)
+        del mld
+        torch.cuda.empty_cache()
+    counts = runs["kernels"]["counts"]
+    log(f"[main] K5 entry: {counts['skip_decoder_kernels']} kernels counted "
+        f"in {counts['skip_decoder']} call(s); text tower "
+        f"{runs['default']['text_ms']:.4f} -> "
+        f"{runs['kernels']['text_ms']:.4f} ms, VAE decode "
+        f"{runs['default']['decode_ms']:.4f} -> "
+        f"{runs['kernels']['decode_ms']:.4f} ms, generate_joints "
+        f"{runs['default']['median_s']:.4f} -> "
+        f"{runs['kernels']['median_s']:.4f} s")
+
+    for label, kw in CONFIGS:
+        phase_reference(torch, cfg, texts[0], lengths[0], label, kw)
+    return kernel_results, runs
+
+
+def phase_reference(torch, cfg, text, length, label, kw):
+    """One prompt on the card (kernels) and on the CPU (plain versions),
     same weights and initial noise, f32 text tower on both."""
     from mld_tpu_torch.config.core import config_from_dict, merge_dicts
     from mld_tpu_torch.config.core import config_to_dict
@@ -253,17 +597,66 @@ def phase_reference(torch, cfg, text, length):
                        generator=torch.Generator().manual_seed(SEED + 3))
     for dev in (DEVICE, "cpu"):
         mld = MLD(cfg32, device=dev,
-                  generator=torch.Generator().manual_seed(SEED))
+                  generator=torch.Generator().manual_seed(SEED), **kw)
         mask = lengths_to_mask([length], mld.max_frames, mld.device)
+        _reset_counts()
         out[dev] = mld.generate_joints(mld.tokenize([text]), mask,
                                        init_latents=init).cpu()
+        counts = _read_counts()
         del mld
+        if dev == "cpu" and any(counts.values()):
+            raise RuntimeError(f"the CPU run launched kernels: {counts}")
     scale = out["cpu"].abs().max().item()
     err = (out[DEVICE] - out["cpu"]).abs().max().item()
-    log(f"[reference] card vs CPU joints, one prompt: max_abs_err "
+    log(f"[reference:{label}] card vs CPU joints, one prompt: max_abs_err "
         f"{err:.3e} (scale {scale:.3e}, bar {E2E_RTOL:g} x max(scale, 1))")
     if not err <= E2E_RTOL * max(scale, 1.0):
-        raise RuntimeError("card joints disagree with the CPU reference")
+        raise RuntimeError(f"card joints disagree with the CPU reference "
+                           f"({label})")
+
+
+def kernels_line(kr, runs, prompt_len):
+    counts = runs["kernels"]["counts"]
+    layer_res, layer_rounding = kr["encoder_layer"]
+    dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
+
+    def worst(results, arm):
+        return max(v[0] for k, v in results.items() if k[0] == arm)
+
+    def entry(name, source, replaces, launches, results, key, key16,
+              **extra):
+        err, ms, plain_ms, _ = results[key]
+        _, ms16, plain16, _ = results[key16]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": worst(results, key[0]), "ms": ms,
+                "plain_ms": plain_ms,
+                "bf16_max_abs_err": worst(results, "bf16"),
+                "bf16_ms": ms16, "bf16_plain_ms": plain16, **extra}
+
+    return {"kernels": [
+        entry("skip_encoder", "mld_tpu_torch/csrc/skip_encoder.cu",
+              "mld_tpu/ops/fused_layer.py:202", counts["skip_encoder"],
+              kr["skip_encoder"], ("f32", 2 * B_LARGE),
+              ("bf16", 2 * B_LARGE)),
+        # no caller on the main path: launches of one compared call
+        entry("encoder_layer", "mld_tpu_torch/csrc/skip_encoder.cu",
+              "mld_tpu/ops/fused_layer.py:137",
+              layer_res[("f32", 2 * B_LARGE)][3], layer_res,
+              ("f32", 2 * B_LARGE), ("bf16", 2 * B_LARGE),
+              path="fused_encoder_layer entry",
+              bf16_one_layer_rms_err=layer_rounding[0]),
+        entry("skip_decoder", "mld_tpu_torch/csrc/skip_decoder.cu",
+              "mld_tpu/ops/fused_seq_decoder.py:63", counts["skip_decoder"],
+              dec_res, ("f32", B_LARGE), ("bf16", B_LARGE),
+              device_kernels=counts["skip_decoder_kernels"],
+              device_kernels_traced_one_call=dec_traced,
+              bf16_one_layer_rms_err=dec_rounding[0]),
+        # times at the main path's shape: bf16 tower, the prompts' bucket
+        entry("flash_causal", "mld_tpu_torch/csrc/flash_causal.cu",
+              "mld_tpu/ops/attention.py:188", counts["flash_causal"],
+              kr["flash_causal"], ("f32", prompt_len), ("bf16", prompt_len)),
+    ]}
 
 
 def main():
@@ -275,19 +668,8 @@ def main():
                            f"chip_smoke.py from a checkout of the repo")
     sys.path.insert(0, REPO)
     phase_build()
-    kernel_results, launches, _ = phase_main_path(torch)
-    err_f32 = max(v[0] for k, v in kernel_results.items() if k[0] == "f32")
-    err_bf16 = max(v[0] for k, v in kernel_results.items() if k[0] == "bf16")
-    _, ms, plain_ms = kernel_results[("f32", 2 * B_LARGE)]
-    _, ms16, plain16 = kernel_results[("bf16", 2 * B_LARGE)]
-    log(json.dumps({"kernels": [{
-        "name": "skip_encoder", "route": "cuda",
-        "source": "mld_tpu_torch/csrc/skip_encoder.cu",
-        "replaces": "mld_tpu/ops/fused_layer.py:202",
-        "launches": launches, "max_abs_err": err_f32,
-        "ms": ms, "plain_ms": plain_ms,
-        "bf16_max_abs_err": err_bf16, "bf16_ms": ms16,
-        "bf16_plain_ms": plain16}]}))
+    kr, runs = phase_main_path(torch)
+    log(json.dumps(kernels_line(kr, runs, runs["kernels"]["prompt_len"])))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ self_attn.q_proj``, ``...mlp.fc1``, ``text_model.final_layer_norm``,
 
 The tower computes in ``compute_dtype`` (bf16 in the serving preset) while its
 parameters stay f32 and its output is f32; softmax and LayerNorm statistics are
-f32. ``ClipTokenizer`` is a carried copy of the JAX package's (crc32 fallback
+f32. Each layer's causal attention is ``ops.attention.sdpa_flash_causal``: the
+CUDA kernel K4 on the card, its plain version on the CPU. ``ClipTokenizer`` is a carried copy of the JAX package's (crc32 fallback
 and EOT buckets), held equal by a test.
 """
 from __future__ import annotations
@@ -23,11 +24,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mld_tpu_torch.ops.attention import sdpa_flash_causal
+
 CLIP_VOCAB = 49408
 CLIP_BOS = 49406
 CLIP_EOS = 49407
 CLIP_CONTEXT = 77
-NEG_INF = -1e9
 
 
 def quick_gelu(x):
@@ -55,7 +57,7 @@ class ClipAttention(nn.Module):
         self.v_proj = nn.Linear(width, width)
         self.out_proj = nn.Linear(width, width)
 
-    def forward(self, x, causal_mask):
+    def forward(self, x):
         B, S, D = x.shape
         H = self.heads
         Dh = D // H
@@ -66,10 +68,10 @@ class ClipAttention(nn.Module):
         q = split(_linear(x, self.q_proj) * (Dh ** -0.5))
         k = split(_linear(x, self.k_proj))
         v = split(_linear(x, self.v_proj))
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        scores = scores + causal_mask
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, D)
+        # q is already scaled: the kernel's sm_scale is 1
+        out = sdpa_flash_causal(q.contiguous(), k.contiguous(),
+                                v.contiguous(), 1.0)
+        out = out.transpose(1, 2).reshape(B, S, D)
         return _linear(out, self.out_proj)
 
 
@@ -91,8 +93,8 @@ class ClipEncoderLayer(nn.Module):
         self.mlp = ClipMLP(width, intermediate)
         self.layer_norm2 = nn.LayerNorm(width, eps=1e-5)
 
-    def forward(self, x, causal_mask):
-        x = x + self.self_attn(_layer_norm(x, self.layer_norm1), causal_mask)
+    def forward(self, x):
+        x = x + self.self_attn(_layer_norm(x, self.layer_norm1))
         return x + self.mlp(_layer_norm(x, self.layer_norm2))
 
 
@@ -146,11 +148,8 @@ class ClipTextModel(nn.Module):
         emb = tm.embeddings
         x = emb.token_embedding(input_ids) + emb.position_embedding.weight[:S]
         x = x.to(self.compute_dtype)
-        causal = torch.full((S, S), NEG_INF, device=x.device).triu(1)
-        # the JAX tower builds the mask in the compute dtype
-        causal = causal.to(self.compute_dtype).float()[None, None]
         for layer in tm.encoder.layers:
-            x = layer(x, causal)
+            x = layer(x)
         x = tm.final_layer_norm(x.float())
         if mode == "hidden":
             return x

@@ -6,12 +6,17 @@ text condition).
                half first) -> VAE decode -> de-norm -> recover_from_ric -> joints
 
 The denoiser's encoder stack runs as one CUDA kernel per step on the card
-(ops/fused_layer.py); everything else is plain PyTorch on the same device.
+(ops/fused_layer.py), and the text tower's causal attention as another
+(ops/attention.py:sdpa_flash_causal, always on). ``fused_decode``, the JAX
+package's switch of the same name, runs the VAE decoder stack through
+ops/fused_seq_decoder.py; it changes the result (LayerNorm eps 1e-5 against
+the plain modules' 1e-6). Everything else is plain PyTorch on the same device.
 Conventions: batch-first; latents [B, latent_size, latent_dim]; masks [B, T]
 bool, True = valid.
 """
 from __future__ import annotations
 
+import os
 from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -25,10 +30,19 @@ from mld_tpu_torch.models.clip_text import ClipTextModel, ClipTokenizer
 from mld_tpu_torch.models.denoiser import MldDenoiser
 from mld_tpu_torch.models.vae import MldVae
 from mld_tpu_torch.ops.fused_denoiser import precompute_cond
+from mld_tpu_torch.ops.fused_seq_decoder import (can_fuse_decode,
+                                                 fused_vae_decode)
 from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
                                          flax_to_state_dict)
 
 TEXT_BUCKETS = (16, 24, 32, 48, 64)
+
+
+def _fused_decode_from_env(model_cfg) -> bool:
+    """MLD_TPU_FUSED_DECODE as the JAX package reads it (mld.py:367-370):
+    only "1" turns it on, and only where can_fuse_decode holds."""
+    return (os.environ.get("MLD_TPU_FUSED_DECODE", "auto") == "1"
+            and can_fuse_decode(model_cfg))
 
 
 def lengths_to_mask(lengths, max_len: int, device=None) -> torch.Tensor:
@@ -91,12 +105,18 @@ class MLD(nn.Module):
 
     Parameters are initialised from `generator` (a CPU torch.Generator;
     default: seeded with cfg.seed) and can be replaced with
-    `load_flax_params` or `load_state_dict` (reference torch names)."""
+    `load_flax_params` or `load_state_dict` (reference torch names).
+
+    `fused_decode` chooses the decode path; None reads the JAX package's
+    switch MLD_TPU_FUSED_DECODE, whose default is off. It is not a
+    fallback: with it on, the kernel launches on the card or the call
+    raises."""
 
     def __init__(self, cfg: Config, mean: Optional[np.ndarray] = None,
                  std: Optional[np.ndarray] = None, *, device="cpu",
                  weight_dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fused_decode: Optional[bool] = None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
@@ -109,11 +129,18 @@ class MLD(nn.Module):
         self.guidance_scale = m.guidance_scale
         self.do_cfg = m.guidance_scale > 1.0
         self.clip_mode = "features"
+        if fused_decode is None:
+            fused_decode = _fused_decode_from_env(m)
+        elif fused_decode and not can_fuse_decode(m):
+            raise ValueError("fused_decode needs the MLD VAE's "
+                             "encoder_decoder arch, post-norm, learned PE "
+                             "and latent_size <= 8")
+        self.fused_decode = bool(fused_decode)
 
         with torch.device("meta"):
             self.vae = MldVae(self.nfeats, m.latent_size, m.latent_dim,
                               m.ff_size, m.num_layers, m.num_heads,
-                              m.activation)
+                              m.activation, weight_dtype=weight_dtype)
             self.denoiser = MldDenoiser(
                 m.latent_size, m.latent_dim, m.ff_size,
                 m.denoiser_num_layers, m.num_heads, m.text_encoded_dim,
@@ -151,10 +178,12 @@ class MLD(nn.Module):
         # uncond row is encoded at context 8 (exact)
         self.uncond_ids = self.tokenizer([""])[:, :8]
         self.denoiser.restack()
+        if self.fused_decode:
+            self.vae.restack()
 
     def load_flax_params(self, tree: Mapping):
         """Load a JAX-package param tree {vae, denoiser, clip} of numpy (or
-        jax) arrays. The kernel's stacked weights are rebuilt on load."""
+        jax) arrays. The kernels' stacked weights are rebuilt on load."""
         sd = {}
         for top in ("vae", "denoiser"):
             sd.update({f"{top}.{k}": v
@@ -210,6 +239,11 @@ class MLD(nn.Module):
 
     @torch.no_grad()
     def decode_latent(self, z: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """z [B, latent_size, latent_dim], mask [B, T] -> feats [B, T,
+        nfeats]: the fused decoder stack (LayerNorm eps 1e-5, as JAX's fused
+        path) or the plain modules (eps 1e-6, as JAX's XLA path)."""
+        if self.fused_decode:
+            return fused_vae_decode(self.vae, z, mask)
         return self.vae.decode(z, mask)
 
     def feats2joints(self, feats: torch.Tensor) -> torch.Tensor:

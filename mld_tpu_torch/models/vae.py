@@ -5,6 +5,11 @@ Parameter names follow the reference torch module
 (mld/models/architectures/mld_vae.py:33-248): ``query_pos_encoder.pe``,
 ``query_pos_decoder.pe``, ``encoder.*``, ``decoder.*``,
 ``global_motion_token``, ``skel_embedding``, ``final_layer``.
+
+``decode`` is the plain module path (flax's LayerNorm eps 1e-6). The fused
+decode (``ops.fused_seq_decoder.fused_vae_decode``, eps 1e-5) reads the
+decoder's weights stacked for its kernel; they are built by ``restack`` and
+rebuilt whenever parameters are loaded or moved, once a stack exists.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ import torch
 from torch import nn
 
 from mld_tpu_torch.ops.embeddings import PositionEmbeddingLearned1D
+from mld_tpu_torch.ops.fused_seq_decoder import (StackedSkipDecoder,
+                                                 stack_skip_decoder)
 from mld_tpu_torch.ops.transformer import (SkipTransformerDecoder,
                                            SkipTransformerEncoder)
 
@@ -22,7 +29,8 @@ class MldVae(nn.Module):
     def __init__(self, nfeats: int, latent_size: int = 1,
                  latent_dim: int = 256, ff_size: int = 1024,
                  num_layers: int = 9, num_heads: int = 4,
-                 activation: str = "gelu"):
+                 activation: str = "gelu",
+                 weight_dtype: torch.dtype = torch.float32):
         super().__init__()
         d = latent_dim
         self.latent_size = latent_size
@@ -36,6 +44,29 @@ class MldVae(nn.Module):
         self.global_motion_token = nn.Parameter(torch.empty(2 * latent_size, d))
         self.skel_embedding = nn.Linear(nfeats, d)
         self.final_layer = nn.Linear(d, nfeats)
+        self.weight_dtype = weight_dtype
+        self._stacked: Optional[StackedSkipDecoder] = None
+        self.register_load_state_dict_post_hook(
+            lambda module, incompatible: module._restack_if_stacked())
+
+    def restack(self):
+        """Rebuild the decoder kernel's stacked weights from the params."""
+        self._stacked = stack_skip_decoder(self.decoder, self.weight_dtype)
+
+    def _restack_if_stacked(self):
+        if self._stacked is not None:
+            self.restack()
+
+    def stacked_decoder(self) -> StackedSkipDecoder:
+        if self._stacked is None:
+            self.restack()
+        return self._stacked
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to() / .cuda() / .float() replace the params: restack after them
+        out = super()._apply(fn, *args, **kwargs)
+        self._restack_if_stacked()
+        return out
 
     @torch.no_grad()
     def encode(self, features: torch.Tensor, mask: torch.Tensor,

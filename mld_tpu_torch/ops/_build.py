@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 The sources under ``mld_tpu_torch/csrc/`` are compiled at first use, by
-``nvcc`` for ``sm_90a``, into ``build/`` at the repository root. The library's
+``nvcc`` for ``sm_90a``, one process a source, all started together, and
+linked into one library in ``build/`` at the repository root. The library's
 file name carries a hash of the sources and flags, so a stale build is never
 loaded. Nothing here runs at import: the CPU tests import every module of the
-port on machines without ``nvcc``.
+port on machines without ``nvcc``. ``check_no_grad`` is the rule every
+kernel wrapper applies before it launches: the kernels are forward-only.
 """
 from __future__ import annotations
 
@@ -16,20 +18,40 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# mld_skip_encoder_forward(x, out, 15 weight pointers, n_seq, S, D, H, F,
-#                          n_block, seq_per_block, weight_bf16, stream)
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
+    # (x, out, 15 weight pointers, n_seq, S, D, H, F, n_block,
+    #  seq_per_block, weight_bf16, stream)
     "mld_skip_encoder_forward": [_P] * 17 + [_I] * 8 + [_P],
+    # (tgt, mem, valid, out, 21 weight pointers, ws, ws_floats, B, T, M, D,
+    #  H, F, n_block, weight_bf16, kernels launched (out), stream)
+    "mld_skip_decoder_forward": ([_P] * 26 + [_L] + [_I] * 8
+                                 + [ctypes.POINTER(_I), _P]),
+    # (q, k, v, out, BH, S, Dh, sm_scale, bf16, stream)
+    "mld_flash_causal_forward": [_P] * 4 + [_I] * 3 + [_F, _I, _P],
 }
+
+
+def check_no_grad(what: str, *tensors):
+    """The kernels have no backward: refuse inputs that autograd tracks
+    rather than return an output cut off from their graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"the {what} kernel has no backward; call it "
+                           f"under torch.no_grad() or with inputs that do "
+                           f"not require grad")
 
 
 def _nvcc() -> str:
@@ -49,11 +71,19 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ("-c", "-shared")).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmld_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
 
 
 def build() -> dict:
@@ -66,22 +96,20 @@ def build() -> dict:
     if path.exists():
         return {"path": str(path), "seconds": 0.0, "built": False, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        sources = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmp, f"{s.stem}.o") for s in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                for o, s in zip(objs, sources)]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            logs = list(pool.map(_run, cmds))
+        lib = os.path.join(tmp, "lib.so")
+        logs.append(_run([nvcc, "-shared", "-o", lib, *objs]))
+        os.replace(lib, path)
     return {"path": str(path), "seconds": time.perf_counter() - t0,
-            "built": True, "log": proc.stdout + proc.stderr}
+            "built": True, "log": "".join(logs)}
 
 
 @functools.lru_cache(maxsize=None)

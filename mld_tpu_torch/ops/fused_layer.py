@@ -10,6 +10,10 @@ The per-layer weights are stacked once, when parameters are loaded
 (``stack_skip_encoder``), into ``[L, in, out]`` matrices (f32, or bf16 for the
 bf16-weight arm) and f32 ``[L, K]`` vectors. LayerNorm eps is 1e-5, as in the
 TPU kernel (``fused_layer.py:78``).
+
+``fused_encoder_layer`` is the single fused layer (port of the Pallas
+``_layer_kernel``, K2): one ``TransformerEncoderLayer`` stacked as L=1 with no
+skip linears, launched through the same CUDA entry at ``n_block = 0``.
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ MAX_S = 8            # short-sequence regime; the latent denoiser has S=3
 MAX_TILE_ROWS = 16   # rows (sequences x S) a kernel block holds
 LN_EPS = 1e-5
 
-# kernel launches made by skip_encoder_stack (CUDA only)
+# kernel launches made by skip_encoder_stack and by fused_encoder_layer
+# (CUDA only)
 LAUNCHES = 0
+LAYER_LAUNCHES = 0
 
 
 class StackedSkipEncoder(NamedTuple):
@@ -54,30 +60,36 @@ class StackedSkipEncoder(NamedTuple):
 _MATRICES = ("wqkv", "wo", "w1", "w2", "wsx", "wss")
 
 
+def stack_matrices(ws, weight_dtype) -> torch.Tensor:
+    """torch Linear weights [out, in] -> one contiguous [L, in, out]."""
+    return torch.stack([w.t() for w in ws]).to(weight_dtype).contiguous()
+
+
+def stack_vectors(vs) -> torch.Tensor:
+    """Vectors [K] -> one contiguous f32 [L, K]."""
+    return torch.stack(list(vs)).float().contiguous()
+
+
+def stack_skip_linears(skips, D: int, device, weight_dtype):
+    """The U-Net skip linears (torch [D, 2D] weights) -> (wsx, wss, bs): the
+    [n, D, D] rows of the [in, out] matrix that multiply x and the popped
+    skip, and the f32 [n, D] bias. No skips give empty [0, ...] tensors."""
+    if not skips:
+        empty = torch.empty(0, D, D, dtype=weight_dtype, device=device)
+        return empty, empty, torch.empty(0, D, device=device)
+    return (stack_matrices((s.weight[:, :D] for s in skips), weight_dtype),
+            stack_matrices((s.weight[:, D:] for s in skips), weight_dtype),
+            stack_vectors(s.bias for s in skips))
+
+
 @torch.no_grad()
-def stack_skip_encoder(encoder, weight_dtype=torch.float32
-                       ) -> StackedSkipEncoder:
-    """ops.transformer.SkipTransformerEncoder -> StackedSkipEncoder, on the
-    encoder's device. Matrices in `weight_dtype`, vectors in f32."""
-    layers = [*encoder.input_blocks, encoder.middle_block,
-              *encoder.output_blocks]
-    D = encoder.norm.normalized_shape[0]
-
+def _stack_layers(layers, skips, D: int, device,
+                  weight_dtype=torch.float32) -> StackedSkipEncoder:
     def mat(ws):
-        return torch.stack([w.t() for w in ws]).to(weight_dtype).contiguous()
+        return stack_matrices(ws, weight_dtype)
 
-    def vec(vs):
-        return torch.stack(list(vs)).float().contiguous()
-
-    skips = list(encoder.linear_blocks)
-    if skips:
-        wsx = mat(s.weight[:, :D] for s in skips)
-        wss = mat(s.weight[:, D:] for s in skips)
-        bs = vec(s.bias for s in skips)
-    else:
-        dev = encoder.norm.weight.device
-        wsx = wss = torch.empty(0, D, D, dtype=weight_dtype, device=dev)
-        bs = torch.empty(0, D, device=dev)
+    vec = stack_vectors
+    wsx, wss, bs = stack_skip_linears(skips, D, device, weight_dtype)
     return StackedSkipEncoder(
         wqkv=mat(l.self_attn.in_proj_weight for l in layers),
         bqkv=vec(l.self_attn.in_proj_bias for l in layers),
@@ -92,6 +104,25 @@ def stack_skip_encoder(encoder, weight_dtype=torch.float32
         ln2s=vec(l.norm2.weight for l in layers),
         ln2b=vec(l.norm2.bias for l in layers),
         wsx=wsx, wss=wss, bs=bs)
+
+
+def stack_skip_encoder(encoder, weight_dtype=torch.float32
+                       ) -> StackedSkipEncoder:
+    """ops.transformer.SkipTransformerEncoder -> StackedSkipEncoder, on the
+    encoder's device. Matrices in `weight_dtype`, vectors in f32."""
+    layers = [*encoder.input_blocks, encoder.middle_block,
+              *encoder.output_blocks]
+    return _stack_layers(layers, list(encoder.linear_blocks),
+                         encoder.norm.normalized_shape[0],
+                         encoder.norm.weight.device, weight_dtype)
+
+
+def stack_encoder_layer(layer, weight_dtype=torch.float32
+                        ) -> StackedSkipEncoder:
+    """One ops.transformer.TransformerEncoderLayer -> a StackedSkipEncoder of
+    L=1 with empty skip linears ([0, D, D] and [0, D])."""
+    return _stack_layers([layer], [], layer.norm1.normalized_shape[0],
+                         layer.norm1.weight.device, weight_dtype)
 
 
 def _layer_norm(h, scale, bias):
@@ -173,23 +204,13 @@ def seq_per_block(n_seq: int, S: int, num_sms: int) -> int:
     return max(1, min(MAX_TILE_ROWS // S, -(-n_seq // num_sms)))
 
 
-def skip_encoder_stack(x: torch.Tensor, stacked: StackedSkipEncoder,
-                       n_block: int, num_heads: int) -> torch.Tensor:
-    """x [B, S, D] f32 -> [B, S, D], the whole stack before its final norm.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream (no synchronisation) or raise."""
-    global LAUNCHES
-    if x.device.type == "cpu":
-        return skip_encoder_stack_plain(x, stacked, n_block, num_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"no skip-encoder kernel for device {x.device}")
-    _check(x, stacked, n_block, num_heads)
+def _launch(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
+            num_heads: int) -> torch.Tensor:
+    _check(x, st, n_block, num_heads)
     B, S, D = x.shape
     lib = _build.library()
     out = torch.empty_like(x)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    st = stacked
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mld_skip_encoder_forward(
@@ -201,5 +222,46 @@ def skip_encoder_stack(x: torch.Tensor, stacked: StackedSkipEncoder,
     if err != 0:
         raise RuntimeError(f"skip-encoder kernel launch failed: cudaError "
                            f"{err}")
+    return out
+
+
+def skip_encoder_stack(x: torch.Tensor, stacked: StackedSkipEncoder,
+                       n_block: int, num_heads: int) -> torch.Tensor:
+    """x [B, S, D] f32 -> [B, S, D], the whole stack before its final norm.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream (no synchronisation) or raise, also when autograd
+    tracks an input (the kernel has no backward)."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return skip_encoder_stack_plain(x, stacked, n_block, num_heads)
+    _build.check_no_grad("skip-encoder", x, *stacked)
+    if x.device.type != "cuda":
+        raise ValueError(f"no skip-encoder kernel for device {x.device}")
+    out = _launch(x, stacked, n_block, num_heads)
     LAUNCHES += 1
+    return out
+
+
+def fused_encoder_layer(x: torch.Tensor, layer,
+                        stacked: StackedSkipEncoder = None) -> torch.Tensor:
+    """One post-norm encoder layer (port of ``fused_encoder_layer``,
+    ``mld_tpu/ops/fused_layer.py:365``): x [B, S, D] f32, batch-first as the
+    JAX wrapper takes it, + an ops.transformer.TransformerEncoderLayer ->
+    [B, S, D]. LayerNorm eps 1e-5 (the kernel's), whatever the module's.
+
+    `stacked` (from stack_encoder_layer) saves restacking per call. CPU
+    tensors take the plain version (the stack at n_block = 0); CUDA tensors
+    launch the kernel or raise, also when autograd tracks an input."""
+    global LAYER_LAUNCHES
+    if stacked is None:
+        stacked = stack_encoder_layer(layer)
+    H = layer.self_attn.num_heads
+    if x.device.type == "cpu":
+        return skip_encoder_stack_plain(x, stacked, 0, H)
+    _build.check_no_grad("encoder-layer", x, *stacked)
+    if x.device.type != "cuda":
+        raise ValueError(f"no encoder-layer kernel for device {x.device}")
+    out = _launch(x, stacked, 0, H)
+    LAYER_LAUNCHES += 1
     return out

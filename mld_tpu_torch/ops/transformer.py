@@ -154,6 +154,7 @@ class SkipTransformerDecoder(_SkipStack):
             lambda: TransformerDecoderLayer(d_model, num_heads, ff_size,
                                             activation, eps),
             d_model, num_layers, eps)
+        self.num_heads = num_heads
 
     def forward(self, tgt, memory, tgt_valid=None, memory_valid=None):
         return self._run(

@@ -6,6 +6,11 @@ sides use LayerNorm eps 1e-5 in the denoiser stack. The port is fed the
 initial latents JAX draws (mld.py:463-464). f32 throughout, text tower
 included; the bar is tests/test_full_sampler_parity.py's: max |diff| of the
 joints <= 1e-3 x max(scale, 1).
+
+The kernel configuration (the port's fused_decode=True; its text tower
+always takes the causal-attention wrapper) is held against JAX under
+MLD_TPU_FUSED_DECODE=1 and MLD_TPU_CLIP_FLASH=1 too, where both packages
+decode with LayerNorm eps 1e-5.
 """
 import numpy as np
 import pytest
@@ -20,7 +25,7 @@ from mld_tpu.models.mld import lengths_to_mask as jax_lengths_to_mask
 
 from mld_tpu_torch.config import load_config
 from mld_tpu_torch.models.mld import MLD, lengths_to_mask
-from mld_tpu_torch.ops import fused_layer
+from mld_tpu_torch.ops import attention, fused_layer, fused_seq_decoder
 
 SMALL = {"model": {"latent_dim": 64, "ff_size": 128, "num_layers": 3,
                    "denoiser_num_layers": 3, "num_heads": 4,
@@ -64,6 +69,43 @@ def test_generate_joints_matches_jax(pair, monkeypatch):
     out = tmld.generate_joints(ids, lengths_to_mask(LENGTHS, tmld.max_frames),
                                init_latents=torch.from_numpy(init.copy())).numpy()
     assert fused_layer.LAUNCHES == before  # CPU tensors: plain version
+    assert out.shape == ref.shape == (3, 40, 22, 3)
+    scale = np.abs(ref).max()
+    err = np.abs(out - ref).max()
+    assert err <= 1e-3 * max(scale, 1.0), (err, scale)
+
+
+def test_kernel_configuration_matches_jax(pair, monkeypatch):
+    for name in ("MLD_TPU_FUSED_DENOISER", "MLD_TPU_FUSED_DECODE",
+                 "MLD_TPU_CLIP_FLASH"):
+        monkeypatch.setenv(name, "1")
+    _, params, _ = pair
+    rng = np.random.RandomState(0)
+    mean = (0.1 * rng.randn(263)).astype(np.float32)
+    std = (0.5 + rng.rand(263)).astype(np.float32)
+    # a fresh JAX instance: generate_joints is jitted with self static and
+    # reads the switches when it traces, so a traced instance keeps its path
+    jmld = JaxMLD(jax_load_config(preset="mld_humanml3d", overrides=SMALL),
+                  mean=mean, std=std)
+    assert jmld._use_fused_decode() and jmld._use_fused_denoiser()
+    tmld = MLD(load_config(preset="mld_humanml3d", overrides=SMALL),
+               mean=mean, std=std, fused_decode=True)
+    tmld.load_flax_params(jax.tree_util.tree_map(np.asarray, params))
+    ids = tmld.tokenize(TEXTS)
+    mask = jax_lengths_to_mask(jnp.asarray(LENGTHS), jmld.max_frames)
+    rng_key = jax.random.PRNGKey(4)
+    ref = np.asarray(jmld.generate_joints(params, jnp.asarray(ids.numpy()),
+                                          mask, rng_key))
+    _, init_rng = jax.random.split(rng_key)
+    init = np.asarray(jmld._init_latents(init_rng, len(TEXTS), mask))
+
+    counts = (fused_layer.LAUNCHES, fused_seq_decoder.LAUNCHES,
+              attention.LAUNCHES)
+    out = tmld.generate_joints(ids, lengths_to_mask(LENGTHS, tmld.max_frames),
+                               init_latents=torch.from_numpy(init.copy())).numpy()
+    # CPU tensors: every wrapper took its plain version
+    assert (fused_layer.LAUNCHES, fused_seq_decoder.LAUNCHES,
+            attention.LAUNCHES) == counts
     assert out.shape == ref.shape == (3, 40, 22, 3)
     scale = np.abs(ref).max()
     err = np.abs(out - ref).max()
