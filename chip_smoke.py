@@ -23,21 +23,38 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                         torch.profiler against the C entry's count;
        K4 flash_causal  CLIP causal attention [128, 12, S, 64] for
                         S = 8, 16, 32, 64, 77, f32 and bf16;
+       K3 flash_attention  bidirectional attention at the shapes of the
+                        raw-motion denoiser (self-attention [2B, 4, T, 128]
+                        for T = 512, 196; cross-attention to 2 keys) and of
+                        the plain VAE decode ([128, 4, 196, 64] under the
+                        frame mask; 1 key), on views into packed projections
+                        as the model hands them over, plus a ragged case
+                        with a fully masked example, f32 and bf16;
      and the bf16 rounding check: K2 and K5 cut to one layer, whose RMS
      error must stay below a bar that the plain version of a kernel without
      the activation rounding, and of f32 weights, both exceed on the card;
   4. main path: MLD for the mld_humanml3d preset at full width from seeded
-     random weights, first in the default configuration (K1, K4), then with
-     fused_decode=True (K1, K4, K5): the prompts of demo/example.txt
-     through MLD.generate, then one generate_joints at B=128 and 3 timed
-     calls; checks shapes, finiteness, masking and the launch counts per
-     call (K1 50; K4 24 = 12 layers x 2 tower calls; K5 1 entry call, and
+     random weights, first in the default configuration (K1, K4, and K3 in
+     the plain VAE decode), then with fused_decode=True (K1, K4, K5): the
+     prompts of demo/example.txt through MLD.generate, then one
+     generate_joints at B=128 and 3 timed calls; checks shapes, finiteness,
+     masking and the launch counts per call (K1 50; K4 24 = 12 layers x 2
+     tower calls; K3 18 = 9 decoder layers x 2, or 0; K5 1 entry call, and
      the kernels the C entry counted in it); times the text tower and the
      VAE decode alone at B=128; then holds the card's joints for one prompt
      against the same model on the CPU (plain versions, f32 text tower), in
      each configuration;
-  5. prints the kernels JSON line, the nvidia-smi line, and last
-     {"ok": true, "device": {...}}.
+  5. raw-motion path: MLD for novae_humanml3d and novae_stress_s512 (no VAE,
+     trans_dec denoiser 9x512, DDPM-1000, CFG 7.5) at full width: the demo
+     prompts through MLD.generate (lengths scaled by 512/196 for s512), then
+     one timed generate_joints on them; launch counts per call (K3 18,000 =
+     1000 steps x 9 layers x 2, K4 24, K1 and K5 0); a torch.profiler trace
+     of 20 sampling steps of each for device busy time; then the card's
+     joints for one prompt of s512 against the CPU's (plain versions, f32
+     text tower), same weights, initial latents and step noise, with the
+     schedule cut to 10 train timesteps;
+  6. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+     line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
 from __future__ import annotations
@@ -99,6 +116,32 @@ BF16_RMS_ATOL = 6e-4
 # output (2^-7) plus a flipped probability (2^-9 of |v|) stays under 2e-2
 ATTN_F32_ATOL = 1e-5
 ATTN_BF16_ATOL = 2e-2
+# K3 at the main paths' shapes, (label, B, H, Sq, Sk, Dh, masked): the
+# raw-motion denoiser (4 heads of 128) at 2B = 2 and 12 (one prompt and the
+# six demo prompts under CFG), self-attention over 512 and 196 frames and
+# cross-attention to [time; text]; the plain VAE decode (4 heads of 64) at
+# B = 128 under the demo lengths' frame mask and against its latent token;
+# and a ragged case: Sk = 70 leaves a part-filled second key tile, one
+# example masks keys 33.., another every key (the average of v over its
+# 70 keys, as sdpa_xla)
+S512 = 512
+FLASH_CASES = (
+    ("s512 self", 2, 4, S512, S512, 128, False),
+    ("s512 self", 12, 4, S512, S512, 128, False),
+    ("s512 cross", 12, 4, S512, 2, 128, False),
+    ("s196 self", 12, 4, T_FRAMES, T_FRAMES, 128, False),
+    ("decode self", B_LARGE, 4, T_FRAMES, T_FRAMES, 64, True),
+    ("decode cross", B_LARGE, 4, T_FRAMES, 1, 64, False),
+    ("ragged", 3, 4, 100, 70, 128, True),
+)
+# the case whose times the kernels line carries: one self-attention of
+# novae_stress_s512 at the demo batch
+FLASH_KEY = ("s512 self", 12)
+RAW_PRESETS = ("novae_humanml3d", "novae_stress_s512")
+# steps of the profiled sampling loop, and of the card-vs-CPU raw-motion
+# check (a full-width 1000-step run on the CPU would take minutes)
+PROFILE_STEPS = 20
+RAW_REF_STEPS = 10
 # card (kernels, f32 weights) vs CPU (plain versions) joints after 50 CFG
 # steps: f32 summation order on two devices, the end-to-end bar of
 # tests/test_full_sampler_parity.py
@@ -416,6 +459,57 @@ def check_flash_causal(torch, g):
     return res
 
 
+def _flash_inputs(torch, B, H, Sq, Sk, Dh, g):
+    """q, k, v as MultiheadAttention hands them to sdpa: head views
+    [B, H, S, Dh] into a packed [B, S, 3d] projection when Sq == Sk
+    (self-attention, row stride 3d), else into [B, Sq, d] and two [B, Sk, d]
+    projections. v at half the scale of q and k (outputs below 2)."""
+    d = H * Dh
+
+    def heads(t):
+        return t.reshape(t.shape[0], t.shape[1], H, Dh).transpose(1, 2)
+
+    def draw(S, n):
+        return torch.randn(B, S, n * d, device=DEVICE, generator=g)
+
+    if Sq == Sk:
+        qkv = draw(Sq, 3)
+        qkv[..., 2 * d:] *= 0.5
+        return qkv, lambda t: [heads(x) for x in t.split(d, dim=-1)]
+    q, k, v = draw(Sq, 1), draw(Sk, 1), 0.5 * draw(Sk, 1)
+    return (q, k, v), lambda t: [heads(x) for x in t]
+
+
+def check_flash(torch, lengths, g):
+    """K3 vs flash_plain at the shapes of FLASH_CASES, f32 and bf16, on the
+    same strided views. Every row is compared, fully masked ones too."""
+    from mld_tpu_torch.models.mld import lengths_to_mask
+    from mld_tpu_torch.ops import attention
+    from mld_tpu_torch.ops.attention import flash_plain, sdpa
+
+    res = {}
+    for label, B, H, Sq, Sk, Dh, masked in FLASH_CASES:
+        raw, split = _flash_inputs(torch, B, H, Sq, Sk, Dh, g)
+        valid = None
+        if masked and label == "ragged":
+            valid = lengths_to_mask([Sk, 33, 0], Sk, DEVICE)
+        elif masked:
+            valid = lengths_to_mask((lengths * -(-B // len(lengths)))[:B],
+                                    Sk, DEVICE)
+        for dname, dt, atol in (("f32", torch.float32, ATTN_F32_ATOL),
+                                ("bf16", torch.bfloat16, ATTN_BF16_ATOL)):
+            q, k, v = split(raw.to(dt) if torch.is_tensor(raw)
+                            else [t.to(dt) for t in raw])
+            res[(dname, (label, B))] = _hold(
+                torch, "flash_attention",
+                lambda: sdpa(q, k, v, valid),
+                lambda: flash_plain(q, k, v, valid),
+                atol, f"{dname} {label} q [{B}, {H}, {Sq}, {Dh}] Sk={Sk}"
+                + (" masked" if masked else ""),
+                lambda: attention.FLASH_LAUNCHES)
+    return res
+
+
 def phase_kernels(torch, mld, lengths):
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     with torch.no_grad():
@@ -425,6 +519,7 @@ def phase_kernels(torch, mld, lengths):
                 torch, mld.denoiser.encoder.middle_block, g),
             "skip_decoder": check_skip_decoder(torch, mld.vae, lengths, g),
             "flash_causal": check_flash_causal(torch, g),
+            "flash_attention": check_flash(torch, lengths, g),
         }
 
 
@@ -455,7 +550,8 @@ def _counters():
     return ((fused_layer, "LAUNCHES", "skip_encoder"),
             (fused_seq_decoder, "LAUNCHES", "skip_decoder"),
             (fused_seq_decoder, "KERNELS", "skip_decoder_kernels"),
-            (attention, "LAUNCHES", "flash_causal"))
+            (attention, "LAUNCHES", "flash_causal"),
+            (attention, "FLASH_LAUNCHES", "flash_attention"))
 
 
 def _reset_counts():
@@ -482,11 +578,14 @@ def drive(torch, mld, label, texts, lengths):
 
     n_steps = len(mld.scheduler.timesteps())
     n_clip = mld.cfg.model.clip_layers
+    # the plain VAE decode: self- and cross-attention in each layer
+    n_decode_attn = 2 * mld.cfg.model.num_layers
     want = {"skip_encoder": n_steps,
             "skip_decoder": int(mld.fused_decode),
             "skip_decoder_kernels": int(mld.fused_decode) * launch_count(
                 N_BLOCK, mld.latent_size),
-            "flash_causal": 2 * n_clip}
+            "flash_causal": 2 * n_clip,
+            "flash_attention": 0 if mld.fused_decode else n_decode_attn}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
 
     _reset_counts()
@@ -564,8 +663,11 @@ def phase_main_path(torch):
             f"{time.perf_counter() - t0:.1f} s (fused_decode="
             f"{mld.fused_decode})")
         if kernel_results is None:
+            t1 = time.perf_counter()
             kernel_results = phase_kernels(torch, mld, lengths)
+            log(f"[time] kernels vs plain: {time.perf_counter() - t1:.1f} s")
         runs[label] = drive(torch, mld, label, texts, lengths)
+        log(f"[time] main path {label}: {time.perf_counter() - t0:.1f} s")
         del mld
         torch.cuda.empty_cache()
     counts = runs["kernels"]["counts"]
@@ -578,9 +680,11 @@ def phase_main_path(torch):
         f"{runs['default']['median_s']:.4f} -> "
         f"{runs['kernels']['median_s']:.4f} s")
 
+    t0 = time.perf_counter()
     for label, kw in CONFIGS:
         phase_reference(torch, cfg, texts[0], lengths[0], label, kw)
-    return kernel_results, runs
+    log(f"[time] main path reference: {time.perf_counter() - t0:.1f} s")
+    return kernel_results, runs, texts, lengths
 
 
 def phase_reference(torch, cfg, text, length, label, kw):
@@ -615,7 +719,190 @@ def phase_reference(torch, cfg, text, length, label, kw):
                            f"({label})")
 
 
-def kernels_line(kr, runs, prompt_len):
+def _raw_want(mld, n_steps):
+    m = mld.cfg.model
+    return {"skip_encoder": 0, "skip_decoder": 0, "skip_decoder_kernels": 0,
+            "flash_causal": 2 * m.clip_layers,
+            "flash_attention": 2 * m.denoiser_num_layers * n_steps}
+
+
+def drive_raw(torch, mld, preset, texts, lengths):
+    """The raw-motion main path: the prompts through MLD.generate (warm),
+    then one timed generate_joints on the same prompts."""
+    import numpy as np
+
+    from mld_tpu_torch.models.mld import lengths_to_mask
+
+    n_steps = len(mld.scheduler.timesteps())
+    want = _raw_want(mld, n_steps)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    _reset_counts()
+    t0 = time.perf_counter()
+    motions = mld.generate(texts, lengths, generator=gen)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    _check_counts(_read_counts(), want, f"{preset} generate")
+    for motion, n in zip(motions, lengths):
+        if motion.shape != (n, mld.njoints, 3):
+            raise RuntimeError(f"bad motion {motion.shape} for length {n}")
+        if not np.isfinite(motion).all():
+            raise RuntimeError(f"non-finite motion for length {n}")
+
+    ids = mld.tokenize(texts)
+    mask = lengths_to_mask(lengths, mld.max_frames, mld.device)
+    _reset_counts()
+    t0 = time.perf_counter()
+    joints = mld.generate_joints(ids, mask, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    _check_counts(counts, want, f"{preset} generate_joints")
+    _check_joints(torch, joints, mask,
+                  (len(texts), mld.max_frames, mld.njoints, 3))
+    scale = joints.abs().max().item()
+    log(f"[raw:{preset}] B={len(texts)} lengths {lengths}: generate "
+        f"{warm:.3f} s (first call), generate_joints {wall:.3f} s "
+        f"({wall / n_steps * 1e3:.3f} ms a step), "
+        f"launches a call {counts}, joints scale {scale:.3e}")
+    return {"counts": counts, "warm_s": warm, "s": wall}
+
+
+def _cut_config(cfg, n_steps, **model):
+    """cfg with its DDPM schedule cut to n_steps train timesteps (the same
+    betas' range: the same work a step, n_steps steps) and the `model`
+    fields overridden."""
+    from mld_tpu_torch.config.core import (config_from_dict, config_to_dict,
+                                           merge_dicts)
+    return config_from_dict(merge_dicts(config_to_dict(cfg), {"model": {
+        **model, "scheduler": {"num_train_timesteps": n_steps}}}))
+
+
+def profile_raw_loop(torch, cfg, texts, lengths):
+    """Device busy time of PROFILE_STEPS sampling steps at the demo batch,
+    by torch.profiler, against the same loop's unprofiled wall time; the
+    model is the preset's with its schedule cut to PROFILE_STEPS."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mld_tpu_torch.models.mld import MLD, lengths_to_mask
+
+    mld = MLD(_cut_config(cfg, PROFILE_STEPS), device=DEVICE,
+              generator=torch.Generator().manual_seed(SEED))
+    ids = mld.tokenize(texts)
+    mask = lengths_to_mask(lengths, mld.max_frames, mld.device)
+    cond = mld.encode_text_tokens(ids)
+    uncond = mld.encode_text_tokens(
+        torch.as_tensor(mld.uncond_ids, device=mld.device))
+    cond = torch.cat([uncond.expand_as(cond), cond])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mld.diffusion_reverse(cond, gen, mask=mask)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mld.diffusion_reverse(cond, gen, mask=mask)
+        torch.cuda.synchronize()
+    by_name = Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    groups = Counter()
+    for name, us in by_name.items():
+        kind = ("K3 flash_kernel" if "flash_kernel" in name
+                else "GEMM" if "gemm" in name.lower() else "other")
+        groups[kind] += us / 1e3
+    wall_ms = min(walls) * 1e3
+    per = 1.0 / PROFILE_STEPS
+    log(f"[raw:profile] {PROFILE_STEPS} steps at B={len(texts)}, T="
+        f"{mld.max_frames}: wall {wall_ms * per:.3f} ms a step (unprofiled, "
+        f"best of 2), device busy {busy_ms * per:.3f} ms a step "
+        f"({100 * (1 - busy_ms / wall_ms):.1f}% idle); busy by kind: "
+        + ", ".join(f"{k} {v * per:.3f} ms" for k, v in groups.most_common()))
+    for name, us in by_name.most_common(6):
+        log(f"[raw:profile]   {us / 1e3 * per:.4f} ms a step  {name[:110]}")
+    return {"wall_ms_step": wall_ms * per, "busy_ms_step": busy_ms * per,
+            "by_kind_ms_step": {k: v * per for k, v in groups.items()}}
+
+
+def phase_raw_reference(torch, cfg, text, length):
+    """One prompt of the raw-motion path on the card (K3, K4) and on the CPU
+    (plain versions), f32 text tower on both, same weights, initial latents
+    and per-step noise, the schedule cut to RAW_REF_STEPS train timesteps."""
+    from mld_tpu_torch.models.mld import MLD, lengths_to_mask
+
+    cfg_ref = _cut_config(cfg, RAW_REF_STEPS, clip_compute_dtype="float32")
+    g = torch.Generator().manual_seed(SEED + 5)
+    shape = (1, cfg.dataset.max_motion_len, cfg.dataset.nfeats)
+    init = torch.randn(shape, generator=g)
+    noise = torch.randn((RAW_REF_STEPS,) + shape, generator=g)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        mld = MLD(cfg_ref, device=dev,
+                  generator=torch.Generator().manual_seed(SEED))
+        mask = lengths_to_mask([length], mld.max_frames, mld.device)
+        _reset_counts()
+        out[dev] = mld.generate_joints(mld.tokenize([text]), mask,
+                                       init_latents=init,
+                                       step_noise=noise).cpu()
+        counts = _read_counts()
+        want = (_raw_want(mld, RAW_REF_STEPS) if dev == DEVICE
+                else {k: 0 for k in counts})
+        del mld
+        _check_counts(counts, want, f"raw-motion reference on {dev}")
+    scale = out["cpu"].abs().max().item()
+    err = (out[DEVICE] - out["cpu"]).abs().max().item()
+    log(f"[reference:{cfg.name}] card vs CPU joints, one prompt, length "
+        f"{length}, {RAW_REF_STEPS} DDPM steps: max_abs_err {err:.3e} (scale "
+        f"{scale:.3e}, bar {E2E_RTOL:g} x max(scale, 1))")
+    if not err <= E2E_RTOL * max(scale, 1.0):
+        raise RuntimeError(f"card joints disagree with the CPU reference "
+                           f"({cfg.name})")
+    return err
+
+
+def _scaled_lengths(lengths, max_frames):
+    """The demo lengths (up to 196 frames) scaled to max_frames."""
+    return [min(max_frames, round(n * max_frames / T_FRAMES))
+            for n in lengths]
+
+
+def phase_raw_motion(torch, texts, lengths):
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.models.mld import MLD
+
+    runs = {}
+    for preset in RAW_PRESETS:
+        t0 = time.perf_counter()
+        cfg = load_config(preset=preset)
+        m = cfg.model
+        mld = MLD(cfg, device=DEVICE,
+                  generator=torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        log(f"[raw:{preset}] CLIP {m.clip_layers}x{m.text_encoded_dim} "
+            f"{m.clip_compute_dtype}, trans_dec denoiser "
+            f"{m.denoiser_num_layers}x{m.latent_dim} ({m.num_heads} heads, ff "
+            f"{m.ff_size}), {mld.max_frames} frames, DDPM-"
+            f"{m.scheduler.num_train_timesteps}, CFG {m.guidance_scale}; "
+            f"built on {DEVICE} in {time.perf_counter() - t0:.1f} s")
+        plens = _scaled_lengths(lengths, mld.max_frames)
+        runs[preset] = drive_raw(torch, mld, preset, texts, plens)
+        del mld
+        runs[preset]["profile"] = profile_raw_loop(torch, cfg, texts, plens)
+        if preset == "novae_stress_s512":
+            ref_cfg, ref_len = cfg, plens[0]
+        log(f"[time] raw-motion {preset}: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs["reference_err"] = phase_raw_reference(torch, ref_cfg, texts[0],
+                                                ref_len)
+    log(f"[time] raw-motion reference: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+def kernels_line(kr, runs, raw_runs, prompt_len):
     counts = runs["kernels"]["counts"]
     layer_res, layer_rounding = kr["encoder_layer"]
     dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
@@ -656,6 +943,12 @@ def kernels_line(kr, runs, prompt_len):
         entry("flash_causal", "mld_tpu_torch/csrc/flash_causal.cu",
               "mld_tpu/ops/attention.py:188", counts["flash_causal"],
               kr["flash_causal"], ("f32", prompt_len), ("bf16", prompt_len)),
+        # launches of the novae_stress_s512 call; times of one of its
+        # self-attentions at the demo batch
+        entry("flash_attention", "mld_tpu_torch/csrc/flash_attention.cu",
+              "mld_tpu/ops/attention.py:77",
+              raw_runs["novae_stress_s512"]["counts"]["flash_attention"],
+              kr["flash_attention"], ("f32", FLASH_KEY), ("bf16", FLASH_KEY)),
     ]}
 
 
@@ -667,9 +960,13 @@ def main():
         raise RuntimeError(f"no mld_tpu_torch package beside {__file__}: run "
                            f"chip_smoke.py from a checkout of the repo")
     sys.path.insert(0, REPO)
+    t0 = time.perf_counter()
     phase_build()
-    kr, runs = phase_main_path(torch)
-    log(json.dumps(kernels_line(kr, runs, runs["kernels"]["prompt_len"])))
+    log(f"[time] build: {time.perf_counter() - t0:.1f} s")
+    kr, runs, texts, lengths = phase_main_path(torch)
+    raw_runs = phase_raw_motion(torch, texts, lengths)
+    log(json.dumps(kernels_line(kr, runs, raw_runs,
+                                runs["kernels"]["prompt_len"])))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""DDIM scheduler (port of ``mld_tpu/diffusion/schedulers.py``).
+"""DDIM and DDPM schedulers (port of ``mld_tpu/diffusion/schedulers.py``).
 
 diffusers semantics as the reference configures them
 (configs/modules/scheduler.yaml:2-43): ``scaled_linear`` betas
@@ -129,3 +129,48 @@ class DDIMScheduler:
         if self.eta > 0 and noise is not None:
             prev_sample = prev_sample + float(std) * noise
         return prev_sample
+
+
+@dataclasses.dataclass(frozen=True)
+class DDPMScheduler:
+    """Ancestral DDPM over every train timestep (``schedulers.py:177-221``),
+    the sampler of the no-VAE presets."""
+    schedule: DiffusionSchedule
+    variance_type: str = "fixed_small"   # or "fixed_large"
+
+    @property
+    def init_noise_sigma(self) -> float:
+        return 1.0
+
+    def timesteps(self) -> np.ndarray:
+        """T-1, ..., 0."""
+        T = self.schedule.num_train_timesteps
+        return np.arange(T - 1, -1, -1, dtype=np.int64)
+
+    def step(self, model_output: torch.Tensor, timestep: int,
+             sample: torch.Tensor, noise: torch.Tensor | None = None
+             ) -> torch.Tensor:
+        """One ancestral update x_t -> x_{t-1} at host timestep `timestep`:
+        the posterior mean from x0, plus std * noise (std 0 at t = 0).
+        Without noise, the mean."""
+        sch = self.schedule
+        t = int(timestep)
+        one = _f32(1.0)
+        alpha_prod_t = sch.alphas_cumprod[t]
+        alpha_prod_prev = sch.alphas_cumprod[t - 1] if t > 0 else one
+        beta_t, alpha_t = sch.betas[t], sch.alphas[t]
+
+        x0, _ = sch.predict_x0_eps(model_output, sample, alpha_prod_t)
+
+        x0_coeff = np.sqrt(alpha_prod_prev) * beta_t / (one - alpha_prod_t)
+        xt_coeff = np.sqrt(alpha_t) * (one - alpha_prod_prev) / (
+            one - alpha_prod_t)
+        prev_mean = float(x0_coeff) * x0 + float(xt_coeff) * sample
+        if noise is None:
+            return prev_mean
+        variance = max(beta_t * (one - alpha_prod_prev) / (one - alpha_prod_t),
+                       _f32(1e-20))
+        if self.variance_type == "fixed_large":
+            variance = beta_t
+        std = np.sqrt(variance) if t > 0 else _f32(0.0)
+        return prev_mean + float(std) * noise

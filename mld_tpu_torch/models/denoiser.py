@@ -1,6 +1,7 @@
-"""MldDenoiser — latent-space text-conditioned denoiser (port of
-``mld_tpu/models/denoiser.py`` for ``condition="text"``, ``trans_enc`` with
-skip connections, latent mode).
+"""The text-conditioned denoisers (port of ``mld_tpu/models/denoiser.py``
+for ``condition="text"``): ``MldDenoiser``, the latent-space ``trans_enc``
+with skip connections, and ``RawMotionDenoiser``, the ``trans_dec`` denoiser
+of raw motion (``diffusion_only``, the no-VAE presets).
 
 Token sequence: [sample tokens ; time token ; text tokens], sample first
 (mld_denoiser.py:187). The module holds the parameters under the reference
@@ -17,19 +18,22 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mld_tpu_torch.ops.embeddings import (PositionEmbeddingLearned1D,
-                                          TimestepEmbedding)
+from mld_tpu_torch.ops.embeddings import (DENOISER_FLIP_SIN_TO_COS,
+                                          DENOISER_FREQ_SHIFT,
+                                          PositionEmbeddingLearned1D,
+                                          TimestepEmbedding,
+                                          get_timestep_embedding)
 from mld_tpu_torch.ops.fused_denoiser import fused_denoiser_forward
 from mld_tpu_torch.ops.fused_layer import (MAX_S, StackedSkipEncoder,
                                            stack_skip_encoder)
-from mld_tpu_torch.ops.transformer import SkipTransformerEncoder
+from mld_tpu_torch.ops.transformer import (SkipTransformerEncoder,
+                                           TransformerDecoder)
 
 
 class MldDenoiser(nn.Module):
     def __init__(self, latent_size: int = 1, latent_dim: int = 256,
                  ff_size: int = 1024, num_layers: int = 9,
                  num_heads: int = 4, text_encoded_dim: int = 768,
-                 flip_sin_to_cos: bool = True, freq_shift: float = 0.0,
                  pe_max_len: int = 500, activation: str = "gelu",
                  weight_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -40,8 +44,6 @@ class MldDenoiser(nn.Module):
                              f"stack's {MAX_S} tokens")
         self.latent_dim = latent_dim
         self.text_encoded_dim = text_encoded_dim
-        self.flip_sin_to_cos = flip_sin_to_cos
-        self.freq_shift = freq_shift
         self.weight_dtype = weight_dtype
         self.time_embedding = TimestepEmbedding(text_encoded_dim, latent_dim)
         self.emb_proj = (nn.Sequential(nn.ReLU(),
@@ -79,3 +81,58 @@ class MldDenoiser(nn.Module):
         return fused_denoiser_forward(self, sample, timestep,
                                       encoder_hidden_states, time_emb,
                                       cond_lat)
+
+
+class RawMotionDenoiser(nn.Module):
+    """The ``trans_dec`` denoiser in ``diffusion_only`` mode
+    (``denoiser.py:94-197``, text branch): embedded raw motion frames
+    [B, T, d] cross-attend the memory [time token; text tokens] through a
+    plain post-norm decoder stack, whose attention is ``ops.attention.sdpa``
+    (the K3 kernel on the card). The decoder takes no masks: padded frames
+    are attended, as in the reference (``denoiser.py:150-151``); the output
+    is zeroed outside the mask.
+
+    Parameters carry the reference names: ``pose_embd``, ``pose_proj``,
+    ``time_embedding.linear_1/2``, ``emb_proj.1``, ``query_pos.pe``,
+    ``mem_pos.pe``, ``decoder.layers.N.*``, ``decoder.norm``."""
+
+    def __init__(self, nfeats: int = 263, latent_dim: int = 512,
+                 ff_size: int = 1024, num_layers: int = 9,
+                 num_heads: int = 4, text_encoded_dim: int = 768,
+                 pe_max_len: int = 500, activation: str = "gelu"):
+        super().__init__()
+        d = latent_dim
+        self.latent_dim = latent_dim
+        self.text_encoded_dim = text_encoded_dim
+        self.pose_embd = nn.Linear(nfeats, d)
+        self.pose_proj = nn.Linear(d, nfeats)
+        self.time_embedding = TimestepEmbedding(text_encoded_dim, d)
+        self.emb_proj = (nn.Sequential(nn.ReLU(), nn.Linear(text_encoded_dim, d))
+                         if text_encoded_dim != d else None)
+        self.query_pos = PositionEmbeddingLearned1D(d, pe_max_len)
+        self.mem_pos = PositionEmbeddingLearned1D(d, pe_max_len)
+        self.decoder = TransformerDecoder(d, num_heads, num_layers, ff_size,
+                                          activation)
+
+    def forward(self, sample: torch.Tensor, timestep,
+                encoder_hidden_states: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sample [B, T, nfeats]; timestep scalar or [B];
+        encoder_hidden_states [B, S_text, text_dim]; mask [B, T] bool or
+        None -> [B, T, nfeats]."""
+        B = sample.shape[0]
+        if isinstance(timestep, torch.Tensor):
+            timesteps = timestep.to(sample.device).expand(B)
+        else:   # a host integer: filled on the device, no copy to wait for
+            timesteps = torch.full((B,), int(timestep), device=sample.device)
+        t_sin = get_timestep_embedding(timesteps, self.text_encoded_dim,
+                                       DENOISER_FLIP_SIN_TO_COS,
+                                       DENOISER_FREQ_SHIFT)
+        time_emb = self.time_embedding(t_sin.to(sample.dtype))[:, None]
+        text = encoder_hidden_states
+        # emb_proj is Sequential(ReLU, Linear): ReLU before the projection
+        text_lat = self.emb_proj(text) if self.emb_proj is not None else text
+        memory = self.mem_pos(torch.cat([time_emb, text_lat], dim=1))
+        tgt = self.query_pos(self.pose_embd(sample))
+        out = self.pose_proj(self.decoder(tgt, memory))
+        return out * mask[..., None] if mask is not None else out

@@ -1,18 +1,24 @@
 """MLD text-to-motion generation (port of ``mld_tpu/models/mld.py`` for the
-text condition).
+text condition), in two families:
 
-  generate():  texts -> tokens (host, EOT buckets) -> CLIP -> 50 DDIM steps
-               with classifier-free guidance over a doubled batch (uncond
-               half first) -> VAE decode -> de-norm -> recover_from_ric -> joints
+  latent (mld_humanml3d): texts -> tokens (host, EOT buckets) -> CLIP -> 50
+      DDIM steps of the trans_enc denoiser with classifier-free guidance over
+      a doubled batch (uncond half first) -> VAE decode -> de-norm ->
+      recover_from_ric -> joints
+  raw motion (novae_humanml3d, novae_stress_s512): the same text path -> 1000
+      ancestral DDPM steps of the trans_dec denoiser over [B, T, nfeats]
+      frames under CFG -> zero outside the mask -> de-norm -> joints
 
-The denoiser's encoder stack runs as one CUDA kernel per step on the card
-(ops/fused_layer.py), and the text tower's causal attention as another
-(ops/attention.py:sdpa_flash_causal, always on). ``fused_decode``, the JAX
-package's switch of the same name, runs the VAE decoder stack through
-ops/fused_seq_decoder.py; it changes the result (LayerNorm eps 1e-5 against
-the plain modules' 1e-6). Everything else is plain PyTorch on the same device.
-Conventions: batch-first; latents [B, latent_size, latent_dim]; masks [B, T]
-bool, True = valid.
+The latent denoiser's encoder stack runs as one CUDA kernel per step on the
+card (ops/fused_layer.py), the text tower's causal attention as another
+(ops/attention.py:sdpa_flash_causal), and every bidirectional attention (the
+raw-motion denoiser's, the plain VAE decode's) as a third
+(ops/attention.py:sdpa). ``fused_decode``, the JAX package's switch of the
+same name, runs the VAE decoder stack through ops/fused_seq_decoder.py; it
+changes the result (LayerNorm eps 1e-5 against the plain modules' 1e-6).
+Everything else is plain PyTorch on the same device. Conventions:
+batch-first; latents [B, latent_size, latent_dim] or [B, T, nfeats]; masks
+[B, T] bool, True = valid.
 """
 from __future__ import annotations
 
@@ -25,9 +31,10 @@ from torch import nn
 
 from mld_tpu_torch.config import Config
 from mld_tpu_torch.data.humanml.motion_process import recover_from_ric
-from mld_tpu_torch.diffusion.schedulers import DDIMScheduler, DiffusionSchedule
+from mld_tpu_torch.diffusion.schedulers import (DDIMScheduler, DDPMScheduler,
+                                                DiffusionSchedule)
 from mld_tpu_torch.models.clip_text import ClipTextModel, ClipTokenizer
-from mld_tpu_torch.models.denoiser import MldDenoiser
+from mld_tpu_torch.models.denoiser import MldDenoiser, RawMotionDenoiser
 from mld_tpu_torch.models.vae import MldVae
 from mld_tpu_torch.ops.fused_denoiser import precompute_cond
 from mld_tpu_torch.ops.fused_seq_decoder import (can_fuse_decode,
@@ -51,27 +58,41 @@ def lengths_to_mask(lengths, max_len: int, device=None) -> torch.Tensor:
     return torch.arange(max_len, device=lengths.device)[None] < lengths[:, None]
 
 
+def is_raw_motion(model_cfg) -> bool:
+    """No VAE: the denoiser works on the motion features themselves (the JAX
+    package's ``not is_vae``, ``mld.py:63``)."""
+    return not model_cfg.vae or model_cfg.vae_type == "no"
+
+
 def _check_supported(cfg: Config):
     m = cfg.model
+    raw = is_raw_motion(m)
+    # the two families: the MLD VAE with the skip trans_enc denoiser and
+    # DDIM, or raw motion with the trans_dec denoiser and DDPM
+    arch, sched = ("trans_dec", "ddpm") if raw else ("trans_enc", "ddim")
     unsupported = [
         (m.condition != "text", f"condition={m.condition}"),
-        (not m.vae or m.vae_type != "mld", f"vae_type={m.vae_type}"),
-        (m.vae_arch != "encoder_decoder", f"vae_arch={m.vae_arch}"),
-        (m.mlp_dist, "mlp_dist"),
-        (m.denoiser_arch != "trans_enc", f"denoiser_arch={m.denoiser_arch}"),
-        (not m.skip_connect, "skip_connect=False"),
+        (not raw and m.vae_type != "mld", f"vae_type={m.vae_type}"),
+        (not raw and m.vae_arch != "encoder_decoder",
+         f"vae_arch={m.vae_arch}"),
+        (not raw and m.mlp_dist, "mlp_dist"),
+        (m.denoiser_arch != arch, f"denoiser_arch={m.denoiser_arch}"
+         + (" with diffusion_only" if raw else " in latent mode")),
+        (not raw and not m.skip_connect, "skip_connect=False"),
         (m.normalize_before, "normalize_before"),
         (m.position_embedding not in ("v3", "learned"),
          f"position_embedding={m.position_embedding}"),
         (m.clip_last_hidden, "clip_last_hidden"),
-        (m.scheduler.kind != "ddim", f"scheduler={m.scheduler.kind}"),
+        (m.scheduler.kind != sched, f"scheduler={m.scheduler.kind}"
+         + (" without a VAE" if raw else " with a VAE")),
         (m.dtype != "float32", f"dtype={m.dtype}"),
     ]
     bad = [msg for cond, msg in unsupported if cond]
     if bad:
         raise NotImplementedError(
-            f"the PyTorch port covers text-to-motion with the MLD VAE and "
-            f"the skip trans_enc denoiser; unsupported: {', '.join(bad)}")
+            f"the PyTorch port covers text-to-motion with the MLD VAE, the "
+            f"skip trans_enc denoiser and DDIM, or on raw motion with the "
+            f"trans_dec denoiser and DDPM; unsupported: {', '.join(bad)}")
 
 
 @torch.no_grad()
@@ -110,7 +131,8 @@ class MLD(nn.Module):
     `fused_decode` chooses the decode path; None reads the JAX package's
     switch MLD_TPU_FUSED_DECODE, whose default is off. It is not a
     fallback: with it on, the kernel launches on the card or the call
-    raises."""
+    raises. The raw-motion family has no VAE (``vae`` is None) and so no
+    decode to fuse."""
 
     def __init__(self, cfg: Config, mean: Optional[np.ndarray] = None,
                  std: Optional[np.ndarray] = None, *, device="cpu",
@@ -129,6 +151,7 @@ class MLD(nn.Module):
         self.guidance_scale = m.guidance_scale
         self.do_cfg = m.guidance_scale > 1.0
         self.clip_mode = "features"
+        self.raw_motion = is_raw_motion(m)
         if fused_decode is None:
             fused_decode = _fused_decode_from_env(m)
         elif fused_decode and not can_fuse_decode(m):
@@ -137,15 +160,23 @@ class MLD(nn.Module):
                              "and latent_size <= 8")
         self.fused_decode = bool(fused_decode)
 
+        pe_max_len = max(500, self.max_frames + 8)
         with torch.device("meta"):
-            self.vae = MldVae(self.nfeats, m.latent_size, m.latent_dim,
-                              m.ff_size, m.num_layers, m.num_heads,
-                              m.activation, weight_dtype=weight_dtype)
-            self.denoiser = MldDenoiser(
-                m.latent_size, m.latent_dim, m.ff_size,
-                m.denoiser_num_layers, m.num_heads, m.text_encoded_dim,
-                pe_max_len=max(500, self.max_frames + 8),
-                activation=m.activation, weight_dtype=weight_dtype)
+            if self.raw_motion:
+                self.vae = None
+                self.denoiser = RawMotionDenoiser(
+                    self.nfeats, m.latent_dim, m.ff_size,
+                    m.denoiser_num_layers, m.num_heads, m.text_encoded_dim,
+                    pe_max_len=pe_max_len, activation=m.activation)
+            else:
+                self.vae = MldVae(self.nfeats, m.latent_size, m.latent_dim,
+                                  m.ff_size, m.num_layers, m.num_heads,
+                                  m.activation, weight_dtype=weight_dtype)
+                self.denoiser = MldDenoiser(
+                    m.latent_size, m.latent_dim, m.ff_size,
+                    m.denoiser_num_layers, m.num_heads, m.text_encoded_dim,
+                    pe_max_len=pe_max_len, activation=m.activation,
+                    weight_dtype=weight_dtype)
             self.clip = ClipTextModel(width=m.text_encoded_dim,
                                       layers=m.clip_layers,
                                       heads=m.clip_heads,
@@ -168,26 +199,30 @@ class MLD(nn.Module):
             sc.beta_schedule,
             "epsilon" if cfg.train.predict_epsilon else "sample",
             sc.clip_sample)
-        self.scheduler = DDIMScheduler(schedule, sc.num_inference_timesteps,
-                                       sc.eta, sc.steps_offset,
-                                       sc.set_alpha_to_one)
+        self.scheduler = (
+            DDPMScheduler(schedule, sc.variance_type) if self.raw_motion
+            else DDIMScheduler(schedule, sc.num_inference_timesteps, sc.eta,
+                               sc.steps_offset, sc.set_alpha_to_one))
 
         self.tokenizer = ClipTokenizer(m.clip_path)
         # features mode: the empty prompt is [BOS, EOS, pad...]; under causal
         # attention + EOT pooling only the first 2 positions matter, so the
         # uncond row is encoded at context 8 (exact)
         self.uncond_ids = self.tokenizer([""])[:, :8]
-        self.denoiser.restack()
+        if not self.raw_motion:
+            self.denoiser.restack()
         if self.fused_decode:
             self.vae.restack()
 
     def load_flax_params(self, tree: Mapping):
         """Load a JAX-package param tree {vae, denoiser, clip} of numpy (or
-        jax) arrays. The kernels' stacked weights are rebuilt on load."""
+        jax) arrays; the raw-motion family's tree has no vae. The kernels'
+        stacked weights are rebuilt on load."""
         sd = {}
         for top in ("vae", "denoiser"):
-            sd.update({f"{top}.{k}": v
-                       for k, v in flax_to_state_dict(tree[top]).items()})
+            if top in tree:
+                sd.update({f"{top}.{k}": v for k, v in
+                           flax_to_state_dict(tree[top]).items()})
         sd.update({f"clip.{k}": v
                    for k, v in flax_clip_to_state_dict(tree["clip"]).items()})
         self.load_state_dict(sd, strict=True)
@@ -209,18 +244,33 @@ class MLD(nn.Module):
     @torch.no_grad()
     def diffusion_reverse(self, cond_emb: torch.Tensor,
                           generator: Optional[torch.Generator] = None,
-                          init_latents: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          init_latents: Optional[torch.Tensor] = None,
+                          mask: Optional[torch.Tensor] = None,
+                          step_noise=None) -> torch.Tensor:
         """cond_emb [2B, S, D] under CFG (uncond half first) else [B, S, D]
-        -> latents [B, latent_size, latent_dim]. `init_latents` replaces the
-        drawn initial noise (already scaled by init_noise_sigma)."""
+        -> latents [B, latent_size, latent_dim], or for raw motion [B, T,
+        nfeats] with T from `mask` [B, T] (required there).
+
+        `init_latents` replaces the drawn initial noise (already scaled by
+        init_noise_sigma). Raw motion samples by ancestral DDPM, which draws
+        one noise tensor a step from `generator`; `step_noise` replaces
+        those draws (step_noise[i] is step i's, of the latents' shape)."""
         B = cond_emb.shape[0] // 2 if self.do_cfg else cond_emb.shape[0]
-        if init_latents is None:
+        dev = generator.device if generator is not None else self.device
+        if self.raw_motion:
+            if mask is None:
+                raise ValueError("raw-motion sampling needs the frame mask")
+            mask = mask.to(self.device)
+            shape = (B, mask.shape[1], self.nfeats)
+        else:
             shape = (B, self.latent_size, self.latent_dim)
-            dev = generator.device if generator is not None else self.device
+        if init_latents is None:
             init_latents = (torch.randn(shape, generator=generator, device=dev)
                             * self.scheduler.init_noise_sigma)
         latents = init_latents.to(self.device, torch.float32)
+        if self.raw_motion:
+            return self._ddpm_reverse(latents, cond_emb, mask, generator,
+                                      dev, step_noise)
         timesteps = self.scheduler.timesteps()
         # step-invariant preamble hoisted out of the loop: the time-embedding
         # table and the projected condition tokens, computed once
@@ -235,6 +285,27 @@ class MLD(nn.Module):
                 out_uncond, out_text = out.chunk(2)
                 out = out_uncond + self.guidance_scale * (out_text - out_uncond)
             latents = self.scheduler.step(out, int(t), latents)
+        return latents
+
+    def _ddpm_reverse(self, latents, cond_emb, mask, generator, dev,
+                      step_noise):
+        """The raw-motion loop (``mld.py:475-488``): the denoiser on the
+        doubled batch with the doubled mask, CFG, one ancestral step whose
+        noise is drawn on `dev` from `generator`, or is step_noise[i]."""
+        mask2 = torch.cat([mask, mask]) if self.do_cfg else mask
+        for i, t in enumerate(self.scheduler.timesteps()):
+            model_in = torch.cat([latents, latents]) if self.do_cfg else latents
+            out = self.denoiser(model_in, int(t), cond_emb, mask2)
+            if self.do_cfg:
+                out_uncond, out_text = out.chunk(2)
+                out = out_uncond + self.guidance_scale * (out_text - out_uncond)
+            if step_noise is None:
+                noise = torch.randn(latents.shape, generator=generator,
+                                    device=dev)
+            else:
+                noise = torch.as_tensor(step_noise[i])
+            latents = self.scheduler.step(
+                out, int(t), latents, noise.to(self.device, torch.float32))
         return latents
 
     @torch.no_grad()
@@ -253,10 +324,11 @@ class MLD(nn.Module):
     @torch.no_grad()
     def generate_joints(self, token_ids: torch.Tensor, mask: torch.Tensor, *,
                         generator: Optional[torch.Generator] = None,
-                        init_latents: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        init_latents: Optional[torch.Tensor] = None,
+                        step_noise=None) -> torch.Tensor:
         """prompt ids [B, L] + mask [B, T] -> [B, T, njoints, 3] joints,
-        zero outside the mask."""
+        zero outside the mask. `init_latents` and `step_noise` as in
+        diffusion_reverse."""
         mask = mask.to(self.device)
         cond_emb = self.encode_text_tokens(token_ids)
         if self.do_cfg:
@@ -265,9 +337,13 @@ class MLD(nn.Module):
             uncond = self.encode_text_tokens(
                 torch.as_tensor(self.uncond_ids, device=self.device))
             cond_emb = torch.cat([uncond.expand_as(cond_emb), cond_emb])
-        z = self.diffusion_reverse(cond_emb, generator, init_latents)
-        joints = self.feats2joints(self.decode_latent(z, mask))
-        return joints * mask[..., None, None]
+        z = self.diffusion_reverse(cond_emb, generator, init_latents, mask,
+                                   step_noise)
+        if self.raw_motion:
+            feats = z * mask[..., None]
+        else:
+            feats = self.decode_latent(z, mask)
+        return self.feats2joints(feats) * mask[..., None, None]
 
     def generate(self, texts: Sequence[str], lengths: Sequence[int],
                  generator: Optional[torch.Generator] = None

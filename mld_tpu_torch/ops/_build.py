@@ -42,6 +42,9 @@ _SIGNATURES = {
                                  + [ctypes.POINTER(_I), _P]),
     # (q, k, v, out, BH, S, Dh, sm_scale, bf16, stream)
     "mld_flash_causal_forward": [_P] * 4 + [_I] * 3 + [_F, _I, _P],
+    # (q, k, v, valid or null, out, B, H, Sq, Sk, Dh, batch/head/row strides
+    #  of q, k, v and out, sm_scale, bf16, stream)
+    "mld_flash_forward": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
 }
 
 

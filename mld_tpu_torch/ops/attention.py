@@ -1,16 +1,20 @@
-"""Attention: plain masked multi-head attention (port of ``sdpa_xla``,
-``mld_tpu/ops/attention.py:49-73``) and the CLIP tower's causal attention
-kernel (port of ``sdpa_flash_causal``, ``attention.py:223-266``).
+"""Attention: the bidirectional masked attention kernel (port of
+``sdpa_pallas``, ``mld_tpu/ops/attention.py:113-161``, K3) and the CLIP
+tower's causal attention kernel (port of ``sdpa_flash_causal``,
+``attention.py:223-266``, K4).
 
 Layout is batch-first: q [B, H, Sq, Dh], k/v [B, H, Sk, Dh]. Padded keys are
 filled with -1e9, not -inf, so that a fully masked row stays finite; scores
 and softmax are f32 whatever the input dtype.
 
-``sdpa_flash_causal`` is the wrapper of the CUDA kernel
-``csrc/flash_causal.cu`` (K4): CPU tensors take its plain version
-``flash_causal_plain``; CUDA tensors launch the kernel or raise. The
-bidirectional Pallas kernel (``sdpa_pallas``, K3) is not ported yet
-(ROADMAP.md, queue 2).
+``sdpa`` is the wrapper of the CUDA kernel ``csrc/flash_attention.cu`` (K3)
+and ``sdpa_flash_causal`` that of ``csrc/flash_causal.cu`` (K4): CPU tensors
+take their plain versions ``flash_plain`` and ``flash_causal_plain``; CUDA
+tensors launch the kernel or raise. K3 runs at every shape: the JAX
+package's Sq*Sk >= 512^2 dispatch threshold (``attention.py:309-323``) is a
+TPU measurement. Its fully masked rows average v over the Sk real keys, as
+``sdpa_xla`` does; the TPU kernel divides by Sk padded to 128 there
+(ROADMAP.md, section 3).
 """
 from __future__ import annotations
 
@@ -26,19 +30,105 @@ MAX_CAUSAL_S = 128     # the CLIP context is 77
 MAX_CAUSAL_DH = 128
 SMEM_LIMIT = 227 * 1024
 
-# kernel launches made by sdpa_flash_causal (CUDA only)
+MAX_DH = 128
+
+# kernel launches made by sdpa_flash_causal (K4) and by sdpa (K3), CUDA only
 LAUNCHES = 0
+FLASH_LAUNCHES = 0
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """key_valid: [B, Sk] bool (True = attend). Returns [B, H, Sq, Dh]."""
-    scores = torch.matmul(q, k.transpose(-1, -2)).float()
+def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3's function in plain PyTorch (``_flash_kernel``,
+    ``attention.py:77-105``): q, k, v upcast to f32, f32 scores times
+    1/sqrt(Dh), -1e9 at invalid keys, f32 softmax and P.V, output in q's
+    dtype. key_valid: [B, Sk] bool (True = attend) or None for all keys."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     scores = scores * (1.0 / math.sqrt(q.shape[-1]))
     if key_valid is not None:
         scores = scores.masked_fill(~key_valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.matmul(probs.to(v.dtype), v)
+    return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def _check_flash(q, k, v, key_valid):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, H, S, Dh]")
+    B, H, Sq, Dh = q.shape
+    Sk = k.shape[2]
+    for name, t in (("k", k), ("v", v)):
+        if (t.shape != (B, H, Sk, Dh) or t.dtype != q.dtype
+                or t.device != q.device):
+            raise ValueError(f"{name} must be [B, H, Sk, Dh] = "
+                             f"{(B, H, Sk, Dh)} of q's dtype and device, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q, k, v must be f32 or bf16, got {q.dtype}")
+    if not (Sq >= 1 and Sk >= 1 and 4 <= Dh <= MAX_DH and Dh % 4 == 0
+            and B <= 65535 and H <= 65535):
+        raise ValueError(f"the attention kernel takes Sq, Sk >= 1 and Dh a "
+                         f"multiple of 4 up to {MAX_DH} (Sq={Sq}, Sk={Sk}, "
+                         f"Dh={Dh})")
+    if key_valid is not None and (key_valid.shape != (B, Sk)
+                                  or key_valid.dtype != torch.bool
+                                  or key_valid.device != q.device):
+        raise ValueError(f"key_valid must be a [B, Sk] = {(B, Sk)} bool "
+                         f"tensor on {q.device}, got {key_valid.dtype} "
+                         f"{tuple(key_valid.shape)} on {key_valid.device}")
+
+
+def flash_operands(q, k, v, key_valid):
+    """The output K3 writes, the C entry's arguments but the stream, and the
+    operands they point into (held by the caller until the launch).
+
+    q, k and v are passed as they lie, through their batch, head and row
+    strides; only a tensor without a unit stride along Dh is copied (none
+    on the port's paths). The output is [B, Sq, H, Dh] memory seen as
+    [B, H, Sq, Dh]."""
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if key_valid is not None:
+        key_valid = key_valid.contiguous()
+    B, H, Sq, Dh = q.shape
+    Sk = k.shape[2]
+    out = torch.empty(B, Sq, H, Dh, dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if key_valid is None else key_valid.data_ptr(),
+            out.data_ptr(), B, H, Sq, Sk, Dh,
+            *(st for t in (q, k, v, out) for st in t.stride()[:3]),
+            1.0 / math.sqrt(Dh), int(q.dtype == torch.bfloat16))
+    return out, args, (q, k, v, key_valid)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bidirectional attention. q [B, H, Sq, Dh], k/v [B, H, Sk, Dh],
+    key_valid [B, Sk] bool (True = attend) or None -> [B, H, Sq, Dh] in q's
+    dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch K3 on the
+    current stream (no synchronisation) or raise, also when autograd tracks
+    an input (the kernel has no backward). The kernel reads q, k and v
+    through their strides (any views with a unit stride along Dh, such as
+    the heads of a packed QKV projection, without a copy) and writes the
+    output as [B, Sq, H, Dh] memory, returned as a [B, H, Sq, Dh] view, so
+    that merging the heads afterwards copies nothing either."""
+    global FLASH_LAUNCHES
+    if q.device.type == "cpu":
+        return flash_plain(q, k, v, key_valid)
+    _build.check_no_grad("attention", q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    _check_flash(q, k, v, key_valid)
+    out, args, _operands = flash_operands(q, k, v, key_valid)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mld_flash_forward(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+    FLASH_LAUNCHES += 1
+    return out
 
 
 def flash_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -12,6 +12,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+# the denoisers' timestep sinusoid: cos first, no frequency shift
+# (mld_tpu/models/denoiser.py:79-80; every preset keeps these)
+DENOISER_FLIP_SIN_TO_COS = True
+DENOISER_FREQ_SHIFT = 0.0
+
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
                            flip_sin_to_cos: bool = False,

@@ -11,14 +11,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from .embeddings import get_timestep_embedding
+from .embeddings import (DENOISER_FLIP_SIN_TO_COS, DENOISER_FREQ_SHIFT,
+                         get_timestep_embedding)
 from .fused_layer import LN_EPS, skip_encoder_stack
 
 
 def _time_embedding(denoiser, timesteps: torch.Tensor) -> torch.Tensor:
     t_sin = get_timestep_embedding(timesteps, denoiser.text_encoded_dim,
-                                   denoiser.flip_sin_to_cos,
-                                   denoiser.freq_shift)
+                                   DENOISER_FLIP_SIN_TO_COS,
+                                   DENOISER_FREQ_SHIFT)
     return denoiser.time_embedding(t_sin)
 
 

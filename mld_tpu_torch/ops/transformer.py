@@ -3,7 +3,8 @@
 
 Module and parameter names follow the reference torch modules
 (mld/models/operator/cross_attention.py:18-382): ``input_blocks.N``,
-``middle_block``, ``output_blocks.N``, ``linear_blocks.N``, ``norm``, and
+``middle_block``, ``output_blocks.N``, ``linear_blocks.N``, ``layers.N``,
+``norm``, and
 ``self_attn.in_proj_weight`` / ``out_proj`` inside each layer, so a reference
 ``state_dict`` loads with a plain ``load_state_dict``.
 
@@ -101,6 +102,28 @@ class TransformerDecoderLayer(nn.Module):
         tgt = self.norm2(tgt + self.multihead_attn(tgt, memory, memory,
                                                    memory_valid))
         return self.norm3(tgt + self.linear2(self.activation(self.linear1(tgt))))
+
+
+class TransformerDecoder(nn.Module):
+    """Plain stack of decoder layers with a final norm
+    (cross_attention.py:195-233; ``transformer.py:263-289``): modules
+    ``layers.N`` and ``norm``. ``final_norm=False`` is torch's
+    ``nn.TransformerDecoder(norm=None)``."""
+
+    def __init__(self, d_model: int, num_heads: int, num_layers: int,
+                 ff_size: int = 1024, activation: str = "gelu",
+                 eps: float = FLAX_LN_EPS, final_norm: bool = True):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(d_model, num_heads, ff_size, activation,
+                                    eps) for _ in range(num_layers))
+        self.norm = nn.LayerNorm(d_model, eps=eps) if final_norm else None
+
+    def forward(self, tgt, memory, tgt_valid=None, memory_valid=None):
+        x = tgt
+        for layer in self.layers:
+            x = layer(x, memory, tgt_valid, memory_valid)
+        return self.norm(x) if self.norm is not None else x
 
 
 class _SkipStack(nn.Module):

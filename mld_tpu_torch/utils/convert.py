@@ -10,7 +10,7 @@ Rules for the denoiser and VAE subtrees:
   ``in_proj_kernel``           -> ``in_proj_weight`` (transposed)
   LayerNorm ``scale``          -> ``weight``
   ``input_blocks_0``           -> ``input_blocks.0`` (and output_blocks,
-                                  linear_blocks)
+                                  linear_blocks, layers)
   ``emb_proj``                 -> ``emb_proj.1`` (Sequential(ReLU, Linear))
   ``pe``, ``global_motion_token`` and every other leaf pass unchanged.
 """
@@ -22,7 +22,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_INDEXED = re.compile(r"^(input_blocks|output_blocks|linear_blocks)_(\d+)$")
+_INDEXED = re.compile(
+    r"^(input_blocks|output_blocks|linear_blocks|layers)_(\d+)$")
 
 
 def _tensor(a) -> torch.Tensor:

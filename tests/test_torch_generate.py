@@ -138,5 +138,8 @@ def test_guidance_off_and_config_checks():
     assert joints.shape == (1, 40, 22, 3) and not joints[0, 12:].any()
     with pytest.raises(NotImplementedError, match="condition=action"):
         MLD(load_config(preset="mld_humanact12"))
-    with pytest.raises(NotImplementedError, match="denoiser_arch=trans_dec"):
-        MLD(load_config(preset="novae_humanml3d"))
+    # the trans_dec denoiser serves raw motion only, not the VAE's latents
+    with pytest.raises(NotImplementedError,
+                       match="denoiser_arch=trans_dec in latent mode"):
+        MLD(load_config(preset="mld_humanml3d",
+                        overrides={"model": {"denoiser_arch": "trans_dec"}}))
