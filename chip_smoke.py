@@ -10,8 +10,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      sm_90a (one nvcc a source, in parallel) and print the build time and the
      ptxas register / shared-memory lines;
   3. kernel vs plain, each kernel against its plain PyTorch version on the
-     card at the main path's shapes, with times; each wrapper call compared
-     must launch its kernel once (K5: the C entry's count of kernels too):
+     card at the main path's shapes, with times (CUDA events over many
+     launches after a warm-up) and each kernel's bound (its bytes over the
+     memory rate or its operations over the peak of the unit it runs them
+     on, whichever is larger); where one PyTorch call computes the same
+     function (K3, K4: scaled_dot_product_attention, which the port never
+     calls), that call's time and, at the main shape, the device kernels it
+     ran (its backend); each wrapper call compared must launch its kernel
+     once (K5: the C entry's count of kernels too):
        K1 skip_encoder  the denoiser stack (S=3, D=256, H=4, F=1024, L=9),
                         f32 and bf16 weights;
        K2 encoder_layer one fused layer (S=3, the same widths), 2 and 256
@@ -28,8 +34,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                         for T = 512, 196; cross-attention to 2 keys) and of
                         the plain VAE decode ([128, 4, 196, 64] under the
                         frame mask; 1 key), on views into packed projections
-                        as the model hands them over, plus a ragged case
-                        with a fully masked example, f32 and bf16;
+                        as the model hands them over, plus ragged cases
+                        with a fully masked example (Sq and Sk off every
+                        tile, Dh = 4 and 68), f32 and bf16;
      and the bf16 rounding check: K2 and K5 cut to one layer, whose RMS
      error must stay below a bar that the plain version of a kernel without
      the activation rounding, and of f32 weights, both exceed on the card;
@@ -75,7 +82,7 @@ S, D, H, FF, N_LAYERS = 3, 256, 4, 1024, 9
 N_BLOCK = (N_LAYERS - 1) // 2
 B_LARGE = 128
 # sequences per call: B=1 and B=128 under CFG, plus counts that leave a
-# ragged last tile (the wrapper packs 2 and 5 sequences a block there)
+# ragged last tile (the wrapper packs 10 sequences, 30 rows, a tile)
 KERNEL_SEQS = (2, 2 * B_LARGE, 201, 1001)
 LAYER_SEQS = (2, 2 * B_LARGE)
 # VAE decode: 196 frames; B=6 leaves a ragged last 64-row GEMM tile and every
@@ -85,6 +92,8 @@ DECODE_BATCHES = (1, 6, B_LARGE)
 # CLIP: EOT buckets, the uncond row (8) and the uncropped context (77)
 CLIP_SEQS = (8, 16, 32, 64, 77)
 CLIP_HEADS, CLIP_DH = 12, 64
+# the demo prompts' EOT bucket: the shape whose library backend is printed
+CLIP_KEY_S = 16
 F32_ATOL = 1e-4
 # bf16 weights: kernel and plain version both round weights and the
 # activation operand to bf16 and accumulate exact products in f32, so they
@@ -116,27 +125,48 @@ BF16_RMS_ATOL = 6e-4
 # output (2^-7) plus a flipped probability (2^-9 of |v|) stays under 2e-2
 ATTN_F32_ATOL = 1e-5
 ATTN_BF16_ATOL = 2e-2
-# K3 at the main paths' shapes, (label, B, H, Sq, Sk, Dh, masked): the
+# K3 at the main paths' shapes, (label, B, H, Sq, Sk, Dh, mask): the
 # raw-motion denoiser (4 heads of 128) at 2B = 2 and 12 (one prompt and the
 # six demo prompts under CFG), self-attention over 512 and 196 frames and
 # cross-attention to [time; text]; the plain VAE decode (4 heads of 64) at
-# B = 128 under the demo lengths' frame mask and against its latent token;
-# and a ragged case: Sk = 70 leaves a part-filled second key tile, one
-# example masks keys 33.., another every key (the average of v over its
-# 70 keys, as sdpa_xla)
+# B = 128 under the demo lengths' frame mask ("demo") and against its latent
+# token; and a ragged case: Sk = 70 leaves a part-filled last key tile, and
+# the mask "ragged" keeps keys [Sk, 33, 0] of the three examples, so one
+# masks every key (the average of v over its 70 keys, as sdpa_xla)
 S512 = 512
 FLASH_CASES = (
-    ("s512 self", 2, 4, S512, S512, 128, False),
-    ("s512 self", 12, 4, S512, S512, 128, False),
-    ("s512 cross", 12, 4, S512, 2, 128, False),
-    ("s196 self", 12, 4, T_FRAMES, T_FRAMES, 128, False),
-    ("decode self", B_LARGE, 4, T_FRAMES, T_FRAMES, 64, True),
-    ("decode cross", B_LARGE, 4, T_FRAMES, 1, 64, False),
-    ("ragged", 3, 4, 100, 70, 128, True),
+    ("s512 self", 2, 4, S512, S512, 128, None),
+    ("s512 self", 12, 4, S512, S512, 128, None),
+    ("s512 cross", 12, 4, S512, 2, 128, None),
+    ("s196 self", 12, 4, T_FRAMES, T_FRAMES, 128, None),
+    ("decode self", B_LARGE, 4, T_FRAMES, T_FRAMES, 64, "demo"),
+    ("decode cross", B_LARGE, 4, T_FRAMES, 1, 64, None),
+    ("ragged", 3, 4, 100, 70, 128, "ragged"),
+)
+# cases the key tiles, the 16-row MMA tiles and the copies of the tensor-core
+# design could get wrong: Sq and Sk off every tile (Sq = 131, the s512
+# path's shortest demo length; Sk = 70), and Dh = 4 and 68, whose bf16 rows
+# are not 16-byte aligned (8-byte copies); masked with lengths [Sk, 33, 0]
+# like the ragged case above, so with a fully masked example
+FLASH_CASES += (
+    ("odd", 3, 4, 131, 70, 128, "ragged"),
+    ("odd self", 3, 4, 131, 131, 128, "ragged"),
+    ("dh4", 3, 4, 131, 70, 4, "ragged"),
+    ("dh68 self", 3, 4, 131, 131, 68, "ragged"),
 )
 # the case whose times the kernels line carries: one self-attention of
 # novae_stress_s512 at the demo batch
 FLASH_KEY = ("s512 self", 12)
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense), by the unit a
+# kernel runs its products on: f32 FMAs outside the tensor cores; f32
+# products as three TF32 tensor-core products (big.big + big.small +
+# small.big), 495 / 3; bf16 tensor-core products
+HBM_BYTES_S = 3.35e12
+PEAKS = {"f32 FMA 67 TFLOP/s": 67e12, "3xTF32 165 TFLOP/s": 495e12 / 3,
+         "bf16 MMA 989 TFLOP/s": 989e12}
+FMA, TF32X3, BF16_MMA = PEAKS
+# the unit K3 runs its products on, by operand dtype (K4 runs on FMAs)
+FLASH_PEAK = {"f32": TF32X3, "bf16": BF16_MMA}
 RAW_PRESETS = ("novae_humanml3d", "novae_stress_s512")
 # steps of the profiled sampling loop, and of the card-vs-CPU raw-motion
 # check (a full-width 1000-step run on the CPU would take minutes)
@@ -189,6 +219,28 @@ def phase_build():
                 or "smem" in line):
             log(f"[build] {line.strip()}")
     _build.library()
+    log_tensor_core_sass(info["path"])
+
+
+def log_tensor_core_sass(path):
+    """Tensor-core instructions (HMMA) in each kernel's SASS, by cuobjdump:
+    which kernels the compiled library runs on the tensor cores."""
+    from mld_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()}")
+    counts, fn = Counter(), None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] += 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    for fn, n in sorted(counts.items()):
+        log(f"[build] SASS {n:5d} HMMA  {fn[:100]}")
 
 
 def _time_ms(torch, fn, iters=20, warmup=3):
@@ -204,12 +256,28 @@ def _time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def bound(flops, nbytes, peak):
+    """The least time the card could take for a kernel's work: the larger
+    of its bytes (each input read once, each output written once) over the
+    memory rate and its operations over the peak of the unit it runs them
+    on (PEAKS)."""
+    ops_ms = flops / PEAKS[peak] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_peak": peak if ops_ms >= bytes_ms else "HBM 3.35 TB/s",
+            "flops": flops, "bytes": nbytes}
+
+
 def _hold(torch, name, kernel, plain, atol, what, count, mask=None,
-          iters=20):
-    """Run kernel() and plain() once, compare, then time both. Raises on a
-    non-finite output, an error above atol, or a first kernel() call that
-    does not add one to the wrapper's launch count (count() reads it).
-    Returns (err, ms, plain_ms, launches of the compared call)."""
+          iters=20, library=None, work=None):
+    """Run kernel() and plain() once, compare, then time both, and the one
+    PyTorch call `library` computing the same function where there is one.
+    Raises on a non-finite output, an error above atol, or a first kernel()
+    call that does not add one to the wrapper's launch count (count() reads
+    it). `work` is the (flops, bytes, peak) of one call, for its bound.
+    Returns {"err", "ms", "plain_ms", "launches" of the compared call,
+    "library_ms", "library_err", "bound"}."""
     before = count()
     out = kernel()
     launches = count() - before
@@ -219,6 +287,7 @@ def _hold(torch, name, kernel, plain, atol, what, count, mask=None,
     torch.cuda.synchronize()
     ref = plain()
     torch.cuda.synchronize()
+    lib_out = library() if library is not None else None
     if mask is not None:
         out, ref = out[mask], ref[mask]
     if not torch.isfinite(out).all():
@@ -226,12 +295,98 @@ def _hold(torch, name, kernel, plain, atol, what, count, mask=None,
     err = (out.float() - ref.float()).abs().max().item()
     ms = _time_ms(torch, kernel, iters)
     plain_ms = _time_ms(torch, plain, iters)
+    res = {"err": err, "ms": ms, "plain_ms": plain_ms, "launches": launches,
+           "library_ms": None, "library_err": None,
+           "bound": bound(*work) if work is not None else None}
+    extra = ""
+    if library is not None:
+        res["library_err"] = (lib_out.float() - ref.float()).abs().max().item()
+        res["library_ms"] = _time_ms(torch, library, iters)
+        extra += (f" library {res['library_ms']:.4f} ms (max_abs_err "
+                  f"{res['library_err']:.3e})")
+    if res["bound"] is not None:
+        b = res["bound"]
+        extra += (f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+                  f"{b['bound_peak']}; {b['bound_ms'] / ms:.1%} of it)")
     log(f"[kernel] {name} {what} max_abs_err={err:.3e} (atol {atol:g}) "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{extra}")
     if not err <= atol:
         raise RuntimeError(f"{name} disagrees with its plain version: "
                            f"{err:.3e} > {atol:g} ({what})")
-    return err, ms, plain_ms, launches
+    return res
+
+
+def _library_kernels(torch, fn):
+    """The device kernels one call of fn launches, by torch.profiler: which
+    backend the library call took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:90] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def _weight_bytes(st):
+    """Bytes of a stack's weights, each once: K1's fragment-ordered copies
+    of its matrices (the ones its kernel reads) are not counted again."""
+    from mld_tpu_torch.ops.fused_layer import _PACKED
+    return sum(t.numel() * t.element_size()
+               for f, t in st._asdict().items() if f not in _PACKED)
+
+
+def _encoder_work(n_seq, n_block, st):
+    """(flops, bytes, peak) of K1 (K2 at n_block = 0) on n_seq sequences:
+    per layer the QKV and out projections (4 D^2) and the FFN (2 D F) a
+    row, and S x S attention a sequence; a skip linear (2D -> D) a row for
+    each of the n_block output blocks. Bytes: the stacked weights, x in and
+    out (f32)."""
+    L, rows = 2 * n_block + 1, n_seq * S
+    flops = (2 * rows * (L * (4 * D * D + 2 * D * FF) + n_block * 2 * D * D)
+             + 4 * n_seq * S * S * D * L)
+    # products on the tensor cores: 3xTF32 for f32 weights, bf16 mma
+    peak = BF16_MMA if st.wqkv.element_size() == 2 else TF32X3
+    return flops, _weight_bytes(st) + 2 * rows * D * 4, peak
+
+
+def _decoder_work(tgt, mem, valid, st):
+    """(flops, bytes, peak) of K5: per layer a row's self-attention QKV and
+    out projections, cross-attention query and out projections (6 D^2) and
+    FFN (2 D F), the latent tokens' key and value projections, self-attention
+    over each example's valid frames (key 0 always) and cross-attention to M
+    tokens; a skip linear a row for each output block. Bytes: the stacked
+    weights, tgt, mem and the mask in, the output."""
+    B, T, _ = tgt.shape
+    M = mem.shape[1]
+    rows, L = B * T, N_LAYERS
+    keys = T * valid.sum(1).clamp(min=1).sum().item()
+    per_layer = (2 * rows * (6 * D * D + 2 * D * FF) + 2 * B * M * 2 * D * D
+                 + 4 * D * keys + 4 * rows * M * D)
+    flops = L * per_layer + N_BLOCK * 2 * rows * 2 * D * D
+    nbytes = (_weight_bytes(st) + 2 * tgt.numel() * 4 + mem.numel() * 4
+              + valid.numel() * valid.element_size())
+    return flops, nbytes, FMA
+
+
+def _flash_work(q, k, valid, peak):
+    """(flops, bytes, peak) of K3: Q.K^T and P.V over the keys the output
+    needs (an example's valid keys; all Sk where none is valid), q, k, v
+    and the mask read, the output written."""
+    B, H, Sq, Dh = q.shape
+    Sk = k.shape[2]
+    if valid is None:
+        keys = B * Sk
+    else:
+        n = valid.sum(1)
+        keys = n.masked_fill(n == 0, Sk).sum().item()
+    flops = 4 * H * Sq * Dh * keys
+    nbytes = (q.element_size() * B * H * Dh * (2 * Sq + 2 * Sk)
+              + (valid.numel() if valid is not None else 0))
+    return flops, nbytes, peak
 
 
 def _rms(a, b):
@@ -290,7 +445,8 @@ def check_skip_encoder(torch, encoder, g):
                 lambda: skip_encoder_stack(x, st, N_BLOCK, H),
                 lambda: skip_encoder_stack_plain(x, st, N_BLOCK, H),
                 atol, f"{wname} seqs={n} rows={n * S}",
-                lambda: fused_layer.LAUNCHES)
+                lambda: fused_layer.LAUNCHES,
+                work=_encoder_work(n, N_BLOCK, st))
     return res
 
 
@@ -311,7 +467,8 @@ def check_encoder_layer(torch, layer, g):
                 lambda: fused_encoder_layer(x, layer, st),
                 lambda: skip_encoder_stack_plain(x, st, 0, H),
                 atol, f"{wname} seqs={n}",
-                lambda: fused_layer.LAYER_LAUNCHES)
+                lambda: fused_layer.LAYER_LAUNCHES,
+                work=_encoder_work(n, 0, st))
     st16 = stack_encoder_layer(layer, torch.bfloat16)
     st32 = stack_encoder_layer(layer)
     x = torch.randn(2 * B_LARGE, S, D, device=DEVICE, generator=g)
@@ -378,7 +535,8 @@ def check_skip_decoder(torch, vae, lengths, g):
                 lambda: skip_decoder_stack_plain(tgt, mem, valid, st,
                                                  N_BLOCK, H),
                 atol, f"{wname} B={B} T={T_FRAMES} M=1",
-                lambda: fsd.LAUNCHES, mask=valid, iters=10)
+                lambda: fsd.LAUNCHES, mask=valid, iters=10,
+                work=_decoder_work(tgt, mem, valid, st))
     # the general cross-attention path (can_fuse_decode admits M <= 8)
     st = stack_skip_decoder(vae.decoder)
     tgt, mem, valid = _decode_inputs(torch, vae, lengths, 6, 2, g)
@@ -438,6 +596,8 @@ def profile_decoder(torch, vae, lengths, g):
 
 def check_flash_causal(torch, g):
     """K4 vs its plain version at [128, 12, S, 64]."""
+    import torch.nn.functional as F
+
     from mld_tpu_torch.ops import attention
     from mld_tpu_torch.ops.attention import (flash_causal_plain,
                                              sdpa_flash_causal)
@@ -455,7 +615,18 @@ def check_flash_causal(torch, g):
                 lambda: sdpa_flash_causal(q, k, v, scale),
                 lambda: flash_causal_plain(q, k, v, scale),
                 atol, f"{dname} [{B_LARGE}, {CLIP_HEADS}, {s}, {CLIP_DH}]",
-                lambda: attention.LAUNCHES)
+                lambda: attention.LAUNCHES,
+                library=lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=scale),
+                work=(2 * B_LARGE * CLIP_HEADS * CLIP_DH * s * (s + 1),
+                      4 * q.numel() * q.element_size(), FMA))
+            if s == CLIP_KEY_S:
+                names = _library_kernels(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, scale=scale))
+                res[(dname, s)]["library_kernels"] = names
+                log(f"[kernel] flash_causal library {dname} at S={s}: "
+                    f"{names}")
     return res
 
 
@@ -482,31 +653,51 @@ def _flash_inputs(torch, B, H, Sq, Sk, Dh, g):
 
 def check_flash(torch, lengths, g):
     """K3 vs flash_plain at the shapes of FLASH_CASES, f32 and bf16, on the
-    same strided views. Every row is compared, fully masked ones too."""
+    same strided views. Every row is compared, fully masked ones too. The
+    library call is SDPA with the key mask as an additive 0 / -1e9 bias,
+    K3's function on every row with a valid key, so it is timed where no
+    example is fully masked."""
+    import torch.nn.functional as F
+
     from mld_tpu_torch.models.mld import lengths_to_mask
     from mld_tpu_torch.ops import attention
-    from mld_tpu_torch.ops.attention import flash_plain, sdpa
+    from mld_tpu_torch.ops.attention import NEG_INF, flash_plain, sdpa
 
     res = {}
-    for label, B, H, Sq, Sk, Dh, masked in FLASH_CASES:
+    for label, B, H, Sq, Sk, Dh, mask in FLASH_CASES:
         raw, split = _flash_inputs(torch, B, H, Sq, Sk, Dh, g)
         valid = None
-        if masked and label == "ragged":
+        if mask == "ragged":
             valid = lengths_to_mask([Sk, 33, 0], Sk, DEVICE)
-        elif masked:
+        elif mask == "demo":
             valid = lengths_to_mask((lengths * -(-B // len(lengths)))[:B],
                                     Sk, DEVICE)
         for dname, dt, atol in (("f32", torch.float32, ATTN_F32_ATOL),
                                 ("bf16", torch.bfloat16, ATTN_BF16_ATOL)):
             q, k, v = split(raw.to(dt) if torch.is_tensor(raw)
                             else [t.to(dt) for t in raw])
-            res[(dname, (label, B))] = _hold(
+            bias = None
+            if valid is not None:
+                bias = torch.zeros(B, 1, 1, Sk, dtype=dt, device=DEVICE)
+                bias.masked_fill_(~valid[:, None, None, :], NEG_INF)
+            library = None
+            if mask != "ragged":
+                def library(q=q, k=k, v=v, bias=bias):
+                    return F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=bias)
+            key = (dname, (label, B))
+            res[key] = _hold(
                 torch, "flash_attention",
                 lambda: sdpa(q, k, v, valid),
                 lambda: flash_plain(q, k, v, valid),
                 atol, f"{dname} {label} q [{B}, {H}, {Sq}, {Dh}] Sk={Sk}"
-                + (" masked" if masked else ""),
-                lambda: attention.FLASH_LAUNCHES)
+                + (f" mask {mask}" if mask else ""),
+                lambda: attention.FLASH_LAUNCHES, library=library,
+                work=_flash_work(q, k, valid, FLASH_PEAK[dname]))
+            if (label, B) == FLASH_KEY or label == "decode self":
+                res[key]["library_kernels"] = _library_kernels(torch, library)
+                log(f"[kernel] flash_attention library {dname} {label}: "
+                    f"{res[key]['library_kernels']}")
     return res
 
 
@@ -907,19 +1098,25 @@ def kernels_line(kr, runs, raw_runs, prompt_len):
     layer_res, layer_rounding = kr["encoder_layer"]
     dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
 
-    def worst(results, arm):
-        return max(v[0] for k, v in results.items() if k[0] == arm)
+    def worst(results, dtype):
+        return max(v["err"] for k, v in results.items() if k[0] == dtype)
+
+    def arm(r, prefix=""):
+        b = r["bound"]
+        out = {"ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+               "bound_peak": b["bound_peak"], "library_ms": r["library_ms"]}
+        if "library_kernels" in r:
+            out["library_kernels"] = r["library_kernels"]
+        return {prefix + k: v for k, v in out.items()}
 
     def entry(name, source, replaces, launches, results, key, key16,
               **extra):
-        err, ms, plain_ms, _ = results[key]
-        _, ms16, plain16, _ = results[key16]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": worst(results, key[0]), "ms": ms,
-                "plain_ms": plain_ms,
+                "max_abs_err": worst(results, key[0]), **arm(results[key]),
                 "bf16_max_abs_err": worst(results, "bf16"),
-                "bf16_ms": ms16, "bf16_plain_ms": plain16, **extra}
+                **arm(results[key16], "bf16_"), **extra}
 
     return {"kernels": [
         entry("skip_encoder", "mld_tpu_torch/csrc/skip_encoder.cu",
@@ -929,7 +1126,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len):
         # no caller on the main path: launches of one compared call
         entry("encoder_layer", "mld_tpu_torch/csrc/skip_encoder.cu",
               "mld_tpu/ops/fused_layer.py:137",
-              layer_res[("f32", 2 * B_LARGE)][3], layer_res,
+              layer_res[("f32", 2 * B_LARGE)]["launches"], layer_res,
               ("f32", 2 * B_LARGE), ("bf16", 2 * B_LARGE),
               path="fused_encoder_layer entry",
               bf16_one_layer_rms_err=layer_rounding[0]),

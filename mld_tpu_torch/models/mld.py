@@ -52,8 +52,25 @@ def _fused_decode_from_env(model_cfg) -> bool:
             and can_fuse_decode(model_cfg))
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds on: the card unless the caller asks
+    for another. Raises when the card is asked for and none is visible,
+    rather than build on the CPU behind the caller's back."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the port runs on the card by default and no CUDA "
+                           "device is visible; pass device=\"cpu\" to run on "
+                           "the CPU")
+    return device
+
+
 def lengths_to_mask(lengths, max_len: int, device=None) -> torch.Tensor:
-    """[B] -> [B, max_len] bool."""
+    """[B] -> [B, max_len] bool, on `device`; None means the lengths' device
+    when they are a tensor, else the card."""
+    if device is None and not torch.is_tensor(lengths):
+        device = "cuda"
+    if device is not None:
+        device = resolve_device(device)
     lengths = torch.as_tensor(lengths, device=device)
     return torch.arange(max_len, device=lengths.device)[None] < lengths[:, None]
 
@@ -122,7 +139,9 @@ def init_params(module: nn.Module, generator: torch.Generator):
 
 
 class MLD(nn.Module):
-    """Module set built from a Config, on an explicit device.
+    """Module set built from a Config, on the card unless `device` names
+    another (device="cpu" for the CPU); without a visible CUDA device the
+    default raises.
 
     Parameters are initialised from `generator` (a CPU torch.Generator;
     default: seeded with cfg.seed) and can be replaced with
@@ -135,11 +154,12 @@ class MLD(nn.Module):
     decode to fuse."""
 
     def __init__(self, cfg: Config, mean: Optional[np.ndarray] = None,
-                 std: Optional[np.ndarray] = None, *, device="cpu",
+                 std: Optional[np.ndarray] = None, *, device="cuda",
                  weight_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
                  fused_decode: Optional[bool] = None):
         super().__init__()
+        device = resolve_device(device)
         _check_supported(cfg)
         self.cfg = cfg
         m = cfg.model
@@ -191,7 +211,7 @@ class MLD(nn.Module):
             self.register_buffer(name, torch.as_tensor(arr, dtype=torch.float32),
                                  persistent=False)
         self.to(device)
-        self.device = torch.device(device)
+        self.device = device
 
         sc = m.scheduler
         schedule = DiffusionSchedule.create(

@@ -33,9 +33,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # (x, out, 15 weight pointers, n_seq, S, D, H, F, n_block,
-    #  seq_per_block, weight_bf16, stream)
-    "mld_skip_encoder_forward": [_P] * 17 + [_I] * 8 + [_P],
+    # (x, out, skip scratch, 15 weight pointers, n_seq, S, D, H, F, n_block,
+    #  seq_per_block, cluster, weight_bf16, stream)
+    "mld_skip_encoder_forward": [_P] * 18 + [_I] * 9 + [_P],
     # (tgt, mem, valid, out, 21 weight pointers, ws, ws_floats, B, T, M, D,
     #  H, F, n_block, weight_bf16, kernels launched (out), stream)
     "mld_skip_decoder_forward": ([_P] * 26 + [_L] + [_I] * 8

@@ -8,8 +8,10 @@ tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
 
 The per-layer weights are stacked once, when parameters are loaded
 (``stack_skip_encoder``), into ``[L, in, out]`` matrices (f32, or bf16 for the
-bf16-weight arm) and f32 ``[L, K]`` vectors. LayerNorm eps is 1e-5, as in the
-TPU kernel (``fused_layer.py:78``).
+bf16-weight arm), f32 ``[L, K]`` vectors, and a copy of each matrix in the
+order the kernel's tensor-core fragments read it (``pack_fragments``), which
+only the kernel reads. LayerNorm eps is 1e-5, as in the TPU kernel
+(``fused_layer.py:78``).
 
 ``fused_encoder_layer`` is the single fused layer (port of the Pallas
 ``_layer_kernel``, K2): one ``TransformerEncoderLayer`` stacked as L=1 with no
@@ -25,8 +27,19 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_S = 8            # short-sequence regime; the latent denoiser has S=3
-MAX_TILE_ROWS = 16   # rows (sequences x S) a kernel block holds
+MAX_TILE_ROWS = 32   # rows (sequences x S) a tile holds: two m16 tiles
 LN_EPS = 1e-5
+SMEM_LIMIT = 227 * 1024
+CLUSTERS = (8, 4, 2, 1)  # blocks that can share a tile, largest first
+
+
+def smem_bytes(D: int, F: int, H: int, S: int) -> int:
+    """The kernel's shared memory: f32 rows of the 32-row tile for x, t and
+    the QKV / FFN hidden buffer (each padded by 8 floats), the attention
+    probabilities, and 12 x 256 partial sums for the products whose 16 warps
+    split K."""
+    return (4 * MAX_TILE_ROWS * (2 * (D + 8) + max(3 * D, F) + 8 + H * S)
+            + 4 * 12 * 256)
 
 # kernel launches made by skip_encoder_stack and by fused_encoder_layer
 # (CUDA only)
@@ -55,9 +68,41 @@ class StackedSkipEncoder(NamedTuple):
     wsx: torch.Tensor    # [n, D, D]
     wss: torch.Tensor    # [n, D, D]
     bs: torch.Tensor     # [n, D]
+    # the matrices above in the kernel's fragment order, [L or n, in * out]
+    pqkv: torch.Tensor
+    pwo: torch.Tensor
+    pw1: torch.Tensor
+    pw2: torch.Tensor
+    psx: torch.Tensor
+    pss: torch.Tensor
 
 
 _MATRICES = ("wqkv", "wo", "w1", "w2", "wsx", "wss")
+_PACKED = ("pqkv", "pwo", "pw1", "pw2", "psx", "pss")
+# the C entry's weight arguments, in its order
+_KERNEL_FIELDS = ("pqkv", "bqkv", "pwo", "bo", "ln1s", "ln1b", "pw1", "b1",
+                  "pw2", "b2", "ln2s", "ln2b", "psx", "pss", "bs")
+
+
+def pack_fragments(m: torch.Tensor) -> torch.Tensor:
+    """[L, K, N] matrices -> [L, K * N] in the order the kernel's mma.sync B
+    fragments read them, 16 bytes a lane: k pairs (two mma k steps: 16 rows
+    in f32, 32 in bf16), in each pair the n-tiles of 8 columns, in each
+    n-tile the 32 lanes (lane = 4 g + t holds column g), in each lane step 0
+    then step 1 of its weights: f32 (m16n8k8, k permuted so that t <-> 2t,
+    t + 4 <-> 2t + 1) rows 2t and 2t + 1 of the step; bf16 (m16n8k16) rows
+    2t, 2t + 1, 2t + 8, 2t + 9. A warp's load of one n-tile is then 512
+    contiguous bytes, and a run of n-tiles is contiguous."""
+    L, K, N = m.shape
+    if m.dtype == torch.bfloat16:
+        # k = 32p + 16s + 8h + 2t + e, n = 8j + g -> (p, j, g, t, s, h, e)
+        v = m.reshape(L, K // 32, 2, 2, 4, 2, N // 8, 8)
+        v = v.permute(0, 1, 6, 7, 4, 2, 3, 5)
+    else:
+        # k = 16p + 8s + 2t + e, n = 8j + g -> (p, j, g, t, s, e)
+        v = m.reshape(L, K // 16, 2, 4, 2, N // 8, 8)
+        v = v.permute(0, 1, 5, 6, 3, 2, 4)
+    return v.reshape(L, K * N).contiguous()
 
 
 def stack_matrices(ws, weight_dtype) -> torch.Tensor:
@@ -90,20 +135,21 @@ def _stack_layers(layers, skips, D: int, device,
 
     vec = stack_vectors
     wsx, wss, bs = stack_skip_linears(skips, D, device, weight_dtype)
+    mats = dict(wqkv=mat(l.self_attn.in_proj_weight for l in layers),
+                wo=mat(l.self_attn.out_proj.weight for l in layers),
+                w1=mat(l.linear1.weight for l in layers),
+                w2=mat(l.linear2.weight for l in layers), wsx=wsx, wss=wss)
     return StackedSkipEncoder(
-        wqkv=mat(l.self_attn.in_proj_weight for l in layers),
         bqkv=vec(l.self_attn.in_proj_bias for l in layers),
-        wo=mat(l.self_attn.out_proj.weight for l in layers),
         bo=vec(l.self_attn.out_proj.bias for l in layers),
         ln1s=vec(l.norm1.weight for l in layers),
         ln1b=vec(l.norm1.bias for l in layers),
-        w1=mat(l.linear1.weight for l in layers),
         b1=vec(l.linear1.bias for l in layers),
-        w2=mat(l.linear2.weight for l in layers),
         b2=vec(l.linear2.bias for l in layers),
         ln2s=vec(l.norm2.weight for l in layers),
         ln2b=vec(l.norm2.bias for l in layers),
-        wsx=wsx, wss=wss, bs=bs)
+        bs=bs, **mats,
+        **{p: pack_fragments(mats[m]) for p, m in zip(_PACKED, _MATRICES)})
 
 
 def stack_skip_encoder(encoder, weight_dtype=torch.float32
@@ -178,19 +224,25 @@ def _check(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
     F_ = st.w1.shape[-1]
     if not 1 <= S <= MAX_S:
         raise ValueError(f"the kernel is for S <= {MAX_S} tokens (S={S})")
-    if D % num_heads or D % 8 or F_ % 8:
-        raise ValueError(f"unsupported widths D={D} H={num_heads} F={F_}")
+    if (D % num_heads or (D // num_heads) % 4 or D % 64 or F_ % 64
+            or smem_bytes(D, F_, num_heads, S) > SMEM_LIMIT):
+        raise ValueError(f"unsupported widths D={D} H={num_heads} F={F_}: "
+                         f"the kernel takes D and F multiples of 64, heads "
+                         f"of a multiple of 4, and a 32-row tile that fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
     shapes = {"wqkv": (L, D, 3 * D), "bqkv": (L, 3 * D), "wo": (L, D, D),
               "bo": (L, D), "ln1s": (L, D), "ln1b": (L, D),
               "w1": (L, D, F_), "b1": (L, F_), "w2": (L, F_, D), "b2": (L, D),
               "ln2s": (L, D), "ln2b": (L, D), "wsx": (n_block, D, D),
               "wss": (n_block, D, D), "bs": (n_block, D)}
+    shapes.update({p: (shapes[m][0], shapes[m][1] * shapes[m][2])
+                   for p, m in zip(_PACKED, _MATRICES)})
     wdt = st.wqkv.dtype
     if wdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"weights must be f32 or bf16, got {wdt}")
     for name, shape in shapes.items():
         t = getattr(st, name)
-        want = wdt if name in _MATRICES else torch.float32
+        want = wdt if name in _MATRICES + _PACKED else torch.float32
         if (tuple(t.shape) != shape or t.dtype != want
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError(
@@ -198,10 +250,22 @@ def _check(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def seq_per_block(n_seq: int, S: int, num_sms: int) -> int:
-    """Sequences in one kernel block: the fewest that still give every SM a
-    block, at most MAX_TILE_ROWS // S."""
-    return max(1, min(MAX_TILE_ROWS // S, -(-n_seq // num_sms)))
+def seq_per_block(n_seq: int, S: int) -> int:
+    """Sequences in one tile: as many as its 32 rows hold. Every tile
+    streams all the weights from L2 whatever its rows, and its two m16
+    tensor-core tiles share each weight it loads, so fuller tiles mean
+    fewer weight reads."""
+    return max(1, min(MAX_TILE_ROWS // S, n_seq))
+
+
+def cluster_size(n_tiles: int, D: int, F: int, num_sms: int) -> int:
+    """Blocks that share a tile, each multiplying 1/c of every product's
+    columns: the largest c of CLUSTERS that keeps n_tiles x c blocks within
+    the SMs and splits D and F (so 3D) into c x n-tiles of 8 columns."""
+    for c in CLUSTERS:
+        if n_tiles * c <= num_sms and D % (8 * c) == 0 and F % (8 * c) == 0:
+            return c
+    return 1
 
 
 def _launch(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
@@ -210,14 +274,20 @@ def _launch(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
     B, S, D = x.shape
     lib = _build.library()
     out = torch.empty_like(x)
+    F_ = st.w1.shape[-1]
+    spb = seq_per_block(B, S)
+    tiles = -(-B // spb)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    cluster = cluster_size(tiles, D, F_, sms)
+    # the skip stack of each block, [blocks, n_block, 32, D]
+    skip = torch.empty(tiles * cluster * n_block * MAX_TILE_ROWS * D,
+                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mld_skip_encoder_forward(
-            x.data_ptr(), out.data_ptr(),
-            *(getattr(st, f).data_ptr() for f in StackedSkipEncoder._fields),
-            B, S, D, num_heads, st.w1.shape[-1], n_block,
-            seq_per_block(B, S, sms),
+            x.data_ptr(), out.data_ptr(), skip.data_ptr() if n_block else None,
+            *(getattr(st, f).data_ptr() for f in _KERNEL_FIELDS),
+            B, S, D, num_heads, F_, n_block, spb, cluster,
             int(st.wqkv.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"skip-encoder kernel launch failed: cudaError "

@@ -158,12 +158,13 @@ def test_switches_parse_as_jax(monkeypatch, decode_env):
     else:
         monkeypatch.setenv("MLD_TPU_FUSED_DECODE", decode_env)
     jmld = JaxMLD(jax_load_config(preset="mld_humanml3d", overrides=SMALL))
-    mld = MLD(load_config(preset="mld_humanml3d", overrides=SMALL))
+    mld = MLD(load_config(preset="mld_humanml3d", overrides=SMALL),
+              device="cpu")
     assert mld.fused_decode == jmld._use_fused_decode()
     assert (mld.vae._stacked is not None) == mld.fused_decode
     # the explicit argument overrides the environment
     off = MLD(load_config(preset="mld_humanml3d", overrides=SMALL),
-              fused_decode=False)
+              fused_decode=False, device="cpu")
     assert not off.fused_decode and off.vae._stacked is None
 
 
@@ -208,7 +209,8 @@ def test_fused_decode_env_needs_a_fusable_config(monkeypatch):
     assert not jmld._use_fused_decode()
     # latent_size 9 also exceeds the denoiser kernel's 8 tokens
     with pytest.raises(ValueError, match="exceeds the fused"):
-        MLD(load_config(preset="mld_humanml3d", overrides=over))
+        MLD(load_config(preset="mld_humanml3d", overrides=over),
+            device="cpu")
 
 
 def test_encoder_stack_follows_loads_and_moves():
@@ -231,7 +233,7 @@ def test_mld_stacks_follow_load_flax_params():
     params = jax.tree_util.tree_map(np.asarray,
                                     jmld.init_params(jax.random.PRNGKey(1)))
     mld = MLD(load_config(preset="mld_humanml3d", overrides=SMALL),
-              fused_decode=True)
+              fused_decode=True, device="cpu")
     before_dec = mld.vae.stacked_decoder().w2.clone()
     before_enc = mld.denoiser.stacked_encoder().w2.clone()
     mld.load_flax_params(params)

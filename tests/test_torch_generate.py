@@ -46,7 +46,7 @@ def pair():
                   mean=mean, std=std)
     params = jmld.init_params(jax.random.PRNGKey(0))
     tmld = MLD(load_config(preset="mld_humanml3d", overrides=SMALL),
-               mean=mean, std=std)
+               mean=mean, std=std, device="cpu")
     tmld.load_flax_params(jax.tree_util.tree_map(np.asarray, params))
     return jmld, params, tmld
 
@@ -66,7 +66,7 @@ def test_generate_joints_matches_jax(pair, monkeypatch):
     init = np.asarray(jmld._init_latents(init_rng, len(TEXTS), mask))
 
     before = fused_layer.LAUNCHES
-    out = tmld.generate_joints(ids, lengths_to_mask(LENGTHS, tmld.max_frames),
+    out = tmld.generate_joints(ids, lengths_to_mask(LENGTHS, tmld.max_frames, "cpu"),
                                init_latents=torch.from_numpy(init.copy())).numpy()
     assert fused_layer.LAUNCHES == before  # CPU tensors: plain version
     assert out.shape == ref.shape == (3, 40, 22, 3)
@@ -89,7 +89,8 @@ def test_kernel_configuration_matches_jax(pair, monkeypatch):
                   mean=mean, std=std)
     assert jmld._use_fused_decode() and jmld._use_fused_denoiser()
     tmld = MLD(load_config(preset="mld_humanml3d", overrides=SMALL),
-               mean=mean, std=std, fused_decode=True)
+               mean=mean, std=std, fused_decode=True,
+               device="cpu")
     tmld.load_flax_params(jax.tree_util.tree_map(np.asarray, params))
     ids = tmld.tokenize(TEXTS)
     mask = jax_lengths_to_mask(jnp.asarray(LENGTHS), jmld.max_frames)
@@ -101,7 +102,7 @@ def test_kernel_configuration_matches_jax(pair, monkeypatch):
 
     counts = (fused_layer.LAUNCHES, fused_seq_decoder.LAUNCHES,
               attention.LAUNCHES)
-    out = tmld.generate_joints(ids, lengths_to_mask(LENGTHS, tmld.max_frames),
+    out = tmld.generate_joints(ids, lengths_to_mask(LENGTHS, tmld.max_frames, "cpu"),
                                init_latents=torch.from_numpy(init.copy())).numpy()
     # CPU tensors: every wrapper took its plain version
     assert (fused_layer.LAUNCHES, fused_seq_decoder.LAUNCHES,
@@ -130,16 +131,17 @@ def test_guidance_off_and_config_checks():
     cfg = load_config(preset="mld_humanml3d", overrides={
         **SMALL, "model": {**SMALL["model"], "guidance_scale": 1.0,
                            "scheduler": {"num_inference_timesteps": 5}}})
-    mld = MLD(cfg, generator=torch.Generator().manual_seed(0))
+    mld = MLD(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     assert not mld.do_cfg
     joints = mld.generate_joints(mld.tokenize(["walk"]),
-                                 lengths_to_mask([12], mld.max_frames),
+                                 lengths_to_mask([12], mld.max_frames, "cpu"),
                                  generator=torch.Generator().manual_seed(0))
     assert joints.shape == (1, 40, 22, 3) and not joints[0, 12:].any()
     with pytest.raises(NotImplementedError, match="condition=action"):
-        MLD(load_config(preset="mld_humanact12"))
+        MLD(load_config(preset="mld_humanact12"), device="cpu")
     # the trans_dec denoiser serves raw motion only, not the VAE's latents
     with pytest.raises(NotImplementedError,
                        match="denoiser_arch=trans_dec in latent mode"):
         MLD(load_config(preset="mld_humanml3d",
-                        overrides={"model": {"denoiser_arch": "trans_dec"}}))
+                        overrides={"model": {"denoiser_arch": "trans_dec"}}),
+            device="cpu")

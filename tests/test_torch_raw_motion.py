@@ -130,7 +130,7 @@ def _make_pair(overrides, params=None):
         params = jax.tree_util.tree_map(
             np.asarray, jmld.init_params(jax.random.PRNGKey(0)))
     tmld = MLD(load_config(preset="novae_humanml3d", overrides=overrides),
-               mean=mean, std=std)
+               mean=mean, std=std, device="cpu")
     tmld.load_flax_params(params)
     return jmld, params, tmld
 
@@ -214,7 +214,7 @@ def test_generate_joints_matches_jax(pair, arm):
                                           mask, rng))
     before = _launches()
     out = tmld.generate_joints(
-        ids, lengths_to_mask(LENGTHS, tmld.max_frames), **replay).numpy()
+        ids, lengths_to_mask(LENGTHS, tmld.max_frames, "cpu"), **replay).numpy()
     assert _launches() == before        # CPU tensors: every plain version
     assert out.shape == ref.shape == (2, 40, 22, 3)
     assert not out[1, 23:].any()
@@ -229,7 +229,7 @@ def test_sampled_features_match_jax(pair):
     mask, rng, replay = _replay(jmld, tmld, 3)
     ref = np.asarray(jmld.generate_feats(params, jnp.asarray(ids.numpy()),
                                          mask, rng))
-    tmask = lengths_to_mask(LENGTHS, tmld.max_frames)
+    tmask = lengths_to_mask(LENGTHS, tmld.max_frames, "cpu")
     cond = tmld.encode_text_tokens(ids)
     uncond = tmld.encode_text_tokens(torch.as_tensor(tmld.uncond_ids))
     cond = torch.cat([uncond.expand_as(cond), cond])
@@ -250,7 +250,8 @@ def test_generate_returns_motions_per_prompt(pair):
     # the same model over a 10-step schedule: shapes, determinism, no kernel
     tmld = MLD(load_config(preset="novae_humanml3d", overrides={
         **SMALL, "model": {**SMALL["model"],
-                           "scheduler": {"num_train_timesteps": 10}}}))
+                           "scheduler": {"num_train_timesteps": 10}}}),
+        device="cpu")
     before = _launches()
     motions = tmld.generate(TEXTS, LENGTHS,
                             generator=torch.Generator().manual_seed(1))
@@ -267,23 +268,24 @@ def test_raw_motion_needs_a_mask_and_has_no_decode(monkeypatch):
     cfg = load_config(preset="novae_humanml3d", overrides={
         **SMALL, "model": {**SMALL["model"], "guidance_scale": 1.0,
                            "scheduler": {"num_train_timesteps": 4}}})
-    mld = MLD(cfg, generator=torch.Generator().manual_seed(0))
+    mld = MLD(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     assert not mld.do_cfg and list(mld.scheduler.timesteps()) == [3, 2, 1, 0]
     cond = mld.encode_text_tokens(mld.tokenize(["walk"]))
     with pytest.raises(ValueError, match="needs the frame mask"):
         mld.diffusion_reverse(cond)
     z = mld.diffusion_reverse(cond, torch.Generator().manual_seed(0),
-                              mask=lengths_to_mask([12], mld.max_frames))
+                              mask=lengths_to_mask([12], mld.max_frames, "cpu"))
     assert z.shape == (1, 40, 263)
     with pytest.raises(ValueError, match="fused_decode needs the MLD VAE"):
-        MLD(cfg, fused_decode=True)
+        MLD(cfg, fused_decode=True, device="cpu")
     monkeypatch.setenv("MLD_TPU_FUSED_DECODE", "1")
-    assert not MLD(cfg).fused_decode     # as JAX: no VAE, no fused decode
+    assert not MLD(cfg, device="cpu").fused_decode     # as JAX: no VAE, no fused decode
 
 
 def test_stress_preset_builds_at_512_frames():
     over = {**SMALL, "dataset": {}}
-    mld = MLD(load_config(preset="novae_stress_s512", overrides=over))
+    mld = MLD(load_config(preset="novae_stress_s512", overrides=over),
+              device="cpu")
     assert mld.max_frames == 512 and mld.denoiser.query_pos.pe.shape[0] == 520
     assert isinstance(mld.scheduler, DDPMScheduler)
 
@@ -302,4 +304,4 @@ def test_unsupported_combinations_are_rejected(preset, over, match):
     cfg = load_config(preset=preset,
                       overrides={**SMALL, "model": {**SMALL["model"], **over}})
     with pytest.raises(NotImplementedError, match=match):
-        MLD(cfg)
+        MLD(cfg, device="cpu")

@@ -140,7 +140,7 @@ def test_stacked_weights_equal_jax_layout():
     params = jax.tree_util.tree_map(np.asarray,
                                     jmld.init_params(jax.random.PRNGKey(0)))
     mld = MLD(load_config(preset="mld_humanml3d", overrides=cfg_over),
-              fused_decode=True)
+              fused_decode=True, device="cpu")
     mld.load_flax_params(params)
     st = mld.vae.stacked_decoder()
     dec = params["vae"]["decoder"]
@@ -227,7 +227,7 @@ def test_can_fuse_decode_rules():
     with pytest.raises(ValueError, match="fused_decode needs"):
         MLD(load_config(preset="mld_humanml3d",
                         overrides={"model": {"latent_size": 9}}),
-            fused_decode=True)
+            fused_decode=True, device="cpu")
 
 
 def test_decoder_stack_follows_loads_and_moves(vae_pair):

@@ -24,7 +24,8 @@ from mld_tpu_torch.models.denoiser import MldDenoiser
 from mld_tpu_torch.ops import fused_layer
 from mld_tpu_torch.ops.fused_denoiser import (fused_denoiser_forward,
                                               precompute_cond)
-from mld_tpu_torch.ops.fused_layer import (seq_per_block,
+from mld_tpu_torch.ops.fused_layer import (cluster_size, pack_fragments,
+                                           seq_per_block,
                                            skip_encoder_stack,
                                            skip_encoder_stack_plain,
                                            stack_skip_encoder)
@@ -108,11 +109,47 @@ def test_kernel_argument_checks():
         fused_layer._check(xt, st._replace(b1=st.b1.double()), 1, H)
 
 
-@pytest.mark.parametrize("n_seq,expect", [(2, 1), (132, 1), (133, 2),
-                                          (256, 2), (4096, 5)])
+@pytest.mark.parametrize("n_seq,expect", [(2, 2), (132, 10), (133, 10),
+                                          (256, 10), (4096, 10)])
 def test_tile_choice(n_seq, expect):
-    # S=3 on a 132-SM card: at most 16 rows (5 sequences) a block
-    assert seq_per_block(n_seq, 3, 132) == expect
+    # S=3: as many sequences as 32 rows hold (10), fewer only for fewer
+    assert seq_per_block(n_seq, 3) == expect
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(256, 768), (1024, 256), (64, 128)])
+def test_pack_fragments_is_the_kernels_read_order(dtype, K, N):
+    # csrc/skip_encoder.cu: lane 4g + t loads 16 bytes of n-tile j at k pair
+    # p, element 2s + e of step s (f32) or 4s + e (bf16), from element
+    # ((p * N/8 + j) * 32 + lane) * per_lane + ...
+    w = torch.randn(2, K, N).to(dtype)
+    pair, per_step = (32, 4) if dtype == torch.bfloat16 else (16, 2)
+    p, j, g, t, st, e = np.meshgrid(
+        np.arange(K // pair), np.arange(N // 8), np.arange(8), np.arange(4),
+        np.arange(2), np.arange(per_step), indexing="ij")
+    idx = ((p * (N // 8) + j) * 32 + 4 * g + t) * 2 * per_step + st * per_step + e
+    if dtype == torch.bfloat16:   # b0 = rows 2t, 2t+1; b1 = rows 2t+8, 2t+9
+        k = p * pair + st * 16 + (e // 2) * 8 + 2 * t + e % 2
+    else:                         # b0 = row 2t, b1 = row 2t+1 (k permuted)
+        k = p * pair + st * 8 + 2 * t + e
+    n = 8 * j + g
+    packed = pack_fragments(w)
+    assert packed.shape == (2, K * N) and packed.dtype == dtype
+    for layer in range(2):
+        np.testing.assert_array_equal(
+            packed[layer].float().numpy()[idx.ravel()],
+            w[layer].float().numpy()[k.ravel(), n.ravel()])
+    assert np.array_equal(np.sort(idx.ravel()), np.arange(K * N))
+
+
+@pytest.mark.parametrize("n_tiles,D,F,expect", [
+    (1, 256, 1024, 8), (16, 256, 1024, 8), (17, 256, 1024, 4),
+    (33, 256, 1024, 4), (34, 256, 1024, 2), (26, 256, 1024, 4),
+    (67, 256, 1024, 1), (1, 128, 512, 8), (1, 16, 64, 2), (1, 24, 48, 1)])
+def test_cluster_choice(n_tiles, D, F, expect):
+    # on a 132-SM card: the most blocks a tile that keep every block on an
+    # SM and give each block whole n-tiles (8 columns) of D and F
+    assert cluster_size(n_tiles, D, F, 132) == expect
 
 
 def _denoiser_pair(D, TD, layers, seed=0):

@@ -70,7 +70,8 @@ def test_round_trip_clip(jax_params):
 
 
 def test_port_loads_jax_params_strictly(jax_params):
-    mld = MLD(load_config(preset="mld_humanml3d", overrides=SMALL))
+    mld = MLD(load_config(preset="mld_humanml3d", overrides=SMALL),
+              device="cpu")
     mld.load_flax_params(jax_params)
     sd = mld.state_dict()
     w = jax_params["denoiser"]["encoder"]["input_blocks_0"]["linear1"]["kernel"]
