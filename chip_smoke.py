@@ -7,17 +7,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: require CUDA; print the nvidia-smi name/power-limit line and the
      TF32 settings of the run;
   2. build: compile the CUDA kernels from mld_tpu_torch/csrc/ with nvcc for
-     sm_90a (one nvcc a source, in parallel) and print the build time and the
-     ptxas register / shared-memory lines;
+     sm_90a (one nvcc a source, in parallel) and print the build time, the
+     ptxas register / shared-memory lines and each kernel's tensor-core
+     instructions in its SASS (HMMA from mma.sync, HGMMA from wgmma);
   3. kernel vs plain, each kernel against its plain PyTorch version on the
      card at the main path's shapes, with times (CUDA events over many
-     launches after a warm-up) and each kernel's bound (its bytes over the
-     memory rate or its operations over the peak of the unit it runs them
-     on, whichever is larger); where one PyTorch call computes the same
-     function (K3, K4: scaled_dot_product_attention, which the port never
-     calls), that call's time and, at the main shape, the device kernels it
-     ran (its backend); each wrapper call compared must launch its kernel
-     once (K5: the C entry's count of kernels too):
+     launches after a warm-up), the device time alone (torch.profiler: the
+     host's time between launches bounds calls of microseconds) and each
+     kernel's bound (its bytes over the memory rate or its operations over
+     the peak of the units it runs them on, whichever is larger); where one
+     PyTorch call computes the same function (K3, K4:
+     scaled_dot_product_attention, which the port never calls), that call's
+     times and, at the main shape, the device kernels it ran (its backend);
+     each wrapper call compared must launch its kernel once (K5: the C
+     entry's count of kernels too):
        K1 skip_encoder  the denoiser stack (S=3, D=256, H=4, F=1024, L=9),
                         f32 and bf16 weights;
        K2 encoder_layer one fused layer (S=3, the same widths), 2 and 256
@@ -25,8 +28,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
        K5 skip_decoder  the VAE decoder stack (T=196, D=256, H=4, F=1024,
                         L=9) at B=1, 6, 128 with the demo prompts' lengths,
                         f32 and bf16 weights, and once with 2 latent tokens;
-                        the device kernels of one B=128 call counted by
-                        torch.profiler against the C entry's count;
+                        the device kernels of one B=128 call in each arm
+                        counted by torch.profiler against the C entry's
+                        count, with their device ms split into GEMMs,
+                        attention and the rest;
        K4 flash_causal  CLIP causal attention [128, 12, S, 64] for
                         S = 8, 16, 32, 64, 77, f32 and bf16;
        K3 flash_attention  bidirectional attention at the shapes of the
@@ -158,14 +163,13 @@ FLASH_CASES += (
 # novae_stress_s512 at the demo batch
 FLASH_KEY = ("s512 self", 12)
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense), by the unit a
-# kernel runs its products on: f32 FMAs outside the tensor cores; f32
-# products as three TF32 tensor-core products (big.big + big.small +
-# small.big), 495 / 3; bf16 tensor-core products
+# kernel runs its products on: f32 products as three TF32 tensor-core
+# products (big.big + big.small + small.big), 495 / 3; bf16 tensor-core
+# products. Every kernel of the port runs its products on one of the two
 HBM_BYTES_S = 3.35e12
-PEAKS = {"f32 FMA 67 TFLOP/s": 67e12, "3xTF32 165 TFLOP/s": 495e12 / 3,
-         "bf16 MMA 989 TFLOP/s": 989e12}
-FMA, TF32X3, BF16_MMA = PEAKS
-# the unit K3 runs its products on, by operand dtype (K4 runs on FMAs)
+PEAKS = {"3xTF32 165 TFLOP/s": 495e12 / 3, "bf16 MMA 989 TFLOP/s": 989e12}
+TF32X3, BF16_MMA = PEAKS
+# the unit K3 and K4 run their products on, by operand dtype
 FLASH_PEAK = {"f32": TF32X3, "bf16": BF16_MMA}
 RAW_PRESETS = ("novae_humanml3d", "novae_stress_s512")
 # steps of the profiled sampling loop, and of the card-vs-CPU raw-motion
@@ -223,8 +227,9 @@ def phase_build():
 
 
 def log_tensor_core_sass(path):
-    """Tensor-core instructions (HMMA) in each kernel's SASS, by cuobjdump:
-    which kernels the compiled library runs on the tensor cores."""
+    """Tensor-core instructions in each kernel's SASS, by cuobjdump: HMMA
+    (mma.sync) and HGMMA (wgmma), which kernels of the compiled library run
+    on the tensor cores."""
     from mld_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -232,15 +237,19 @@ def log_tensor_core_sass(path):
                          text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()}")
-    counts, fn = Counter(), None
+    counts, fn = {}, None
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] += 0
-        elif fn and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn] = Counter(HMMA=0, HGMMA=0)
+        elif fn:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[fn][op] += 1
+                    break
     for fn, n in sorted(counts.items()):
-        log(f"[build] SASS {n:5d} HMMA  {fn[:100]}")
+        log(f"[build] SASS {n['HMMA']:5d} HMMA {n['HGMMA']:5d} HGMMA  "
+            f"{fn[:100]}")
 
 
 def _time_ms(torch, fn, iters=20, warmup=3):
@@ -256,17 +265,48 @@ def _time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes, peak):
+def _device_ms(torch, fn, iters=10, tries=3):
+    """Device time of one fn() call: the durations of the device kernels
+    (and memsets) torch.profiler sees over `iters` calls, over iters. Unlike
+    _time_ms it leaves out the host's time between launches, which bounds
+    calls of microseconds. The profiler can drop events: a trace holding
+    fewer device kernels than `iters` times those of one call is taken
+    again, up to `tries` times, then raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def trace(n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = max(len(trace(1)) for _ in range(tries))
+    for _ in range(tries):
+        us = trace(iters)
+        if per_call and len(us) >= iters * per_call:
+            return sum(us) / 1e3 / iters
+    raise RuntimeError(f"torch.profiler saw {len(us)} device kernels in "
+                       f"{iters} calls of {per_call}, {tries} times")
+
+
+def bound(flops, nbytes, peak, more=()):
     """The least time the card could take for a kernel's work: the larger
     of its bytes (each input read once, each output written once) over the
     memory rate and its operations over the peak of the unit it runs them
-    on (PEAKS)."""
-    ops_ms = flops / PEAKS[peak] * 1e3
+    on (PEAKS); `more` holds (flops, peak) of products it runs on another
+    unit, whose times add."""
+    ops_ms = (flops / PEAKS[peak] + sum(f / PEAKS[p] for f, p in more)) * 1e3
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "bound_peak": peak if ops_ms >= bytes_ms else "HBM 3.35 TB/s",
-            "flops": flops, "bytes": nbytes}
+            "bound_peak": (peak + "".join(f" + {p}" for _, p in more)
+                           if ops_ms >= bytes_ms else "HBM 3.35 TB/s"),
+            "flops": flops + sum(f for f, _ in more), "bytes": nbytes}
 
 
 def _hold(torch, name, kernel, plain, atol, what, count, mask=None,
@@ -275,9 +315,10 @@ def _hold(torch, name, kernel, plain, atol, what, count, mask=None,
     PyTorch call `library` computing the same function where there is one.
     Raises on a non-finite output, an error above atol, or a first kernel()
     call that does not add one to the wrapper's launch count (count() reads
-    it). `work` is the (flops, bytes, peak) of one call, for its bound.
-    Returns {"err", "ms", "plain_ms", "launches" of the compared call,
-    "library_ms", "library_err", "bound"}."""
+    it). `work` is bound()'s arguments for one call.
+    Returns {"err", "ms", "device_ms", "plain_ms", "launches" of the
+    compared call, "library_ms", "library_device_ms", "library_err",
+    "bound"}."""
     before = count()
     out = kernel()
     launches = count() - before
@@ -295,21 +336,25 @@ def _hold(torch, name, kernel, plain, atol, what, count, mask=None,
     err = (out.float() - ref.float()).abs().max().item()
     ms = _time_ms(torch, kernel, iters)
     plain_ms = _time_ms(torch, plain, iters)
-    res = {"err": err, "ms": ms, "plain_ms": plain_ms, "launches": launches,
-           "library_ms": None, "library_err": None,
+    res = {"err": err, "ms": ms, "device_ms": _device_ms(torch, kernel),
+           "plain_ms": plain_ms, "launches": launches, "library_ms": None,
+           "library_device_ms": None, "library_err": None,
            "bound": bound(*work) if work is not None else None}
     extra = ""
     if library is not None:
         res["library_err"] = (lib_out.float() - ref.float()).abs().max().item()
         res["library_ms"] = _time_ms(torch, library, iters)
-        extra += (f" library {res['library_ms']:.4f} ms (max_abs_err "
+        res["library_device_ms"] = _device_ms(torch, library)
+        extra += (f" library {res['library_ms']:.4f} ms (device "
+                  f"{res['library_device_ms']:.4f}; max_abs_err "
                   f"{res['library_err']:.3e})")
     if res["bound"] is not None:
         b = res["bound"]
         extra += (f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
                   f"{b['bound_peak']}; {b['bound_ms'] / ms:.1%} of it)")
     log(f"[kernel] {name} {what} max_abs_err={err:.3e} (atol {atol:g}) "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{extra}")
+        f"kernel {ms:.4f} ms (device {res['device_ms']:.4f}) plain "
+        f"{plain_ms:.4f} ms{extra}")
     if not err <= atol:
         raise RuntimeError(f"{name} disagrees with its plain version: "
                            f"{err:.3e} > {atol:g} ({what})")
@@ -331,12 +376,12 @@ def _library_kernels(torch, fn):
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def _weight_bytes(st):
-    """Bytes of a stack's weights, each once: K1's fragment-ordered copies
-    of its matrices (the ones its kernel reads) are not counted again."""
-    from mld_tpu_torch.ops.fused_layer import _PACKED
+def _weight_bytes(st, packed):
+    """Bytes of a stack's weights, each once: the copies of its matrices in
+    the kernel's order (`packed`: K1's fragment order, K5's [out, in]) are
+    not counted again."""
     return sum(t.numel() * t.element_size()
-               for f, t in st._asdict().items() if f not in _PACKED)
+               for f, t in st._asdict().items() if f not in packed)
 
 
 def _encoder_work(n_seq, n_block, st):
@@ -348,28 +393,37 @@ def _encoder_work(n_seq, n_block, st):
     L, rows = 2 * n_block + 1, n_seq * S
     flops = (2 * rows * (L * (4 * D * D + 2 * D * FF) + n_block * 2 * D * D)
              + 4 * n_seq * S * S * D * L)
+    from mld_tpu_torch.ops.fused_layer import _PACKED
     # products on the tensor cores: 3xTF32 for f32 weights, bf16 mma
     peak = BF16_MMA if st.wqkv.element_size() == 2 else TF32X3
-    return flops, _weight_bytes(st) + 2 * rows * D * 4, peak
+    return flops, _weight_bytes(st, _PACKED) + 2 * rows * D * 4, peak
 
 
 def _decoder_work(tgt, mem, valid, st):
-    """(flops, bytes, peak) of K5: per layer a row's self-attention QKV and
-    out projections, cross-attention query and out projections (6 D^2) and
-    FFN (2 D F), the latent tokens' key and value projections, self-attention
-    over each example's valid frames (key 0 always) and cross-attention to M
-    tokens; a skip linear a row for each output block. Bytes: the stacked
-    weights, tgt, mem and the mask in, the output."""
+    """bound()'s arguments for one K5 call, the work its function needs: a
+    row's self-attention QKV and out-projections (4 D^2) and FFN (2 D F) a
+    layer; the cross-attention at M = 1 as its value projection and
+    out-projection once a sequence (its output is the value row), otherwise
+    a row's query and out-projections and the latent tokens' key and value
+    projections; a skip linear (2D -> D) a row for each output block. These
+    run at the weights' rate (3xTF32 for f32, bf16 mma); the attention
+    products at 3xTF32 in both arms: self-attention over each example's
+    valid frames (key 0 always) and, at M > 1, cross-attention to M tokens.
+    Bytes: the stacked weights, tgt, mem and the mask in, the output."""
+    from mld_tpu_torch.ops.fused_seq_decoder import _PACKED
     B, T, _ = tgt.shape
     M = mem.shape[1]
     rows, L = B * T, N_LAYERS
     keys = T * valid.sum(1).clamp(min=1).sum().item()
-    per_layer = (2 * rows * (6 * D * D + 2 * D * FF) + 2 * B * M * 2 * D * D
-                 + 4 * D * keys + 4 * rows * M * D)
-    flops = L * per_layer + N_BLOCK * 2 * rows * 2 * D * D
-    nbytes = (_weight_bytes(st) + 2 * tgt.numel() * 4 + mem.numel() * 4
-              + valid.numel() * valid.element_size())
-    return flops, nbytes, FMA
+    cross = (2 * B * 2 * D * D if M == 1
+             else 2 * rows * 2 * D * D + 2 * B * M * 2 * D * D)
+    weights = (L * (2 * rows * (4 * D * D + 2 * D * FF) + cross)
+               + N_BLOCK * 2 * rows * 2 * D * D)
+    attn = L * (4 * D * keys + (4 * rows * M * D if M > 1 else 0))
+    nbytes = (_weight_bytes(st, _PACKED) + 2 * tgt.numel() * 4
+              + mem.numel() * 4 + valid.numel() * valid.element_size())
+    peak = BF16_MMA if st.wqkv_s.element_size() == 2 else TF32X3
+    return weights, nbytes, peak, ((attn, TF32X3),)
 
 
 def _flash_work(q, k, valid, peak):
@@ -496,8 +550,8 @@ def _decode_inputs(torch, vae, lengths, B, M, g):
 
 def _first_layer(st):
     """A stacked decoder cut to its first layer (n_block = 0)."""
-    return st._replace(**{f: t[:1].contiguous() if f not in ("wsx", "wss",
-                                                            "bs")
+    return st._replace(**{f: t[:1].contiguous()
+                          if f not in ("wsx", "wss", "bs", "pws")
                           else t[:0].contiguous()
                           for f, t in st._asdict().items()})
 
@@ -562,36 +616,58 @@ def check_skip_decoder(torch, vae, lengths, g):
 
 
 def profile_decoder(torch, vae, lengths, g):
-    """The device kernels of one K5 call at B=128, as torch.profiler traces
-    them, held to the count of the C entry and of the design."""
+    """The device kernels of one K5 call at B=128 in each weight arm, as
+    torch.profiler traces them, held to the count of the C entry and of the
+    design, and their device ms by kernel and split into the GEMMs, the
+    attention kernels (K3's and the general cross-attention's) and the
+    rest."""
     from torch.profiler import ProfilerActivity, profile
 
     from mld_tpu_torch.ops import fused_seq_decoder as fsd
 
-    st = fsd.stack_skip_decoder(vae.decoder)
     tgt, mem, valid = _decode_inputs(torch, vae, lengths, B_LARGE, 1, g)
     valid = valid.to(torch.int32).contiguous()   # no cast inside the trace
-    torch.cuda.synchronize()
-    before = fsd.KERNELS
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fsd.skip_decoder_stack(tgt, mem, valid, st, N_BLOCK, H)
+    res = {}
+    for wname, wdt, _ in WEIGHT_ARMS:
+        st = fsd.stack_skip_decoder(vae.decoder, getattr(torch, wdt))
+        fsd.skip_decoder_stack(tgt, mem, valid, st, N_BLOCK, H)   # warm
         torch.cuda.synchronize()
-    counted = fsd.KERNELS - before
-    traced = [e.name for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.name.startswith(("Memcpy", "Memset"))]
-    want = fsd.launch_count(N_BLOCK, 1)
-    names = Counter(n.replace("(anonymous namespace)::", "")
-                    .removeprefix("void ").split("<")[0].split("(")[0]
-                    for n in traced)
-    log(f"[kernel] skip_decoder B={B_LARGE}: {len(traced)} device kernels "
-        f"traced, {counted} counted by the C entry, {want} by design "
-        f"({', '.join(f'{k} x{v}' for k, v in sorted(names.items()))})")
-    if not len(traced) == counted == want:
-        raise RuntimeError(f"skip_decoder kernels: traced {len(traced)}, "
-                           f"counted {counted}, designed {want}")
-    return len(traced)
+        before = fsd.KERNELS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fsd.skip_decoder_stack(tgt, mem, valid, st, N_BLOCK, H)
+            torch.cuda.synchronize()
+        counted = fsd.KERNELS - before
+        traced = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset"))]
+        want = fsd.launch_count(N_BLOCK, 1)
+        names, name_ms, kinds = Counter(), Counter(), Counter()
+        for e in traced:
+            # the kernel with its template arguments: the GEMM's by weight
+            # type and epilogue (0 bias, 1 GELU, 2 LayerNorm)
+            name = (e.name.replace("(anonymous namespace)::", "")
+                    .removeprefix("void ").split("(")[0])
+            ms = e.time_range.elapsed_us() / 1e3
+            names[name] += 1
+            name_ms[name] += ms
+            kind = ("GEMM" if "gemm" in name
+                    else "attention" if "attention" in name or "flash" in name
+                    else "other")
+            kinds[kind] += ms
+        busy = sum(kinds.values())
+        log(f"[kernel] skip_decoder {wname} B={B_LARGE}: {len(traced)} device "
+            f"kernels traced, {counted} counted by the C entry, {want} by "
+            f"design; device {busy:.4f} ms: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in kinds.most_common())
+            + "; by kernel: " + ", ".join(
+                f"{k} x{names[k]} {v:.4f} ms" for k, v in name_ms.most_common()))
+        if not len(traced) == counted == want:
+            raise RuntimeError(f"skip_decoder kernels: traced {len(traced)}, "
+                               f"counted {counted}, designed {want}")
+        res[wname] = {"traced": len(traced), "device_ms": busy,
+                      "device_ms_by_kind": dict(kinds)}
+    return res
 
 
 def check_flash_causal(torch, g):
@@ -619,7 +695,7 @@ def check_flash_causal(torch, g):
                 library=lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, scale=scale),
                 work=(2 * B_LARGE * CLIP_HEADS * CLIP_DH * s * (s + 1),
-                      4 * q.numel() * q.element_size(), FMA))
+                      4 * q.numel() * q.element_size(), FLASH_PEAK[dname]))
             if s == CLIP_KEY_S:
                 names = _library_kernels(
                     torch, lambda: F.scaled_dot_product_attention(
@@ -1103,9 +1179,11 @@ def kernels_line(kr, runs, raw_runs, prompt_len):
 
     def arm(r, prefix=""):
         b = r["bound"]
-        out = {"ms": r["ms"], "plain_ms": r["plain_ms"],
-               "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-               "bound_peak": b["bound_peak"], "library_ms": r["library_ms"]}
+        out = {"ms": r["ms"], "device_ms": r["device_ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": b["bound_ms"],
+               "bound_by": b["bound_by"], "bound_peak": b["bound_peak"],
+               "library_ms": r["library_ms"],
+               "library_device_ms": r["library_device_ms"]}
         if "library_kernels" in r:
             out["library_kernels"] = r["library_kernels"]
         return {prefix + k: v for k, v in out.items()}
@@ -1134,7 +1212,9 @@ def kernels_line(kr, runs, raw_runs, prompt_len):
               "mld_tpu/ops/fused_seq_decoder.py:63", counts["skip_decoder"],
               dec_res, ("f32", B_LARGE), ("bf16", B_LARGE),
               device_kernels=counts["skip_decoder_kernels"],
-              device_kernels_traced_one_call=dec_traced,
+              device_kernels_traced_one_call=dec_traced["f32"]["traced"],
+              device_ms_by_kind=dec_traced["f32"]["device_ms_by_kind"],
+              bf16_device_ms_by_kind=dec_traced["bf16"]["device_ms_by_kind"],
               bf16_one_layer_rms_err=dec_rounding[0]),
         # times at the main path's shape: bf16 tower, the prompts' bucket
         entry("flash_causal", "mld_tpu_torch/csrc/flash_causal.cu",

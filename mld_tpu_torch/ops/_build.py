@@ -36,9 +36,9 @@ _SIGNATURES = {
     # (x, out, skip scratch, 15 weight pointers, n_seq, S, D, H, F, n_block,
     #  seq_per_block, cluster, weight_bf16, stream)
     "mld_skip_encoder_forward": [_P] * 18 + [_I] * 9 + [_P],
-    # (tgt, mem, valid, out, 21 weight pointers, ws, ws_floats, B, T, M, D,
+    # (tgt, mem, valid, out, 20 weight pointers, ws, ws_bytes, B, T, M, D,
     #  H, F, n_block, weight_bf16, kernels launched (out), stream)
-    "mld_skip_decoder_forward": ([_P] * 26 + [_L] + [_I] * 8
+    "mld_skip_decoder_forward": ([_P] * 25 + [_L] + [_I] * 8
                                  + [ctypes.POINTER(_I), _P]),
     # (q, k, v, out, BH, S, Dh, sm_scale, bf16, stream)
     "mld_flash_causal_forward": [_P] * 4 + [_I] * 3 + [_F, _I, _P],

@@ -28,7 +28,6 @@ from . import _build
 NEG_INF = -1e9
 MAX_CAUSAL_S = 128     # the CLIP context is 77
 MAX_CAUSAL_DH = 128
-SMEM_LIMIT = 227 * 1024
 
 MAX_DH = 128
 
@@ -144,11 +143,6 @@ def flash_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.float(), v.float()).to(v.dtype)
 
 
-def _smem_bytes(S: int, Dh: int) -> int:
-    sp = -(-S // 4) * 4
-    return 4 * (3 * sp * Dh + sp * sp)
-
-
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, S, Dh], got {tuple(q.shape)}")
@@ -163,10 +157,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         raise ValueError("q, k, v must be contiguous")
     B, H, S, Dh = q.shape
     if not (1 <= S <= MAX_CAUSAL_S and 4 <= Dh <= MAX_CAUSAL_DH
-            and Dh % 4 == 0) or _smem_bytes(S, Dh) > SMEM_LIMIT:
+            and Dh % 4 == 0):
+        # a warp's tile row of scores stays in registers up to 128 keys
         raise ValueError(f"the causal kernel takes S <= {MAX_CAUSAL_S} and "
-                         f"Dh a multiple of 4 up to {MAX_CAUSAL_DH} within "
-                         f"{SMEM_LIMIT} bytes of shared memory "
+                         f"Dh a multiple of 4 up to {MAX_CAUSAL_DH} "
                          f"(S={S}, Dh={Dh})")
 
 

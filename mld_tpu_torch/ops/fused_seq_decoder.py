@@ -12,7 +12,13 @@ The per-layer weights are stacked once, when parameters are loaded or moved
 (``fused_seq_decoder.py:141-164``) with the skip linears split into the rows
 that multiply x (``wsx``) and the popped skip (``wss``): matrices ``[L, in,
 out]`` in the weight dtype (f32, or bf16 for the bf16-weight arm), vectors
-f32 ``[L, K]``. LayerNorm eps is 1e-5 in every norm, as in the TPU kernel;
+f32 ``[L, K]``. The kernels read copies of the matrices
+(``pack_decoder_weights``): in torch's Linear layout ``[out, in]``, so that
+both operands of every tensor-core product are K-major (the skip linear one
+``[D, 2D]`` matrix again), f32 ones split into their TF32 part and the rest,
+and cut into the tiles that one bulk copy brings into shared memory as the
+tensor cores read them (``tile_weights``). LayerNorm eps is 1e-5 in every
+norm, as in the TPU kernel;
 the plain module path (``MldVae.decode``) keeps flax's 1e-6, so the two
 decode paths differ by design (ROADMAP.md section 3).
 """
@@ -32,7 +38,8 @@ from .fused_layer import (_layer_norm, _mm, stack_matrices,
 
 MAX_M = 8        # latent tokens the kernel takes (can_fuse_decode)
 MAX_D = 256      # one GEMM block holds a whole row for the LayerNorm epilogue
-MAX_DH = 64
+MAX_DH = 128     # the self-attention kernel's (K3) head widths
+WIDTH_STEP = 64  # D and F: whole weight tiles (64 rows) and bf16 stages
 
 # kernel-entry calls made by skip_decoder_stack (CUDA only), and the device
 # kernels those calls launched as the C entry counts them (launch_count()
@@ -68,9 +75,24 @@ class StackedSkipDecoder(NamedTuple):
     wsx: torch.Tensor     # [n, D, D]
     wss: torch.Tensor     # [n, D, D]
     bs: torch.Tensor      # [n, D]
+    # the matrices above as the kernels read them: [out, in] (K-major), in
+    # tile order (tile_weights), with P = 2 (f32: the TF32 part, then the
+    # rest) or 1 (bf16)
+    pqkv_s: torch.Tensor  # [L, P, 3D * D]
+    pwo_s: torch.Tensor   # [L, P, D * D]
+    pqkv_x: torch.Tensor  # [L, P, 3D * D]
+    pwo_x: torch.Tensor   # [L, P, D * D]
+    pw1: torch.Tensor     # [L, P, F * D]
+    pw2: torch.Tensor     # [L, P, D * F]
+    pws: torch.Tensor     # [n, P, D * 2D]: [Wsx; Wss] transposed
 
 
 _MATRICES = ("wqkv_s", "wo_s", "wqkv_x", "wo_x", "w1", "w2", "wsx", "wss")
+_PACKED = ("pqkv_s", "pwo_s", "pqkv_x", "pwo_x", "pw1", "pw2", "pws")
+# the C entry's weight arguments, in its order
+_KERNEL_FIELDS = ("pqkv_s", "bqkv_s", "pwo_s", "bo_s", "pqkv_x", "bqkv_x",
+                  "pwo_x", "bo_x", "ln1s", "ln1b", "ln2s", "ln2b", "ln3s",
+                  "ln3b", "pw1", "b1", "pw2", "b2", "pws", "bs")
 
 
 def can_fuse_decode(model_cfg) -> bool:
@@ -102,14 +124,18 @@ def stack_skip_decoder(decoder, weight_dtype=torch.float32
     wsx, wss, bs = stack_skip_linears(list(decoder.linear_blocks), D,
                                       decoder.norm.weight.device,
                                       weight_dtype)
-    return StackedSkipDecoder(
+    mats = dict(
         wqkv_s=mat(l.self_attn.in_proj_weight for l in layers),
-        bqkv_s=vec(l.self_attn.in_proj_bias for l in layers),
         wo_s=mat(l.self_attn.out_proj.weight for l in layers),
-        bo_s=vec(l.self_attn.out_proj.bias for l in layers),
         wqkv_x=mat(l.multihead_attn.in_proj_weight for l in layers),
-        bqkv_x=vec(l.multihead_attn.in_proj_bias for l in layers),
         wo_x=mat(l.multihead_attn.out_proj.weight for l in layers),
+        w1=mat(l.linear1.weight for l in layers),
+        w2=mat(l.linear2.weight for l in layers),
+        wsx=wsx, wss=wss)
+    return StackedSkipDecoder(
+        bqkv_s=vec(l.self_attn.in_proj_bias for l in layers),
+        bo_s=vec(l.self_attn.out_proj.bias for l in layers),
+        bqkv_x=vec(l.multihead_attn.in_proj_bias for l in layers),
         bo_x=vec(l.multihead_attn.out_proj.bias for l in layers),
         ln1s=vec(l.norm1.weight for l in layers),
         ln1b=vec(l.norm1.bias for l in layers),
@@ -117,11 +143,53 @@ def stack_skip_decoder(decoder, weight_dtype=torch.float32
         ln2b=vec(l.norm2.bias for l in layers),
         ln3s=vec(l.norm3.weight for l in layers),
         ln3b=vec(l.norm3.bias for l in layers),
-        w1=mat(l.linear1.weight for l in layers),
         b1=vec(l.linear1.bias for l in layers),
-        w2=mat(l.linear2.weight for l in layers),
         b2=vec(l.linear2.bias for l in layers),
-        wsx=wsx, wss=wss, bs=bs)
+        bs=bs, **mats, **pack_decoder_weights(mats))
+
+
+def tf32_split(w: torch.Tensor):
+    """f32 w -> (big, small), w == big + small exactly: big is w rounded to
+    TF32 (10 mantissa bits; to nearest, ties away), as the kernels' split
+    of their other operand rounds (``csrc/mma_sm90.cuh:split_tf32``)."""
+    big = ((w.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+    return big, w - big
+
+
+def tile_weights(m: torch.Tensor) -> torch.Tensor:
+    """[L, P, N, K] matrices -> [L, P, N * K] in the order the decoder's
+    GEMM loads them: tiles of 64 rows x 128 bytes of K (row tiles outermost,
+    then K), 8 KB each, one bulk copy apiece, each in wgmma's 128-byte
+    swizzle: the 16-byte piece c of tile row r stored at piece c ^ (r % 8),
+    which spreads the 8 rows the tensor cores read together over all the
+    banks of shared memory. Widths that do not fill whole tiles, which the
+    kernels refuse (``_check``), give an empty copy."""
+    L, P, N, K = m.shape
+    e = 16 // m.element_size()  # elements a 16-byte piece
+    if N % 64 or K % (8 * e):
+        return m.new_empty(L, P, 0)
+    v = m.reshape(L, P, N // 64, 64, K // (8 * e), 8, e)
+    v = v.permute(0, 1, 2, 4, 3, 5, 6)
+    r = torch.arange(64, device=m.device)[:, None]
+    c = torch.arange(8, device=m.device)[None, :]
+    return v[:, :, :, :, r, c ^ (r % 8)].reshape(L, P, N * K).contiguous()
+
+
+def pack_decoder_weights(mats: dict) -> dict:
+    """The stacked ``[L, in, out]`` matrices -> the kernels' copies
+    (``_PACKED``): transposed to ``[L, out, in]`` (the skip linear's two
+    halves back into one ``[n, D, 2D]``, as torch holds it), f32 ones split
+    into the TF32 part and the rest (``[L, 2, out, in]``; bf16 ``[L, 1, out,
+    in]``), then tiled (``tile_weights``)."""
+    def t(m):
+        m = m.transpose(1, 2).contiguous()
+        if m.dtype == torch.bfloat16:
+            return tile_weights(m[:, None])
+        return tile_weights(torch.stack(tf32_split(m), dim=1))
+    return dict(pqkv_s=t(mats["wqkv_s"]), pwo_s=t(mats["wo_s"]),
+                pqkv_x=t(mats["wqkv_x"]), pwo_x=t(mats["wo_x"]),
+                pw1=t(mats["w1"]), pw2=t(mats["w2"]),
+                pws=t(torch.cat([mats["wsx"], mats["wss"]], dim=1)))
 
 
 def _attend(q, k, v, key_ok, H):
@@ -182,21 +250,33 @@ def skip_decoder_stack_plain(tgt: torch.Tensor, mem: torch.Tensor,
 
 def launch_count(n_block: int, M: int) -> int:
     """Kernels the design launches per call, which the CUDA entry's own
-    count (KERNELS) must equal: per layer the QKV GEMM, self-attention,
-    out-projection (+LN1), the cross-attention (3 kernels at M=1, 4
-    otherwise), FFN in and out (+LN3); one skip GEMM per output block."""
+    count (KERNELS) must equal: the self-attention's key mask once; per
+    layer the QKV GEMM, the self-attention (K3), the out-projection with
+    LN1, and the FFN's two GEMMs (the second with LN3); the cross-attention
+    adds two one-row-a-sequence GEMMs at M=1 (its LN2 rides on LN1's
+    epilogue) and four kernels otherwise (q, K/V, attention, out-projection
+    with LN2); one skip GEMM per output block."""
     L = 2 * n_block + 1
-    return L * (5 + (3 if M == 1 else 4)) + n_block
+    return 1 + L * (5 + (2 if M == 1 else 4)) + n_block
 
 
-def workspace_floats(B: int, T: int, M: int, D: int, F_: int,
-                     n_block: int) -> int:
-    """f32 scratch the CUDA entry needs: two activation buffers, the skip
-    stack, the attention output, the QKV / FFN-hidden buffer, the memory's
-    K/V and the per-sequence cross-attention output (csrc/skip_decoder.cu)."""
+def _align(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def workspace_bytes(B: int, T: int, M: int, D: int, F_: int, n_block: int,
+                    weight_bf16: bool) -> int:
+    """Scratch the CUDA entry needs, each buffer 256-byte aligned
+    (csrc/skip_decoder.cu:layout): two f32 activation buffers, the skip
+    stack, the f32 attention output, the buffer of QKV (f32) and the FFN
+    hidden layer, the memory's K/V, the per-sequence cross-attention
+    output and the key mask (bytes). The skip stack and the FFN hidden
+    layer take the weight dtype: they are only operands of products."""
     R = B * T
-    return (R * D * (3 + n_block) + R * max(3 * D, F_)
-            + B * M * 2 * D + B * D)
+    es = 2 if weight_bf16 else 4
+    return (3 * _align(R * D * 4) + _align(n_block * R * D * es)
+            + _align(R * max(3 * D * 4, F_ * es)) + _align(B * M * 2 * D * 4)
+            + _align(B * D * 4) + _align(R))
 
 
 def _check(tgt, mem, valid, st: StackedSkipDecoder, n_block: int,
@@ -219,12 +299,13 @@ def _check(tgt, mem, valid, st: StackedSkipDecoder, n_block: int,
         raise ValueError("tgt and mem must be on one device")
     L = 2 * n_block + 1
     F_ = st.w1.shape[-1]
-    if (D % num_heads or D % 16 or D > MAX_D or F_ % 16
+    if (D % num_heads or D % WIDTH_STEP or D > MAX_D or F_ % WIDTH_STEP
             or D // num_heads > MAX_DH or (D // num_heads) % 4):
         raise ValueError(f"unsupported widths D={D} H={num_heads} F={F_}: "
-                         f"the kernels take D a multiple of 16 up to "
-                         f"{MAX_D}, F a multiple of 16 and a head width "
-                         f"that is a multiple of 4 up to {MAX_DH}")
+                         f"the kernels take D a multiple of {WIDTH_STEP} up "
+                         f"to {MAX_D}, F a multiple of {WIDTH_STEP} and a "
+                         f"head width that is a multiple of 4 up to "
+                         f"{MAX_DH}")
     D3 = 3 * D
     shapes = {"wqkv_s": (L, D, D3), "bqkv_s": (L, D3), "wo_s": (L, D, D),
               "bo_s": (L, D), "wqkv_x": (L, D, D3), "bqkv_x": (L, D3),
@@ -235,11 +316,16 @@ def _check(tgt, mem, valid, st: StackedSkipDecoder, n_block: int,
               "wsx": (n_block, D, D), "wss": (n_block, D, D),
               "bs": (n_block, D)}
     wdt = st.wqkv_s.dtype
+    P = 1 if wdt == torch.bfloat16 else 2
+    shapes.update({"pqkv_s": (L, P, D3 * D), "pwo_s": (L, P, D * D),
+                   "pqkv_x": (L, P, D3 * D), "pwo_x": (L, P, D * D),
+                   "pw1": (L, P, F_ * D), "pw2": (L, P, D * F_),
+                   "pws": (n_block, P, 2 * D * D)})
     if wdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"weights must be f32 or bf16, got {wdt}")
     for name, shape in shapes.items():
         t = getattr(st, name)
-        want = wdt if name in _MATRICES else torch.float32
+        want = wdt if name in _MATRICES + _PACKED else torch.float32
         if (tuple(t.shape) != shape or t.dtype != want
                 or t.device != tgt.device or not t.is_contiguous()):
             raise ValueError(
@@ -268,20 +354,19 @@ def skip_decoder_stack(tgt: torch.Tensor, mem: torch.Tensor,
     B, T, D = tgt.shape
     M = mem.shape[1]
     F_ = stacked.w1.shape[-1]
-    n_ws = workspace_floats(B, T, M, D, F_, n_block)
-    ws = torch.empty(n_ws, dtype=torch.float32, device=tgt.device)
+    bf16 = stacked.wqkv_s.dtype == torch.bfloat16
+    n_ws = workspace_bytes(B, T, M, D, F_, n_block, bf16)
+    ws = torch.empty(n_ws, dtype=torch.uint8, device=tgt.device)
     out = torch.empty_like(tgt)
     lib = _build.library()
-    st = stacked
     launched = ctypes.c_int(0)
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         err = lib.mld_skip_decoder_forward(
             tgt.data_ptr(), mem.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            *(getattr(st, f).data_ptr() for f in StackedSkipDecoder._fields),
+            *(getattr(stacked, f).data_ptr() for f in _KERNEL_FIELDS),
             ws.data_ptr(), n_ws, B, T, M, D, num_heads, F_, n_block,
-            int(st.wqkv_s.dtype == torch.bfloat16), ctypes.byref(launched),
-            stream)
+            int(bf16), ctypes.byref(launched), stream)
     if err != 0:
         raise RuntimeError(f"skip-decoder kernels failed to launch: "
                            f"cudaError {err}")

@@ -27,13 +27,14 @@ from mld_tpu_torch.config import load_config
 from mld_tpu_torch.models.mld import MLD
 from mld_tpu_torch.models.vae import MldVae
 from mld_tpu_torch.ops import fused_seq_decoder
-from mld_tpu_torch.ops.fused_seq_decoder import (can_fuse_decode,
+from mld_tpu_torch.ops.attention import flash_plain
+from mld_tpu_torch.ops.fused_seq_decoder import (_attend, can_fuse_decode,
                                                  fused_vae_decode,
                                                  launch_count,
                                                  skip_decoder_stack,
                                                  skip_decoder_stack_plain,
                                                  stack_skip_decoder,
-                                                 workspace_floats)
+                                                 workspace_bytes)
 from mld_tpu_torch.ops.transformer import SkipTransformerDecoder
 from mld_tpu_torch.utils.convert import flax_to_state_dict
 
@@ -148,7 +149,9 @@ def test_stacked_weights_equal_jax_layout():
               + [dec["middle_block"]]
               + [dec[f"output_blocks_{i}"] for i in range(2)])
     ref = _stack_decoder_params(layers)
-    assert len(ref) == len(st) - 3
+    # beyond JAX's fields: the skip linears split in two, and the kernels'
+    # [out, in] copies of the matrices
+    assert len(ref) == len(st) - 3 - len(fused_seq_decoder._PACKED)
     for name, want in zip(st._fields, ref):
         got = getattr(st, name).numpy()
         np.testing.assert_array_equal(got, np.asarray(want).reshape(got.shape),
@@ -205,13 +208,81 @@ def test_kernel_argument_checks():
 
 
 def test_launch_count_and_workspace():
-    # flagship: 9 layers, one latent token; 2 latent tokens take the general
-    # cross-attention path (one kernel more a layer)
-    assert launch_count(4, 1) == 76
-    assert launch_count(4, 2) == 85
+    # flagship: 9 layers, one latent token: the key mask, then per layer 7
+    # kernels (QKV, K3, Wo + LN1 + LN2, the latent's value and out
+    # projections, W1, W2 + LN3) and 4 skip merges; 2 latent tokens take the
+    # general cross-attention path (two kernels more a layer)
+    assert launch_count(4, 1) == 68
+    assert launch_count(4, 2) == 86
     assert launch_count(0, 1) == 8
-    # B=128, T=196, D=256, F=1024, n=4: 283 MB of f32 scratch
-    assert workspace_floats(128, 196, 1, 256, 1024, 4) * 4 == 282_984_448
+    # B=128, T=196, D=256, F=1024, n=4: 283 MB of scratch with f32 weights;
+    # bf16 weights keep the skip stack and the FFN hidden layer in bf16
+    assert workspace_bytes(128, 196, 1, 256, 1024, 4, False) == 283_009_536
+    assert workspace_bytes(128, 196, 1, 256, 1024, 4, True) == 205_939_200
+    # every buffer starts on a 256-byte boundary: R=7 rows of D=64 give 1792
+    # bytes a buffer, the QKV buffer 5376, and the latent's K/V (512), the
+    # cross output (256) and the key mask (7) round up
+    assert workspace_bytes(1, 7, 1, 64, 128, 0, False) == (
+        3 * 1792 + 5376 + 512 + 256 + 256)
+
+
+def _untile(t, N, K):
+    """The inverse of fused_seq_decoder.tile_weights, written out: [L, P,
+    N * K] tiles of 64 rows x 128 bytes, 16-byte piece c of row r at c ^ (r
+    % 8) -> [L, P, N, K]."""
+    L, P = t.shape[:2]
+    e = 16 // t.element_size()
+    v = t.reshape(L, P, N // 64, K // (8 * e), 64, 8, e)
+    out = torch.empty(L, P, N // 64, 64, K // (8 * e), 8, e, dtype=t.dtype)
+    for r in range(64):
+        for c in range(8):
+            out[:, :, :, r, :, c] = v[:, :, :, :, r, c ^ (r % 8)]
+    return out.reshape(L, P, N, K)
+
+
+@pytest.mark.parametrize("weight_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_weights_reconstruct_stacked(weight_dtype):
+    # the kernels' copies of the matrices hold exactly the stacked weights:
+    # transposed to [out, in], tiled, and for f32 split into a TF32 part
+    # (low 13 bits zero) and the rest, whose sum is the weight
+    _, _, _, _, dec = _decoder_pair(2, 12, 1, 128, 4, 192, 3, [12, 5])
+    st = stack_skip_decoder(dec, weight_dtype)
+    mats = {"pqkv_s": st.wqkv_s, "pwo_s": st.wo_s, "pqkv_x": st.wqkv_x,
+            "pwo_x": st.wo_x, "pw1": st.w1, "pw2": st.w2,
+            "pws": torch.cat([st.wsx, st.wss], dim=1)}
+    for name, m in mats.items():
+        want = m.transpose(1, 2)
+        got = _untile(getattr(st, name), *want.shape[1:])
+        assert got.dtype == weight_dtype, name
+        if weight_dtype == torch.bfloat16:
+            assert got.shape[1] == 1, name
+            assert torch.equal(got[:, 0], want), name
+        else:
+            big, small = got[:, 0], got[:, 1]
+            assert torch.equal(big + small, want), name
+            assert not (big.view(torch.int32) & 0x1FFF).any(), name
+            assert (small.abs() <= big.abs() * 2.0 ** -11).all(), name
+
+
+def test_self_attention_through_k3_plain():
+    # K5's self-attention is K3 on the heads of the packed QKV projection
+    # with key 0 always valid: K3's plain version under that mask equals the
+    # plain stack's attention (a sequence of length 0 included)
+    rng = np.random.RandomState(4)
+    B, T, D, H = 3, 20, 64, 4
+    q, k, v = (torch.from_numpy(rng.randn(B, T, D).astype(np.float32))
+               for _ in range(3))
+    valid = torch.arange(T)[None] < torch.tensor([[20], [7], [0]])
+    key_ok = valid.clone()
+    key_ok[:, 0] = True
+    ref = _attend(q / np.sqrt(D // H), k, v, key_ok, H)
+
+    def heads(t):
+        return t.reshape(B, T, H, D // H).transpose(1, 2)
+
+    out = flash_plain(heads(q), heads(k), heads(v), key_ok)
+    out = out.transpose(1, 2).reshape(B, T, D)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6)
 
 
 def test_can_fuse_decode_rules():
