@@ -65,14 +65,33 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      joints for one prompt of s512 against the CPU's (plain versions, f32
      text tower), same weights, initial latents and step noise, with the
      schedule cut to 10 train timesteps;
-  6. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+  6. training (mld_tpu_torch.train.loop.train, the port's entry point, at
+     full width with dropout 0.1, B=64): builds the synthetic corpus with
+     the port's build_synthetic_dataset into build/ (128 clips: 64, the JAX
+     package's debug count, leave 44 training clips, less than one batch),
+     trains the vae stage and resumes it once from its checkpoint, hands
+     the VAE to the diffusion stage (pretrained_vae), then runs
+     vae_diffusion (each of its steps a DDIM-50 generation pass); per
+     stage: finite losses, frozen params bit-identical, trainable params
+     moved, the launches of every step equal to the counts derived from the
+     config (vae 0; diffusion K4 24, K3 9; vae_diffusion K4 48, K3 27, K1
+     50), the median ms a step (each ending in torch.cuda.synchronize()),
+     the device busy share of torch.profiler-traced steps and the host ops
+     with the most self time in them; then one diffusion step with dropout 0,
+     where the denoiser's attention runs K3 through its autograd.Function,
+     held against the same step on the plain attention on the card, and one
+     full-width diffusion step at B=8 on the card against the CPU;
+  7. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -183,6 +202,42 @@ E2E_RTOL = 1e-3
 # the two configurations of the main path: the default (K1, K4) and the
 # JAX package's fused decode (K1, K4, K5)
 CONFIGS = (("default", {}), ("kernels", {"fused_decode": True}))
+# training phase: the corpus, the batch, the steps of each stage (the first
+# a warm-up), and the steps traced by torch.profiler (after step a through
+# step b), both taken out of the medians, which keep steps 2-6 (n = 5). The
+# corpus's train split holds one batch, so every step of the loop is also an
+# epoch: its end, the next epoch's loader thread and first batch. The step
+# itself (train_step, from a synchronize to a synchronize) is timed apart
+# from the loop's interval between steps.
+TRAIN_ROOT = os.path.join(REPO, "build", "train_smoke")
+TRAIN_CLIPS = 128
+TRAIN_B = 64
+TRAIN_STEPS = {"vae": 8, "diffusion": 8, "vae_diffusion": 8}
+TRAIN_TRACED = {"vae": (6, 8), "diffusion": (6, 8), "vae_diffusion": (6, 8)}
+REF_TRAIN_B = 8
+# K3 under autograd against the plain attention, on the card: K3 holds
+# 1e-5 against its plain version a call (phase 3); the denoiser's nine
+# layers and the backward through them carry that to the loss and to each
+# gradient at about the same relative size; 1e-4 of the loss and of each
+# leaf's largest |g| leaves a factor of ten
+K3_GRAD_RTOL = 1e-4
+# K4 under autograd: the f32 text tower's forward and backward at the
+# diffusion stage's prompts, kernel forward vs plain attention on the card.
+# K4 holds 1.2e-6 against its plain version a call in f32 (phase 3); twelve
+# layers and their backward carry that to the output and into the gradients
+# at about the same size relative to the gradients flowing through the
+# tower, so each leaf's error is held against the tower's largest |g|, not
+# the leaf's own: a leaf's net gradient can cancel to nothing (the key
+# projection's bias gets none in exact arithmetic, since softmax ignores a
+# shift shared by a row of scores, and keeps only rounding noise). The K3
+# bar and its factor of ten hold here too
+K4_GRAD_RTOL = 1e-4
+# one full-width diffusion step, card (kernels) vs CPU (plain versions), f32
+# text tower on both: f32 summation order on two devices through the 12 CLIP
+# layers, the 9 VAE encoder layers and the 9 denoiser layers and their
+# backward; the CPU tests hold 3-layer stacks to the JAX package at 1e-4 of
+# each leaf's scale, and three times the depth takes 1e-3
+TRAIN_REF_RTOL = 1e-3
 
 
 def log(*args):
@@ -967,7 +1022,9 @@ def phase_reference(torch, cfg, text, length, label, kw):
     init = torch.randn(1, cfg.model.latent_size, cfg.model.latent_dim,
                        generator=torch.Generator().manual_seed(SEED + 3))
     for dev in (DEVICE, "cpu"):
-        mld = MLD(cfg32, device=dev,
+        # K1 on the card and its plain version on the CPU: the CPU's default
+        # is the module path (LayerNorm eps 1e-6, not K1's 1e-5)
+        mld = MLD(cfg32, device=dev, fused_denoiser=True,
                   generator=torch.Generator().manual_seed(SEED), **kw)
         mask = lengths_to_mask([length], mld.max_frames, mld.device)
         _reset_counts()
@@ -1169,7 +1226,446 @@ def phase_raw_motion(torch, texts, lengths):
     log(f"[time] raw-motion reference: {time.perf_counter() - t0:.1f} s")
     return runs
 
-def kernels_line(kr, runs, raw_runs, prompt_len):
+# ------------------------------------------------------------------ training
+# model overrides of the training phase (none: the preset's full width)
+TRAIN_MODEL = {}
+
+
+def _sync(torch):
+    torch.cuda.synchronize()
+
+
+def _train_cfg(stage, dropout=None, **train):
+    from mld_tpu_torch.config import load_config
+
+    model = dict(TRAIN_MODEL)
+    if dropout is not None:
+        model["dropout"] = dropout
+    return load_config(preset="mld_humanml3d", overrides={
+        "name": f"smoke_{stage}", "debug": True, "model": model,
+        "dataset": {"root": os.path.join(TRAIN_ROOT, "humanml3d")},
+        "train": {"stage": stage, "batch_size": TRAIN_B, **train},
+        "logger": {"folder": os.path.join(TRAIN_ROOT, "experiments"),
+                   "save_checkpoint_epoch": 10 ** 6,
+                   "val_every_epochs": 10 ** 6}})
+
+
+def _train_want(cfg, stage):
+    """Kernel launches of one training step, from the config. Dropout > 0
+    sends the trainable modules' attention to the plain version (the
+    reference's dispatch), so with it K3 runs only under no grad: in the
+    frozen VAE encode of the diffusion loss and in the generation pass's
+    plain decode (self- and cross-attention a layer); K4 runs for the
+    prompts and the uncond row; K1 once a DDIM step of the generation
+    pass."""
+    m = cfg.model
+    want = {"skip_encoder": 0, "skip_decoder": 0, "skip_decoder_kernels": 0,
+            "flash_causal": 0, "flash_attention": 0}
+    if stage == "vae":
+        return want
+    want["flash_causal"] = 2 * m.clip_layers
+    want["flash_attention"] = m.num_layers
+    if m.dropout == 0.0:
+        want["flash_attention"] += m.denoiser_num_layers
+    if stage == "vae_diffusion":
+        want["flash_causal"] += 2 * m.clip_layers
+        want["flash_attention"] += 2 * m.num_layers
+        want["skip_encoder"] = m.scheduler.num_inference_timesteps
+    return want
+
+
+class _StepWatch:
+    """The on_step callback of train(): the params before the first step,
+    then each step's launches (checked, the last kept), the loop's wall ms
+    from one step's end to the next's (ending in a synchronize), finite
+    logs, and a torch.profiler trace of the steps after `traced[0]` through
+    `traced[1]`. `step_ms` is filled by `timed_steps`."""
+
+    def __init__(self, torch, want, traced=(None, None)):
+        self.torch, self.want, self.traced = torch, want, traced
+        self.ms, self.logs, self.before, self.prof = {}, [], None, None
+        self.step_ms, self.counts, self.busy = {}, None, None
+
+    def __call__(self, state, step, logs):
+        torch = self.torch
+        _sync(torch)
+        now = time.perf_counter()
+        if step == 0:
+            self.before = {k: p.detach().clone()
+                           for k, p in state.mld.named_parameters()}
+            self.trainable = set(state.params)
+        else:
+            self.ms[step] = (now - self.t) * 1e3
+            self.counts = _read_counts()
+            _check_counts(self.counts, self.want, f"training step {step}")
+            vals = {k: float(v) for k, v in logs.items()}
+            if not all(map(math.isfinite, vals.values())):
+                raise RuntimeError(f"non-finite training logs {vals}")
+            self.logs.append(vals)
+        first, last = self.traced
+        if step == last:
+            wall = time.perf_counter() - self.t_prof
+            self.prof.__exit__(None, None, None)
+            device = [e.time_range.elapsed_us() for e in self.prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(device)
+            n = last - first
+            # where the host's time goes: the ops with the most self CPU
+            # time, per step
+            host = sorted(self.prof.key_averages(),
+                          key=lambda a: a.self_cpu_time_total,
+                          reverse=True)[:6]
+            self.busy = {"steps": n, "wall_ms": wall * 1e3,
+                         "busy_ms": busy / 1e3,
+                         "busy_share": busy / 1e6 / wall,
+                         "device_kernels_a_step": len(device) / n,
+                         "host_top_ms_a_step": [
+                             (a.key[:60], a.self_cpu_time_total / 1e3 / n,
+                              a.count / n) for a in host]}
+        if step == first:
+            from torch.profiler import ProfilerActivity, profile
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t_prof = time.perf_counter()
+        _reset_counts()
+        self.t = time.perf_counter()
+
+    def median_ms(self, times):
+        first, last = self.traced
+        kept = [ms for step, ms in times.items()
+                if step > 1 and not (first is not None
+                                     and first < step <= last)]
+        return statistics.median(kept), len(kept)
+
+
+@contextlib.contextmanager
+def timed_steps(torch, watch):
+    """Time each train_step the loop calls, from a synchronize before it to
+    one after it, into watch.step_ms: the step without the loader and the
+    epoch's bookkeeping."""
+    from mld_tpu_torch.train import loop
+
+    inner = loop.train_step
+
+    def timed(*args, **kwargs):
+        _sync(torch)
+        t = time.perf_counter()
+        logs = inner(*args, **kwargs)
+        _sync(torch)
+        watch.step_ms[len(watch.step_ms) + 1] = (time.perf_counter() - t) * 1e3
+        return logs
+
+    loop.train_step = timed
+    try:
+        yield
+    finally:
+        loop.train_step = inner
+
+
+def _check_params(torch, label, watch, mld):
+    """Frozen params bit-identical, every trainable module moved."""
+    after = dict(mld.named_parameters())
+    frozen = [k for k in watch.before if k not in watch.trainable]
+    changed = [k for k in frozen if not torch.equal(after[k],
+                                                    watch.before[k])]
+    if changed:
+        raise RuntimeError(f"{label}: frozen params changed: {changed[:5]}")
+    moved = [k for k in watch.trainable
+             if not torch.equal(after[k], watch.before[k])]
+    tops = {k.split(".", 1)[0] for k in watch.trainable}
+    if {k.split(".", 1)[0] for k in moved} != tops:
+        raise RuntimeError(f"{label}: trainable modules {tops} did not all "
+                           f"move")
+    return len(moved), len(watch.trainable), len(frozen)
+
+
+def run_stage(torch, cfg, stage, smi, **kw):
+    """One stage through the loop's train(), checked and timed."""
+    from mld_tpu_torch.train.loop import train
+
+    want = _train_want(cfg, stage)
+    watch = _StepWatch(torch, want, TRAIN_TRACED[stage])
+    t0 = time.perf_counter()
+    with timed_steps(torch, watch):
+        mld = train(cfg, max_steps=TRAIN_STEPS[stage], device=DEVICE,
+                    on_step=watch, **kw)
+    wall = time.perf_counter() - t0
+    moved, n_train, n_frozen = _check_params(torch, stage, watch, mld)
+    with open(os.path.join(cfg.logger.folder, "mld", cfg.name,
+                           "metrics.jsonl")) as f:
+        epochs = sum(json.loads(line)["split"] == "train" for line in f)
+    step_med, n_step = watch.median_ms(watch.step_ms)
+    loop_med, n_loop = watch.median_ms(watch.ms)
+    b = watch.busy
+    first, last = watch.logs[0], watch.logs[-1]
+    log(f"[train:{stage}] B={cfg.train.batch_size} dropout "
+        f"{cfg.model.dropout}: {len(watch.ms)} steps in {epochs} epochs; "
+        f"train_step median "
+        f"{step_med:.2f} ms (n={n_step} untraced steps after the first; "
+        f"all: {', '.join(f'{v:.1f}' for v in watch.step_ms.values())}); "
+        f"loop median {loop_med:.2f} ms between steps (n={n_loop}; the "
+        f"loader and the epochs' ends add {loop_med - step_med:.2f} ms; all: "
+        f"{', '.join(f'{v:.1f}' for v in watch.ms.values())}); device "
+        f"busy {100 * b['busy_share']:.1f}% of {b['wall_ms']:.1f} ms of the "
+        f"loop over {b['steps']} traced step(s); launches a step "
+        f"{watch.counts}; trainable {moved}/{n_train} tensors moved, "
+        f"{n_frozen} frozen unchanged; total {first['total']:.4f} -> "
+        f"{last['total']:.4f}; {wall:.1f} s with set-up; {smi}")
+    log(f"[train:{stage}] traced: {b['device_kernels_a_step']:.0f} device "
+        f"kernels a step; host self time a step by op: " + ", ".join(
+            f"{name} {ms:.2f} ms x{count:.0f}"
+            for name, ms, count in b["host_top_ms_a_step"]))
+    return mld, watch, {"step_median_ms": step_med, "step_n": n_step,
+                        "loop_median_ms": loop_med, "loop_n": n_loop,
+                        "epochs": epochs,
+                        "busy": b, "launches": watch.counts,
+                        "logs_first": first, "logs_last": last}
+
+
+def _batch(torch, cfg, B, device):
+    from mld_tpu_torch.data.datamodule import get_datamodule
+    from mld_tpu_torch.models.clip_text import ClipTokenizer
+    from mld_tpu_torch.train.steps import batch_to_device
+
+    dm = get_datamodule(cfg, tokenizer=ClipTokenizer(cfg.model.clip_path))
+    batch = next(iter(dm.loader("train", batch_size=B, prefetch=0,
+                                drop_last=True)))
+    return batch_to_device(batch, device), dm
+
+
+def _diffusion_draws(torch, cfg, B, seed):
+    """A diffusion step's draws from a CPU generator (steps.diffusion_loss's
+    draws= keys), so that two runs take the same."""
+    m = cfg.model
+    g = torch.Generator().manual_seed(seed)
+    lat = (B, m.latent_size, m.latent_dim)
+    return {"eps": torch.randn(lat, generator=g),
+            "cfg_drop": torch.rand(B, generator=g) < m.guidance_uncondp,
+            "noise": torch.randn(lat, generator=g),
+            "t": torch.randint(0, m.scheduler.num_train_timesteps, (B,),
+                               generator=g)}
+
+
+def _grad_err(a_logs, a_grads, b_logs, b_grads):
+    """Largest relative error of the loss and of any gradient leaf against
+    its largest |g| (b is the reference)."""
+    loss = abs(float(a_logs["total"]) - float(b_logs["total"])) / max(
+        abs(float(b_logs["total"])), 1e-12)
+    worst = max(float((a_grads[k].cpu() - g.cpu()).abs().max())
+                / max(float(g.abs().max()), 1e-12)
+                for k, g in b_grads.items())
+    return loss, worst
+
+
+def check_k3_autograd(torch, cfg, batch, dm):
+    """One diffusion step, dropout 0: the denoiser's attention runs K3
+    through its autograd.Function; held against the same step with every
+    bidirectional attention on the plain version, on the card."""
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.ops import attention, transformer
+    from mld_tpu_torch.train import steps
+
+    mld = MLD(cfg, mean=dm.mean, std=dm.std, device=DEVICE,
+              generator=torch.Generator().manual_seed(SEED))
+    state = steps.create_train_state(mld, "diffusion")
+    draws = _diffusion_draws(torch, cfg, batch["motion"].shape[0], SEED + 7)
+    _reset_counts()
+    logs, grads = steps.compute_grads(state, batch, None, draws)
+    _sync(torch)
+    counts = _read_counts()
+    _check_counts(counts, _train_want(cfg, "diffusion"),
+                  "diffusion step with K3 under autograd")
+    grads = {k: g.clone() for k, g in grads.items()}
+    kernel_sdpa = transformer.sdpa
+    transformer.sdpa = (lambda q, k, v, key_valid=None, dropout_rate=0.0,
+                        generator=None: attention.flash_plain(
+                            q, k, v, key_valid, dropout_rate, generator))
+    try:
+        _reset_counts()
+        plain_logs, plain_grads = steps.compute_grads(state, batch, None,
+                                                      draws)
+        _sync(torch)
+    finally:
+        transformer.sdpa = kernel_sdpa
+    if _read_counts()["flash_attention"] != 0:
+        raise RuntimeError("the plain-attention step launched K3")
+    loss_err, grad_err = _grad_err(logs, grads, plain_logs, plain_grads)
+    log(f"[train:k3-autograd] diffusion step B={batch['motion'].shape[0]} "
+        f"dropout 0, K3 forward + plain VJP vs plain attention on the card: "
+        f"launches {counts}; loss rel err {loss_err:.2e}, worst gradient "
+        f"leaf {grad_err:.2e} of its scale (bar {K3_GRAD_RTOL:g})")
+    if not (loss_err <= K3_GRAD_RTOL and grad_err <= K3_GRAD_RTOL):
+        raise RuntimeError("K3 under autograd disagrees with the plain "
+                           "attention")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+
+
+def check_k4_autograd(torch, cfg, batch, dm):
+    """The f32 text tower's forward and backward at the batch's full-context
+    prompts with its params tracked: K4 runs through its autograd.Function
+    (one launch a layer); its gradients held against the same pass with the
+    causal attention on the plain version, on the card."""
+    from mld_tpu_torch.models import clip_text
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.ops import attention
+
+    mld = MLD(cfg, mean=dm.mean, std=dm.std, device=DEVICE,
+              generator=torch.Generator().manual_seed(SEED))
+    params = [p.requires_grad_() for p in mld.clip.parameters()]
+    ids = batch["text_ids"]
+
+    def run():
+        out = mld.clip(ids, mode=mld.clip_mode)
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+        cot = torch.randn(out.shape, generator=g, device=DEVICE)
+        return out.detach(), torch.autograd.grad((out * cot).sum(), params)
+
+    _reset_counts()
+    out, grads = run()
+    _sync(torch)
+    counts = _read_counts()
+    want = dict.fromkeys(counts, 0)
+    want["flash_causal"] = cfg.model.clip_layers
+    _check_counts(counts, want, "text tower under autograd")
+    kernel = clip_text.sdpa_flash_causal
+    clip_text.sdpa_flash_causal = attention.flash_causal_plain
+    try:
+        _reset_counts()
+        plain_out, plain_grads = run()
+        _sync(torch)
+    finally:
+        clip_text.sdpa_flash_causal = kernel
+    if _read_counts()["flash_causal"] != 0:
+        raise RuntimeError("the plain-attention pass launched K4")
+    out_err = float((out - plain_out).abs().max()) / max(
+        float(plain_out.abs().max()), 1e-12)
+    names = [k for k, _ in mld.clip.named_parameters()]
+    scale = max(float(b.abs().max()) for b in plain_grads)
+    errs = sorted(((float((a - b).abs().max()), float(b.abs().max()), k)
+                   for k, a, b in zip(names, grads, plain_grads)),
+                  reverse=True)
+    grad_err = errs[0][0] / scale
+    log(f"[train:k4-autograd] f32 text tower [{ids.shape[0]}, "
+        f"{ids.shape[1]}] forward + backward, K4 forward + plain VJP vs "
+        f"plain attention on the card: {counts['flash_causal']} K4 "
+        f"launches; output rel err {out_err:.2e}, worst gradient leaf "
+        f"{grad_err:.2e} of the tower's largest |g| {scale:.3e} over "
+        f"{len(params)} leaves (bar {K4_GRAD_RTOL:g}); largest errors: "
+        + ", ".join(f"{k} {e:.2e} (its |g| {m:.2e})" for e, m, k in errs[:3]))
+    if not (out_err <= K4_GRAD_RTOL and grad_err <= K4_GRAD_RTOL):
+        raise RuntimeError("K4 under autograd disagrees with the plain "
+                           "attention")
+    return {"out_rel_err": out_err, "grad_rel_err": grad_err}
+
+
+def check_train_reference(torch, cfg, dm):
+    """One full-width diffusion step at B=REF_TRAIN_B, dropout 0, f32 text
+    tower: the card (kernels) against the CPU (plain versions), the same
+    params, batch and draws."""
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.train import steps
+
+    batch, _ = _batch(torch, cfg, REF_TRAIN_B, "cpu")
+    draws = _diffusion_draws(torch, cfg, REF_TRAIN_B, SEED + 8)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        mld = MLD(cfg, mean=dm.mean, std=dm.std, device=dev,
+                  generator=torch.Generator().manual_seed(SEED))
+        state = steps.create_train_state(mld, "diffusion")
+        dbatch = {k: v.to(dev) for k, v in batch.items()}
+        _reset_counts()
+        logs, grads = steps.compute_grads(state, dbatch, None, draws)
+        counts = _read_counts()
+        if dev == "cpu" and any(counts.values()):
+            raise RuntimeError(f"the CPU step launched kernels: {counts}")
+        out[dev] = ({k: v.cpu() for k, v in logs.items()},
+                    {k: g.cpu() for k, g in grads.items()})
+        del mld, state
+    loss_err, grad_err = _grad_err(*out[DEVICE], *out["cpu"])
+    log(f"[train:reference] full-width diffusion step B={REF_TRAIN_B}, "
+        f"card vs CPU: loss {float(out[DEVICE][0]['total']):.6f} vs "
+        f"{float(out['cpu'][0]['total']):.6f} (rel err {loss_err:.2e}), "
+        f"worst gradient leaf {grad_err:.2e} of its scale (bar "
+        f"{TRAIN_REF_RTOL:g})")
+    if not (loss_err <= TRAIN_REF_RTOL and grad_err <= TRAIN_REF_RTOL):
+        raise RuntimeError("the card's training step disagrees with the CPU")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+
+
+def phase_training(torch, smi):
+    """The port's training entry point on the card: the corpus, the three
+    stages (vae with one resume, the handoff to diffusion, vae_diffusion),
+    then K3 under autograd and a card-vs-CPU step."""
+    import shutil
+
+    from mld_tpu_torch.data.synthetic import build_synthetic_dataset
+    from mld_tpu_torch.train.loop import train
+    from mld_tpu_torch.utils.checkpoint import CheckpointManager
+
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    build_synthetic_dataset(os.path.join(TRAIN_ROOT, "humanml3d"),
+                            n_samples=TRAIN_CLIPS, seed=SEED)
+    log(f"[train] synthetic corpus: {TRAIN_CLIPS} clips in "
+        f"{time.perf_counter() - t0:.1f} s (build_synthetic_dataset, host)")
+    runs = {}
+
+    cfg = _train_cfg("vae")
+    mld, _, runs["vae"] = run_stage(torch, cfg, "vae", smi)
+    del mld
+    vae_dir = os.path.join(cfg.logger.folder, "mld", cfg.name, "checkpoints")
+    mgr = CheckpointManager(vae_dir)
+    saved = mgr.restore(map_location=DEVICE)
+    watch = _StepWatch(torch, _train_want(cfg, "vae"))
+    mld = train(cfg, max_steps=1, resume=True, device=DEVICE, on_step=watch)
+    restored = [k for k, v in saved["state_dict"].items()
+                if not torch.equal(watch.before[k], v)]
+    if restored or mgr.latest_step() != saved["step"] + 1:
+        raise RuntimeError(f"resume did not restore the checkpoint of epoch "
+                           f"{saved['step']}: {restored[:5]}, latest "
+                           f"{mgr.latest_step()}")
+    log(f"[train:vae] resumed from the checkpoint of epoch {saved['step']} "
+        f"(every saved tensor restored), one more step, saved epoch "
+        f"{mgr.latest_step()}")
+    del mld, saved
+    torch.cuda.empty_cache()
+
+    cfg = _train_cfg("diffusion", pretrained_vae=vae_dir)
+    mld, watch, runs["diffusion"] = run_stage(torch, cfg, "diffusion", smi)
+    handed = mgr.restore(map_location=DEVICE)["state_dict"]
+    for k, p in mld.vae.named_parameters():
+        if not torch.equal(p, handed["vae." + k]):
+            raise RuntimeError(f"the diffusion stage's VAE is not the "
+                               f"handed-over one: vae.{k}")
+    log(f"[train:diffusion] its frozen VAE is the vae stage's checkpoint "
+        f"(epoch {mgr.latest_step()}), bit for bit")
+    diff_dir = os.path.join(cfg.logger.folder, "mld", cfg.name,
+                            "checkpoints")
+    del mld, watch, handed
+    torch.cuda.empty_cache()
+
+    cfg = _train_cfg("vae_diffusion", pretrained=diff_dir)
+    mld, watch, runs["vae_diffusion"] = run_stage(torch, cfg,
+                                                  "vae_diffusion", smi)
+    del mld, watch
+    torch.cuda.empty_cache()
+
+    cfg = _train_cfg("diffusion", dropout=0.0)
+    batch, dm = _batch(torch, cfg, TRAIN_B, DEVICE)
+    runs["k3_autograd"] = check_k3_autograd(torch, cfg, batch, dm)
+    torch.cuda.empty_cache()
+    from mld_tpu_torch.config.core import (config_from_dict, config_to_dict,
+                                           merge_dicts)
+    cfg32 = config_from_dict(merge_dicts(config_to_dict(cfg), {
+        "model": {"clip_compute_dtype": "float32"}}))
+    runs["k4_autograd"] = check_k4_autograd(torch, cfg32, batch, dm)
+    torch.cuda.empty_cache()
+    runs["reference"] = check_train_reference(torch, cfg32, dm)
+    return runs
+
+
+def kernels_line(kr, runs, raw_runs, prompt_len, train_runs):
     counts = runs["kernels"]["counts"]
     layer_res, layer_rounding = kr["encoder_layer"]
     dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
@@ -1190,11 +1686,18 @@ def kernels_line(kr, runs, raw_runs, prompt_len):
 
     def entry(name, source, replaces, launches, results, key, key16,
               **extra):
+        # read at each stage's last checked step; K2 shares K1's counter,
+        # so nothing in the run counts it apart
+        train = {stage: (r["launches"][name] if name != "encoder_layer"
+                         else None)
+                 for stage, r in train_runs.items() if "launches" in r}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst(results, key[0]), **arm(results[key]),
                 "bf16_max_abs_err": worst(results, "bf16"),
-                **arm(results[key16], "bf16_"), **extra}
+                **arm(results[key16], "bf16_"),
+                "train_launches_a_step": train,
+                **extra}
 
     return {"kernels": [
         entry("skip_encoder", "mld_tpu_torch/csrc/skip_encoder.cu",
@@ -1242,8 +1745,11 @@ def main():
     log(f"[time] build: {time.perf_counter() - t0:.1f} s")
     kr, runs, texts, lengths = phase_main_path(torch)
     raw_runs = phase_raw_motion(torch, texts, lengths)
+    t0 = time.perf_counter()
+    train_runs = phase_training(torch, smi)
+    log(f"[time] training: {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
-                                runs["kernels"]["prompt_len"])))
+                                runs["kernels"]["prompt_len"], train_runs)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

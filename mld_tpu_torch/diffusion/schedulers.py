@@ -68,6 +68,17 @@ class DiffusionSchedule:
     def init_noise_sigma(self) -> float:
         return 1.0
 
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) (``schedulers.py:77-84``): timesteps [B] integer,
+        broadcast over the trailing dims; f32 table and square roots."""
+        table = torch.as_tensor(self.alphas_cumprod, device=original.device)
+        ac = table[timesteps.to(original.device, torch.long)]
+        shape = ac.shape + (1,) * (original.dim() - ac.dim())
+        sqrt_ac = torch.sqrt(ac).reshape(shape)
+        sqrt_1mac = torch.sqrt(1.0 - ac).reshape(shape)
+        return sqrt_ac * original + sqrt_1mac * noise
+
     def predict_x0_eps(self, model_output: torch.Tensor,
                        sample: torch.Tensor, alpha_prod_t: np.float32):
         beta_prod_t = _f32(1.0) - alpha_prod_t
@@ -146,6 +157,11 @@ class DDPMScheduler:
         """T-1, ..., 0."""
         T = self.schedule.num_train_timesteps
         return np.arange(T - 1, -1, -1, dtype=np.int64)
+
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """The forward process of training (``schedulers.py:191-192``)."""
+        return self.schedule.add_noise(original, noise, timesteps)
 
     def step(self, model_output: torch.Tensor, timestep: int,
              sample: torch.Tensor, noise: torch.Tensor | None = None

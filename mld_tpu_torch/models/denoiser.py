@@ -6,10 +6,17 @@ of raw motion (``diffusion_only``, the no-VAE presets).
 Token sequence: [sample tokens ; time token ; text tokens], sample first
 (mld_denoiser.py:187). The module holds the parameters under the reference
 torch names (``time_embedding.linear_1``, ``emb_proj.1``, ``query_pos.pe``,
-``encoder.*``); its inference forward is ``ops.fused_denoiser``.
+``encoder.*``). It has two forwards, as the JAX package's denoiser has
+(``mld_tpu/models/mld.py:372-396``): ``forward``, the module path (the
+plain ``SkipTransformerEncoder``, flax's LayerNorm eps 1e-6, dropout,
+differentiable), which training always takes; and ``fused_forward``, the
+serving forward over K1 (``ops.fused_denoiser``, eps 1e-5, no grad).
+``MLD.denoise`` chooses between them.
 
-The encoder's per-layer weights are stacked for the kernel once, whenever
-parameters are loaded or moved (``restack``), never per call.
+The encoder's per-layer weights are stacked for the kernel whenever
+parameters are loaded or moved (``restack``), never per call. An optimizer
+step changes the parameters in place and leaves the stack stale: the
+training step drops it (``drop_stack``) and the next K1 call rebuilds it.
 """
 from __future__ import annotations
 
@@ -18,16 +25,26 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mld_tpu_torch.ops.embeddings import (DENOISER_FLIP_SIN_TO_COS,
-                                          DENOISER_FREQ_SHIFT,
-                                          PositionEmbeddingLearned1D,
-                                          TimestepEmbedding,
-                                          get_timestep_embedding)
-from mld_tpu_torch.ops.fused_denoiser import fused_denoiser_forward
+from mld_tpu_torch.ops.embeddings import (PositionEmbeddingLearned1D,
+                                          TimestepEmbedding)
+from mld_tpu_torch.ops.fused_denoiser import (cond_tokens,
+                                              fused_denoiser_forward,
+                                              time_embedding)
 from mld_tpu_torch.ops.fused_layer import (MAX_S, StackedSkipEncoder,
                                            stack_skip_encoder)
 from mld_tpu_torch.ops.transformer import (SkipTransformerEncoder,
                                            TransformerDecoder)
+
+
+def _time_token(module, timestep, sample: torch.Tensor) -> torch.Tensor:
+    """The time token [B, 1, d] of a host integer or a [B] / scalar tensor
+    timestep."""
+    B = sample.shape[0]
+    if isinstance(timestep, torch.Tensor):
+        timesteps = timestep.to(sample.device).expand(B)
+    else:   # a host integer: filled on the device, no copy to wait for
+        timesteps = torch.full((B,), int(timestep), device=sample.device)
+    return time_embedding(module, timesteps)[:, None]
 
 
 class MldDenoiser(nn.Module):
@@ -35,7 +52,8 @@ class MldDenoiser(nn.Module):
                  ff_size: int = 1024, num_layers: int = 9,
                  num_heads: int = 4, text_encoded_dim: int = 768,
                  pe_max_len: int = 500, activation: str = "gelu",
-                 weight_dtype: torch.dtype = torch.float32):
+                 weight_dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         if activation != "gelu":
             raise ValueError("the fused denoiser stack computes gelu only")
@@ -51,7 +69,8 @@ class MldDenoiser(nn.Module):
                          if text_encoded_dim != latent_dim else None)
         self.query_pos = PositionEmbeddingLearned1D(latent_dim, pe_max_len)
         self.encoder = SkipTransformerEncoder(latent_dim, num_heads,
-                                              num_layers, ff_size, activation)
+                                              num_layers, ff_size, activation,
+                                              dropout=dropout)
         self._stacked: Optional[StackedSkipEncoder] = None
         self.register_load_state_dict_post_hook(
             lambda module, incompatible: module.restack())
@@ -59,6 +78,11 @@ class MldDenoiser(nn.Module):
     def restack(self):
         """Rebuild the kernel's stacked weights from the current params."""
         self._stacked = stack_skip_encoder(self.encoder, self.weight_dtype)
+
+    def drop_stack(self):
+        """Forget the stacked weights (the params changed in place); the
+        next K1 call restacks."""
+        self._stacked = None
 
     def stacked_encoder(self) -> StackedSkipEncoder:
         if self._stacked is None:
@@ -74,10 +98,23 @@ class MldDenoiser(nn.Module):
 
     def forward(self, sample: torch.Tensor, timestep,
                 encoder_hidden_states: torch.Tensor,
-                time_emb: Optional[torch.Tensor] = None,
-                cond_lat: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """sample [B, latent_size, d]; timestep scalar or [B];
-        encoder_hidden_states [B, S_text, text_dim] -> [B, latent_size, d]."""
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The module path (``denoiser.py:139-186``, trans_enc, latent
+        mode): sample [B, latent_size, d]; timestep scalar or [B];
+        encoder_hidden_states [B, S_text, text_dim] -> [B, latent_size, d].
+        Dropout is on when a generator is given."""
+        emb = torch.cat([_time_token(self, timestep, sample),
+                         cond_tokens(self, encoder_hidden_states)], dim=1)
+        xseq = self.query_pos(torch.cat([sample, emb], dim=1))
+        return self.encoder(xseq, generator=generator)[:, : sample.shape[1]]
+
+    def fused_forward(self, sample: torch.Tensor, timestep,
+                      encoder_hidden_states: torch.Tensor,
+                      time_emb: Optional[torch.Tensor] = None,
+                      cond_lat: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """The serving forward over K1 (no grad), same shapes; time_emb and
+        cond_lat from ``ops.fused_denoiser.precompute_cond``."""
         return fused_denoiser_forward(self, sample, timestep,
                                       encoder_hidden_states, time_emb,
                                       cond_lat)
@@ -99,7 +136,8 @@ class RawMotionDenoiser(nn.Module):
     def __init__(self, nfeats: int = 263, latent_dim: int = 512,
                  ff_size: int = 1024, num_layers: int = 9,
                  num_heads: int = 4, text_encoded_dim: int = 768,
-                 pe_max_len: int = 500, activation: str = "gelu"):
+                 pe_max_len: int = 500, activation: str = "gelu",
+                 dropout: float = 0.0):
         super().__init__()
         d = latent_dim
         self.latent_dim = latent_dim
@@ -112,27 +150,18 @@ class RawMotionDenoiser(nn.Module):
         self.query_pos = PositionEmbeddingLearned1D(d, pe_max_len)
         self.mem_pos = PositionEmbeddingLearned1D(d, pe_max_len)
         self.decoder = TransformerDecoder(d, num_heads, num_layers, ff_size,
-                                          activation)
+                                          activation, dropout=dropout)
 
     def forward(self, sample: torch.Tensor, timestep,
                 encoder_hidden_states: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """sample [B, T, nfeats]; timestep scalar or [B];
         encoder_hidden_states [B, S_text, text_dim]; mask [B, T] bool or
-        None -> [B, T, nfeats]."""
-        B = sample.shape[0]
-        if isinstance(timestep, torch.Tensor):
-            timesteps = timestep.to(sample.device).expand(B)
-        else:   # a host integer: filled on the device, no copy to wait for
-            timesteps = torch.full((B,), int(timestep), device=sample.device)
-        t_sin = get_timestep_embedding(timesteps, self.text_encoded_dim,
-                                       DENOISER_FLIP_SIN_TO_COS,
-                                       DENOISER_FREQ_SHIFT)
-        time_emb = self.time_embedding(t_sin.to(sample.dtype))[:, None]
-        text = encoder_hidden_states
-        # emb_proj is Sequential(ReLU, Linear): ReLU before the projection
-        text_lat = self.emb_proj(text) if self.emb_proj is not None else text
-        memory = self.mem_pos(torch.cat([time_emb, text_lat], dim=1))
+        None -> [B, T, nfeats]. Dropout is on when a generator is given."""
+        memory = self.mem_pos(torch.cat(
+            [_time_token(self, timestep, sample),
+             cond_tokens(self, encoder_hidden_states)], dim=1))
         tgt = self.query_pos(self.pose_embd(sample))
-        out = self.pose_proj(self.decoder(tgt, memory))
+        out = self.pose_proj(self.decoder(tgt, memory, generator=generator))
         return out * mask[..., None] if mask is not None else out

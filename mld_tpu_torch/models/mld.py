@@ -10,13 +10,19 @@ text condition), in two families:
       frames under CFG -> zero outside the mask -> de-norm -> joints
 
 The latent denoiser's encoder stack runs as one CUDA kernel per step on the
-card (ops/fused_layer.py), the text tower's causal attention as another
-(ops/attention.py:sdpa_flash_causal), and every bidirectional attention (the
-raw-motion denoiser's, the plain VAE decode's) as a third
-(ops/attention.py:sdpa). ``fused_decode``, the JAX package's switch of the
-same name, runs the VAE decoder stack through ops/fused_seq_decoder.py; it
-changes the result (LayerNorm eps 1e-5 against the plain modules' 1e-6).
-Everything else is plain PyTorch on the same device. Conventions:
+card (ops/fused_layer.py) when ``fused_denoiser`` is on, the text tower's
+causal attention as another (ops/attention.py:sdpa_flash_causal), and every
+bidirectional attention (the raw-motion denoiser's, the plain VAE's) as a
+third (ops/attention.py:sdpa). ``fused_decode``, the JAX package's switch of
+the same name, runs the VAE decoder stack through ops/fused_seq_decoder.py;
+it changes the result (LayerNorm eps 1e-5 against the plain modules' 1e-6),
+as ``fused_denoiser`` does. Everything else is plain PyTorch on the same
+device.
+
+The training pieces (``noise_scheduler``, ``encode_motion``, ``denoise``
+with ``training=``, ``decode_latent`` with ``training=``) are differentiable
+and never take K1 or K5, as in the JAX package (``mld.py:284-319``,
+``372-396``); the steps that use them are ``train/steps.py``. Conventions:
 batch-first; latents [B, latent_size, latent_dim] or [B, T, nfeats]; masks
 [B, T] bool, True = valid.
 """
@@ -43,6 +49,29 @@ from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
                                          flax_to_state_dict)
 
 TEXT_BUCKETS = (16, 24, 32, 48, 64)
+
+
+def _fused_denoiser_from_env(device: torch.device) -> bool:
+    """MLD_TPU_FUSED_DENOISER as the JAX package reads it (mld.py:398-429):
+    "0" off, "1" on, anything else ("auto") on where the JAX package has its
+    single TPU, which for the port is a CUDA device, and off elsewhere (the
+    JAX package's default off a TPU)."""
+    flag = os.environ.get("MLD_TPU_FUSED_DENOISER", "auto")
+    if flag in ("0", "1"):
+        return flag == "1"
+    return device.type == "cuda"
+
+
+def _text_buckets():
+    """MLD_TPU_TEXT_BUCKETS as the JAX package reads it (mld.py:272-278):
+    "auto" the default ladder, "0" or "off" none (full context), else a
+    comma list of lengths."""
+    flag = os.environ.get("MLD_TPU_TEXT_BUCKETS", "auto")
+    if flag in ("0", "off"):
+        return None
+    if flag == "auto":
+        return TEXT_BUCKETS
+    return tuple(int(b) for b in flag.split(",") if int(b) > 0)
 
 
 def _fused_decode_from_env(model_cfg) -> bool:
@@ -102,7 +131,9 @@ def _check_supported(cfg: Config):
         (m.clip_last_hidden, "clip_last_hidden"),
         (m.scheduler.kind != sched, f"scheduler={m.scheduler.kind}"
          + (" without a VAE" if raw else " with a VAE")),
-        (m.dtype != "float32", f"dtype={m.dtype}"),
+        (m.dtype != "float32", f"dtype={m.dtype} (bf16 mixed precision, "
+         f"train/steps.py:104-115 of the JAX package, is a later slice of "
+         f"the port)"),
     ]
     bad = [msg for cond, msg in unsupported if cond]
     if bad:
@@ -147,17 +178,28 @@ class MLD(nn.Module):
     default: seeded with cfg.seed) and can be replaced with
     `load_flax_params` or `load_state_dict` (reference torch names).
 
-    `fused_decode` chooses the decode path; None reads the JAX package's
-    switch MLD_TPU_FUSED_DECODE, whose default is off. It is not a
-    fallback: with it on, the kernel launches on the card or the call
-    raises. The raw-motion family has no VAE (``vae`` is None) and so no
-    decode to fuse."""
+    `fused_decode` chooses the serving decode path; None reads the JAX
+    package's switch MLD_TPU_FUSED_DECODE, whose default is off.
+
+    `fused_denoiser` chooses the serving denoiser of the latent family:
+    True is K1's forward (``MldDenoiser.fused_forward``, LayerNorm eps
+    1e-5), False the module path (eps 1e-6). None reads the JAX package's
+    switch MLD_TPU_FUSED_DENOISER when a call is made, as JAX reads it when
+    it traces: "1" K1, "0" the module path, and "auto" (the default) K1 on
+    a CUDA device, where the JAX package has its single TPU, and the module
+    path on the CPU, JAX's default off a TPU. Training and any dropout
+    always take the module path (``mld.py:375-376``).
+
+    Neither switch is a fallback: with it on, the kernel launches on the
+    card or the call raises. The raw-motion family has no VAE (``vae`` is
+    None) and no latent denoiser, so neither switch applies to it."""
 
     def __init__(self, cfg: Config, mean: Optional[np.ndarray] = None,
                  std: Optional[np.ndarray] = None, *, device="cuda",
                  weight_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 fused_decode: Optional[bool] = None):
+                 fused_decode: Optional[bool] = None,
+                 fused_denoiser: Optional[bool] = None):
         super().__init__()
         device = resolve_device(device)
         _check_supported(cfg)
@@ -179,6 +221,7 @@ class MLD(nn.Module):
                              "encoder_decoder arch, post-norm, learned PE "
                              "and latent_size <= 8")
         self.fused_decode = bool(fused_decode)
+        self.fused_denoiser = fused_denoiser
 
         pe_max_len = max(500, self.max_frames + 8)
         with torch.device("meta"):
@@ -187,16 +230,18 @@ class MLD(nn.Module):
                 self.denoiser = RawMotionDenoiser(
                     self.nfeats, m.latent_dim, m.ff_size,
                     m.denoiser_num_layers, m.num_heads, m.text_encoded_dim,
-                    pe_max_len=pe_max_len, activation=m.activation)
+                    pe_max_len=pe_max_len, activation=m.activation,
+                    dropout=m.dropout)
             else:
                 self.vae = MldVae(self.nfeats, m.latent_size, m.latent_dim,
                                   m.ff_size, m.num_layers, m.num_heads,
-                                  m.activation, weight_dtype=weight_dtype)
+                                  m.activation, weight_dtype=weight_dtype,
+                                  dropout=m.dropout)
                 self.denoiser = MldDenoiser(
                     m.latent_size, m.latent_dim, m.ff_size,
                     m.denoiser_num_layers, m.num_heads, m.text_encoded_dim,
                     pe_max_len=pe_max_len, activation=m.activation,
-                    weight_dtype=weight_dtype)
+                    weight_dtype=weight_dtype, dropout=m.dropout)
             self.clip = ClipTextModel(width=m.text_encoded_dim,
                                       layers=m.clip_layers,
                                       heads=m.clip_heads,
@@ -223,6 +268,8 @@ class MLD(nn.Module):
             DDPMScheduler(schedule, sc.variance_type) if self.raw_motion
             else DDIMScheduler(schedule, sc.num_inference_timesteps, sc.eta,
                                sc.steps_offset, sc.set_alpha_to_one))
+        # the forward process of the training steps (mld.py:132-133)
+        self.noise_scheduler = DDPMScheduler(schedule, sc.variance_type)
 
         self.tokenizer = ClipTokenizer(m.clip_path)
         # features mode: the empty prompt is [BOS, EOS, pad...]; under causal
@@ -233,6 +280,22 @@ class MLD(nn.Module):
             self.denoiser.restack()
         if self.fused_decode:
             self.vae.restack()
+
+    def use_fused_denoiser(self) -> bool:
+        """Whether serving denoises through K1 (see the class docstring)."""
+        if self.raw_motion:
+            return False
+        if self.fused_denoiser is not None:
+            return bool(self.fused_denoiser)
+        return _fused_denoiser_from_env(self.device)
+
+    def drop_stacks(self):
+        """After the parameters changed in place (an optimizer step): drop
+        the kernels' stacked copies so that K1 and K5 restack at their next
+        use instead of running the old weights."""
+        if not self.raw_motion:
+            self.denoiser.drop_stack()
+            self.vae.drop_stack()
 
     def load_flax_params(self, tree: Mapping):
         """Load a JAX-package param tree {vae, denoiser, clip} of numpy (or
@@ -250,8 +313,9 @@ class MLD(nn.Module):
     # --------------------------------------------------------------- text
     def tokenize(self, texts: Sequence[str]) -> torch.Tensor:
         """Serving-path ids [B, L] on the device, cropped to the smallest
-        EOT bucket (exact under causal attention + EOT pooling)."""
-        ids = self.tokenizer(list(texts), buckets=TEXT_BUCKETS)
+        EOT bucket (exact under causal attention + EOT pooling); the
+        buckets follow MLD_TPU_TEXT_BUCKETS, as the JAX package's do."""
+        ids = self.tokenizer(list(texts), buckets=_text_buckets())
         return torch.as_tensor(ids, dtype=torch.long, device=self.device)
 
     @torch.no_grad()
@@ -292,15 +356,21 @@ class MLD(nn.Module):
             return self._ddpm_reverse(latents, cond_emb, mask, generator,
                                       dev, step_noise)
         timesteps = self.scheduler.timesteps()
-        # step-invariant preamble hoisted out of the loop: the time-embedding
-        # table and the projected condition tokens, computed once
-        time_tab, cond_lat = precompute_cond(
-            self.denoiser, torch.as_tensor(timesteps, device=self.device),
-            cond_emb)
+        fused = self.use_fused_denoiser()
+        if fused:
+            # K1's step-invariant preamble hoisted out of the loop: the
+            # time-embedding table and the projected condition tokens
+            time_tab, cond_lat = precompute_cond(
+                self.denoiser, torch.as_tensor(timesteps, device=self.device),
+                cond_emb)
         for i, t in enumerate(timesteps):
             model_in = torch.cat([latents, latents]) if self.do_cfg else latents
-            out = self.denoiser(model_in, int(t), cond_emb,
-                                time_emb=time_tab[i], cond_lat=cond_lat)
+            if fused:
+                out = self.denoiser.fused_forward(
+                    model_in, int(t), cond_emb, time_emb=time_tab[i],
+                    cond_lat=cond_lat)
+            else:
+                out = self.denoiser(model_in, int(t), cond_emb)
             if self.do_cfg:
                 out_uncond, out_text = out.chunk(2)
                 out = out_uncond + self.guidance_scale * (out_text - out_uncond)
@@ -328,18 +398,83 @@ class MLD(nn.Module):
                 out, int(t), latents, noise.to(self.device, torch.float32))
         return latents
 
-    @torch.no_grad()
-    def decode_latent(self, z: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    # ----------------------------------------------------------- training
+    def encode_motion(self, feats: torch.Tensor, mask: torch.Tensor, *,
+                      eps: Optional[torch.Tensor] = None,
+                      dropout_generator: Optional[torch.Generator] = None):
+        """VAE encode -> (z, (mu, logvar)) (``mld.py:284-292``), with the
+        gradient: z = mu + eps * std, or mu without eps; dropout on with
+        dropout_generator."""
+        return self.vae.encode(feats, mask, eps=eps,
+                               dropout_generator=dropout_generator)
+
+    def denoise(self, sample: torch.Tensor, t, cond_emb: torch.Tensor,
+                mask: Optional[torch.Tensor] = None, *,
+                training: bool = False,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """One denoiser call (``mld.py:372-396``): K1 when serving with the
+        fused denoiser on, else the module path, which training and any
+        dropout always take. `mask` [B, T] zeroes the raw-motion output
+        outside the frames."""
+        if self.raw_motion:
+            return self.denoiser(sample, t, cond_emb, mask,
+                                 generator=dropout_generator)
+        if (not training and dropout_generator is None
+                and self.use_fused_denoiser()):
+            with torch.no_grad():
+                return self.denoiser.fused_forward(sample, t, cond_emb)
+        return self.denoiser(sample, t, cond_emb,
+                             generator=dropout_generator)
+
+    def decode_latent(self, z: torch.Tensor, mask: torch.Tensor, *,
+                      training: bool = False,
+                      dropout_generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
         """z [B, latent_size, latent_dim], mask [B, T] -> feats [B, T,
-        nfeats]: the fused decoder stack (LayerNorm eps 1e-5, as JAX's fused
-        path) or the plain modules (eps 1e-6, as JAX's XLA path)."""
-        if self.fused_decode:
-            return fused_vae_decode(self.vae, z, mask)
-        return self.vae.decode(z, mask)
+        nfeats].
+
+        Serving (the default) runs without grad: the fused decoder stack
+        (LayerNorm eps 1e-5, as JAX's fused path) or the plain modules (eps
+        1e-6, as JAX's XLA path). With training or a dropout generator it is
+        the plain modules with the gradient, never fused, as the JAX package
+        fuses only without a dropout rng (``mld.py:303-319``)."""
+        if training or dropout_generator is not None:
+            return self.vae.decode(z, mask, dropout_generator)
+        with torch.no_grad():
+            if self.fused_decode:
+                return fused_vae_decode(self.vae, z, mask)
+            return self.vae.decode(z, mask)
 
     def feats2joints(self, feats: torch.Tensor) -> torch.Tensor:
         """de-normalise + RIC decode (HumanML3D.py:41-45)."""
         return recover_from_ric(feats * self.std + self.mean, self.njoints)
+
+    def encode_uncond(self) -> torch.Tensor:
+        """The empty prompt's embedding, one row [1, 1, text_dim]."""
+        return self.encode_text_tokens(
+            torch.as_tensor(self.uncond_ids, device=self.device))
+
+    @torch.no_grad()
+    def generate_feats(self, token_ids: torch.Tensor, mask: torch.Tensor, *,
+                       generator: Optional[torch.Generator] = None,
+                       init_latents: Optional[torch.Tensor] = None,
+                       step_noise=None) -> torch.Tensor:
+        """prompt ids [B, L] + mask [B, T] -> normalised features [B, T,
+        nfeats], zero outside the mask (``mld.py:511-542``). `init_latents`
+        and `step_noise` as in diffusion_reverse."""
+        mask = mask.to(self.device)
+        cond_emb = self.encode_text_tokens(token_ids)
+        if self.do_cfg:
+            # the uncond embedding is prompt-independent: encode ONE row
+            # and broadcast it over the uncond half
+            cond_emb = torch.cat([self.encode_uncond().expand_as(cond_emb),
+                                  cond_emb])
+        z = self.diffusion_reverse(cond_emb, generator, init_latents, mask,
+                                   step_noise)
+        if self.raw_motion:
+            return z * mask[..., None]
+        return self.decode_latent(z, mask)
 
     @torch.no_grad()
     def generate_joints(self, token_ids: torch.Tensor, mask: torch.Tensor, *,
@@ -350,19 +485,9 @@ class MLD(nn.Module):
         zero outside the mask. `init_latents` and `step_noise` as in
         diffusion_reverse."""
         mask = mask.to(self.device)
-        cond_emb = self.encode_text_tokens(token_ids)
-        if self.do_cfg:
-            # the uncond embedding is prompt-independent: encode ONE row
-            # and broadcast it over the uncond half
-            uncond = self.encode_text_tokens(
-                torch.as_tensor(self.uncond_ids, device=self.device))
-            cond_emb = torch.cat([uncond.expand_as(cond_emb), cond_emb])
-        z = self.diffusion_reverse(cond_emb, generator, init_latents, mask,
-                                   step_noise)
-        if self.raw_motion:
-            feats = z * mask[..., None]
-        else:
-            feats = self.decode_latent(z, mask)
+        feats = self.generate_feats(token_ids, mask, generator=generator,
+                                    init_latents=init_latents,
+                                    step_noise=step_noise)
         return self.feats2joints(feats) * mask[..., None, None]
 
     def generate(self, texts: Sequence[str], lengths: Sequence[int],

@@ -6,10 +6,14 @@ Parameter names follow the reference torch module
 ``query_pos_decoder.pe``, ``encoder.*``, ``decoder.*``,
 ``global_motion_token``, ``skel_embedding``, ``final_layer``.
 
-``decode`` is the plain module path (flax's LayerNorm eps 1e-6). The fused
-decode (``ops.fused_seq_decoder.fused_vae_decode``, eps 1e-5) reads the
-decoder's weights stacked for its kernel; they are built by ``restack`` and
-rebuilt whenever parameters are loaded or moved, once a stack exists.
+``encode`` and ``decode`` are the plain module path (flax's LayerNorm eps
+1e-6), differentiable, with dropout when given a generator; the serving
+callers run them under ``torch.no_grad()`` (``models/mld.py``). The fused
+decode (``ops.fused_seq_decoder.fused_vae_decode``, eps 1e-5, serving only)
+reads the decoder's weights stacked for its kernel; they are built by
+``restack`` and rebuilt whenever parameters are loaded or moved, once a
+stack exists, and dropped (``drop_stack``) when an optimizer step changes
+the parameters in place.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ class MldVae(nn.Module):
                  latent_dim: int = 256, ff_size: int = 1024,
                  num_layers: int = 9, num_heads: int = 4,
                  activation: str = "gelu",
-                 weight_dtype: torch.dtype = torch.float32):
+                 weight_dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         d = latent_dim
         self.latent_size = latent_size
@@ -38,9 +43,11 @@ class MldVae(nn.Module):
         self.query_pos_encoder = PositionEmbeddingLearned1D(d)
         self.query_pos_decoder = PositionEmbeddingLearned1D(d)
         self.encoder = SkipTransformerEncoder(d, num_heads, num_layers,
-                                              ff_size, activation)
+                                              ff_size, activation,
+                                              dropout=dropout)
         self.decoder = SkipTransformerDecoder(d, num_heads, num_layers,
-                                              ff_size, activation)
+                                              ff_size, activation,
+                                              dropout=dropout)
         self.global_motion_token = nn.Parameter(torch.empty(2 * latent_size, d))
         self.skel_embedding = nn.Linear(nfeats, d)
         self.final_layer = nn.Linear(d, nfeats)
@@ -57,6 +64,11 @@ class MldVae(nn.Module):
         if self._stacked is not None:
             self.restack()
 
+    def drop_stack(self):
+        """Forget the stacked weights (the params changed in place); the
+        next fused decode restacks."""
+        self._stacked = None
+
     def stacked_decoder(self) -> StackedSkipDecoder:
         if self._stacked is None:
             self.restack()
@@ -68,33 +80,42 @@ class MldVae(nn.Module):
         self._restack_if_stacked()
         return out
 
-    @torch.no_grad()
     def encode(self, features: torch.Tensor, mask: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               sample_mean: bool = False, fact: float = 1.0
+               sample_mean: bool = False, fact: float = 1.0, *,
+               eps: Optional[torch.Tensor] = None,
+               dropout_generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """features [B, T, nfeats], mask [B, T] bool -> (z, (mu, logvar)),
-        each [B, latent_size, latent_dim]. Without a generator (or with
-        sample_mean) z is mu."""
+        each [B, latent_size, latent_dim]. z = mu + fact * eps * std
+        (``mld_tpu/models/vae.py:98-112``), with eps given, or drawn from
+        `generator` in f32; without either (or with sample_mean) z is mu.
+        Dropout is on when dropout_generator is given."""
         B = features.shape[0]
         x = self.skel_embedding(features)
         dist = self.global_motion_token[None].expand(B, -1, -1)
         xseq = self.query_pos_encoder(torch.cat([dist, x], dim=1))
         valid = torch.cat([mask.new_ones(B, dist.shape[1]), mask], dim=1)
-        out = self.encoder(xseq, valid)[:, : dist.shape[1]]
+        out = self.encoder(xseq, valid,
+                           generator=dropout_generator)[:, : dist.shape[1]]
         mu, logvar = out[:, : self.latent_size], out[:, self.latent_size:]
-        if sample_mean or generator is None:
+        if eps is None and generator is not None and not sample_mean:
+            eps = torch.randn(mu.shape, generator=generator,
+                              device=generator.device)
+        if sample_mean or eps is None:
             return mu, (mu, logvar)
-        eps = torch.randn(mu.shape, generator=generator,
-                          device=generator.device).to(mu)
+        eps = eps.to(mu)
         return mu + fact * eps * torch.exp(0.5 * logvar), (mu, logvar)
 
-    @torch.no_grad()
-    def decode(self, z: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, mask: torch.Tensor,
+               dropout_generator: Optional[torch.Generator] = None
+               ) -> torch.Tensor:
         """z [B, latent_size, latent_dim], mask [B, T] -> feats [B, T, nfeats],
-        zero outside the mask."""
+        zero outside the mask. Dropout is on when dropout_generator is
+        given."""
         B, T = mask.shape
         queries = self.query_pos_decoder(
             z.new_zeros(B, T, self.latent_dim))
-        output = self.decoder(queries, z, tgt_valid=mask)
+        output = self.decoder(queries, z, tgt_valid=mask,
+                              generator=dropout_generator)
         return self.final_layer(output) * mask[..., None]

@@ -5,8 +5,10 @@ The sources under ``mld_tpu_torch/csrc/`` are compiled at first use, by
 linked into one library in ``build/`` at the repository root. The library's
 file name carries a hash of the sources and flags, so a stale build is never
 loaded. Nothing here runs at import: the CPU tests import every module of the
-port on machines without ``nvcc``. ``check_no_grad`` is the rule every
-kernel wrapper applies before it launches: the kernels are forward-only.
+port on machines without ``nvcc``. ``check_no_grad`` is the rule the
+serving-only kernels' wrappers (K1, K2, K5) apply before they launch: they
+have no backward. The attention wrappers (K3, K4) are differentiable
+(``ops/attention.py``).
 """
 from __future__ import annotations
 
@@ -49,8 +51,8 @@ _SIGNATURES = {
 
 
 def check_no_grad(what: str, *tensors):
-    """The kernels have no backward: refuse inputs that autograd tracks
-    rather than return an output cut off from their graph."""
+    """A serving-only kernel has no backward: refuse inputs that autograd
+    tracks rather than return an output cut off from their graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"the {what} kernel has no backward; call it "
                            f"under torch.no_grad() or with inputs that do "

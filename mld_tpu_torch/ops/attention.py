@@ -15,6 +15,14 @@ package's Sq*Sk >= 512^2 dispatch threshold (``attention.py:309-323``) is a
 TPU measurement. Its fully masked rows average v over the Sk real keys, as
 ``sdpa_xla`` does; the TPU kernel divides by Sk padded to 128 there
 (ROADMAP.md, section 3).
+
+Both wrappers are differentiable. When autograd tracks q, k or v on the
+card, the call goes through a ``torch.autograd.Function`` whose forward is
+the kernel and whose backward is the VJP of the plain version, recomputed
+from the saved q, k and v: the counterpart of the JAX package's
+``_sdpa_pallas_bwd`` and ``_flash_causal_bwd`` (``attention.py:164-184``,
+``269-301``), which recompute theirs in XLA. Neither TPU kernel has a
+backward kernel. The launch counters count forward launches only.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .dropout import dropout
 
 NEG_INF = -1e9
 MAX_CAUSAL_S = 128     # the CLIP context is 77
@@ -37,17 +46,34 @@ FLASH_LAUNCHES = 0
 
 
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_valid: Optional[torch.Tensor] = None,
+                dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """K3's function in plain PyTorch (``_flash_kernel``,
     ``attention.py:77-105``): q, k, v upcast to f32, f32 scores times
     1/sqrt(Dh), -1e9 at invalid keys, f32 softmax and P.V, output in q's
-    dtype. key_valid: [B, Sk] bool (True = attend) or None for all keys."""
+    dtype. key_valid: [B, Sk] bool (True = attend) or None for all keys.
+    With a generator and dropout_rate > 0, the probabilities are dropped
+    as ``sdpa_xla`` drops them (``attention.py:48-73``)."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     scores = scores * (1.0 / math.sqrt(q.shape[-1]))
     if key_valid is not None:
         scores = scores.masked_fill(~key_valid[:, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator)
     return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def _plain_vjp(plain, inputs, grad_out):
+    """The gradients of `plain` at `inputs` against grad_out, recomputed:
+    the backward of both attention kernels."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in inputs]
+        out = plain(*xs)
+    return torch.autograd.grad(out, xs, grad_out)
+
+
+def _tracked(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _check_flash(q, k, v, key_valid):
@@ -99,25 +125,9 @@ def flash_operands(q, k, v, key_valid):
     return out, args, (q, k, v, key_valid)
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Bidirectional attention. q [B, H, Sq, Dh], k/v [B, H, Sk, Dh],
-    key_valid [B, Sk] bool (True = attend) or None -> [B, H, Sq, Dh] in q's
-    dtype.
-
-    CPU tensors take the plain version; CUDA tensors launch K3 on the
-    current stream (no synchronisation) or raise, also when autograd tracks
-    an input (the kernel has no backward). The kernel reads q, k and v
-    through their strides (any views with a unit stride along Dh, such as
-    the heads of a packed QKV projection, without a copy) and writes the
-    output as [B, Sq, H, Dh] memory, returned as a [B, H, Sq, Dh] view, so
-    that merging the heads afterwards copies nothing either."""
+def _flash_launch(q, k, v, key_valid):
+    """K3 on the current stream (no synchronisation)."""
     global FLASH_LAUNCHES
-    if q.device.type == "cpu":
-        return flash_plain(q, k, v, key_valid)
-    _build.check_no_grad("attention", q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
     _check_flash(q, k, v, key_valid)
     out, args, _operands = flash_operands(q, k, v, key_valid)
     lib = _build.library()
@@ -128,6 +138,60 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     FLASH_LAUNCHES += 1
     return out
+
+
+class _Flash(torch.autograd.Function):
+    """K3 forward; backward the VJP of flash_plain (``_sdpa_pallas_bwd``).
+    key_valid gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid):
+        ctx.save_for_backward(q, k, v, key_valid)
+        return _flash_launch(q, k, v, key_valid)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, key_valid = ctx.saved_tensors
+        dq, dk, dv = _plain_vjp(
+            lambda q_, k_, v_: flash_plain(q_, k_, v_, key_valid),
+            (q, k, v), grad_out)
+        return dq, dk, dv, None
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         key_valid: Optional[torch.Tensor] = None,
+         dropout_rate: float = 0.0,
+         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Bidirectional attention. q [B, H, Sq, Dh], k/v [B, H, Sk, Dh],
+    key_valid [B, Sk] bool (True = attend) or None -> [B, H, Sq, Dh] in q's
+    dtype.
+
+    dropout_rate > 0 (training, with the generator its masks are drawn
+    from) takes the plain version with the probabilities dropped on any
+    device: the reference's dispatch, which sends attention-probability
+    dropout to ``sdpa_xla`` (``attention.py:319-320``). This branch is
+    chosen by the arguments alone, never by a failed build or launch.
+
+    Otherwise CPU tensors take the plain version; CUDA tensors launch K3 on
+    the current stream (no synchronisation) or raise. When autograd tracks
+    q, k or v, the launch goes through ``_Flash``, whose backward is the
+    plain version's VJP. The kernel reads q, k and v through their strides
+    (any views with a unit stride along Dh, such as the heads of a packed
+    QKV projection, without a copy) and writes the output as [B, Sq, H, Dh]
+    memory, returned as a [B, H, Sq, Dh] view, so that merging the heads
+    afterwards copies nothing either."""
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout needs the generator its "
+                             "masks are drawn from")
+        return flash_plain(q, k, v, key_valid, dropout_rate, generator)
+    if q.device.type == "cpu":
+        return flash_plain(q, k, v, key_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    if _tracked(q, k, v):
+        return _Flash.apply(q, k, v, key_valid)
+    return _flash_launch(q, k, v, key_valid)
 
 
 def flash_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,20 +228,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                          f"(S={S}, Dh={Dh})")
 
 
-def sdpa_flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      sm_scale: float = 1.0) -> torch.Tensor:
-    """Causal attention of the CLIP tower. q/k/v [B, H, S, Dh] -> [B, H, S,
-    Dh] in q's dtype.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream (no synchronisation) or raise, also when autograd
-    tracks an input (the kernel has no backward)."""
+def _flash_causal_launch(q, k, v, sm_scale):
+    """K4 on the current stream (no synchronisation)."""
     global LAUNCHES
-    if q.device.type == "cpu":
-        return flash_causal_plain(q, k, v, sm_scale)
-    _build.check_no_grad("causal-attention", q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"no causal-attention kernel for device {q.device}")
     _check(q, k, v)
     B, H, S, Dh = q.shape
     lib = _build.library()
@@ -193,3 +246,39 @@ def sdpa_flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+class _FlashCausal(torch.autograd.Function):
+    """K4 forward; backward the VJP of flash_causal_plain
+    (``_flash_causal_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale = sm_scale
+        return _flash_causal_launch(q, k, v, sm_scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        dq, dk, dv = _plain_vjp(
+            lambda q_, k_, v_: flash_causal_plain(q_, k_, v_, ctx.sm_scale),
+            ctx.saved_tensors, grad_out)
+        return dq, dk, dv, None
+
+
+def sdpa_flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      sm_scale: float = 1.0) -> torch.Tensor:
+    """Causal attention of the CLIP tower. q/k/v [B, H, S, Dh] -> [B, H, S,
+    Dh] in q's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream (no synchronisation) or raise. When autograd tracks
+    q, k or v, the launch goes through ``_FlashCausal``, whose backward is
+    the plain version's VJP."""
+    if q.device.type == "cpu":
+        return flash_causal_plain(q, k, v, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no causal-attention kernel for device {q.device}")
+    if _tracked(q, k, v):
+        return _FlashCausal.apply(q, k, v, sm_scale)
+    return _flash_causal_launch(q, k, v, sm_scale)

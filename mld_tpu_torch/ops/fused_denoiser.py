@@ -16,14 +16,14 @@ from .embeddings import (DENOISER_FLIP_SIN_TO_COS, DENOISER_FREQ_SHIFT,
 from .fused_layer import LN_EPS, skip_encoder_stack
 
 
-def _time_embedding(denoiser, timesteps: torch.Tensor) -> torch.Tensor:
+def time_embedding(denoiser, timesteps: torch.Tensor) -> torch.Tensor:
     t_sin = get_timestep_embedding(timesteps, denoiser.text_encoded_dim,
                                    DENOISER_FLIP_SIN_TO_COS,
                                    DENOISER_FREQ_SHIFT)
     return denoiser.time_embedding(t_sin)
 
 
-def _cond_tokens(denoiser, text_emb: torch.Tensor) -> torch.Tensor:
+def cond_tokens(denoiser, text_emb: torch.Tensor) -> torch.Tensor:
     # emb_proj is Sequential(ReLU, Linear): the reference applies ReLU
     # before the projection (denoiser.py:161-163)
     if denoiser.emb_proj is None:
@@ -38,8 +38,8 @@ def precompute_cond(denoiser, timesteps: torch.Tensor,
     """The step-invariant preamble, computed once per generate call: the
     time-embedding table [n_steps, d] and the projected condition tokens
     [B, S_cond, d]."""
-    return (_time_embedding(denoiser, timesteps),
-            _cond_tokens(denoiser, encoder_hidden_states))
+    return (time_embedding(denoiser, timesteps),
+            cond_tokens(denoiser, encoder_hidden_states))
 
 
 @torch.no_grad()
@@ -54,8 +54,8 @@ def fused_denoiser_forward(denoiser, sample: torch.Tensor,
     B, L, D = sample.shape
     if time_emb is None:
         timesteps = torch.as_tensor(timestep, device=sample.device)
-        time_emb = _time_embedding(denoiser, timesteps.expand(B))[:, None]
-        cond_lat = _cond_tokens(denoiser, encoder_hidden_states)
+        time_emb = time_embedding(denoiser, timesteps.expand(B))[:, None]
+        cond_lat = cond_tokens(denoiser, encoder_hidden_states)
     else:
         time_emb = time_emb.to(sample.dtype).reshape(1, 1, D).expand(B, 1, D)
     xseq = torch.cat([sample, time_emb, cond_lat], dim=1)

@@ -12,6 +12,14 @@ LayerNorm epsilon mirrors the JAX path each module is held against: the flax
 modules use flax's default 1e-6 (``transformer.py:101-102``, ``142-144``,
 ``199``, ``235``), which is what these modules default to. The fused
 denoiser path uses 1e-5 (``ops/fused_layer.py``).
+
+Dropout (rate ``dropout``, the config's ``model.dropout``) is applied where
+the JAX layers apply it (``transformer.py:72-79``, ``103-117``, ``145-160``):
+on the attention probabilities, after each attention, after the FFN's
+activation and after the FFN. It is on only in a forward given a
+``generator``, the counterpart of flax's ``dropout`` rng: the training
+steps pass one, serving and evaluation do not. Without one the forward is
+the inference forward, unchanged.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import sdpa
+from .dropout import dropout as _dropout
 
 FLAX_LN_EPS = 1e-6
 
@@ -37,14 +46,15 @@ def get_activation(name: str):
 class MultiheadAttention(nn.Module):
     """Packed-QKV multi-head attention with torch MHA's parameter names."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, query, key, value, key_valid=None):
+    def forward(self, query, key, value, key_valid=None, generator=None):
         d = query.shape[-1]
         w, b = self.in_proj_weight, self.in_proj_bias
         if query is key and key is value:
@@ -59,37 +69,47 @@ class MultiheadAttention(nn.Module):
         def split(t):
             return t.reshape(B, t.shape[1], H, d // H).transpose(1, 2)
 
-        out = sdpa(split(q), split(k), split(v), key_valid)
+        out = sdpa(split(q), split(k), split(v), key_valid,
+                   self.dropout if generator is not None else 0.0, generator)
         return self.out_proj(out.transpose(1, 2).reshape(B, Sq, d))
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm encoder layer (cross_attention.py:236-294), inference."""
+    """Post-norm encoder layer (cross_attention.py:236-294)."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
-                 activation: str = "gelu", eps: float = FLAX_LN_EPS):
+                 activation: str = "gelu", eps: float = FLAX_LN_EPS,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=eps)
         self.norm2 = nn.LayerNorm(d_model, eps=eps)
         self.activation = get_activation(activation)
 
-    def forward(self, src, key_valid=None):
-        src = self.norm1(src + self.self_attn(src, src, src, key_valid))
-        return self.norm2(src + self.linear2(self.activation(self.linear1(src))))
+    def forward(self, src, key_valid=None, generator=None):
+        def drop(x):
+            return _dropout(x, self.dropout, generator)
+
+        src = self.norm1(src + drop(self.self_attn(src, src, src, key_valid,
+                                                   generator)))
+        return self.norm2(src + drop(self.linear2(drop(self.activation(
+            self.linear1(src))))))
 
 
 class TransformerDecoderLayer(nn.Module):
     """Post-norm decoder layer: self-attn over tgt, cross-attn to memory,
-    FFN (cross_attention.py:297-382), inference."""
+    FFN (cross_attention.py:297-382)."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
-                 activation: str = "gelu", eps: float = FLAX_LN_EPS):
+                 activation: str = "gelu", eps: float = FLAX_LN_EPS,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, num_heads)
-        self.multihead_attn = MultiheadAttention(d_model, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(d_model, num_heads, dropout)
+        self.multihead_attn = MultiheadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=eps)
@@ -97,11 +117,17 @@ class TransformerDecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(d_model, eps=eps)
         self.activation = get_activation(activation)
 
-    def forward(self, tgt, memory, tgt_valid=None, memory_valid=None):
-        tgt = self.norm1(tgt + self.self_attn(tgt, tgt, tgt, tgt_valid))
-        tgt = self.norm2(tgt + self.multihead_attn(tgt, memory, memory,
-                                                   memory_valid))
-        return self.norm3(tgt + self.linear2(self.activation(self.linear1(tgt))))
+    def forward(self, tgt, memory, tgt_valid=None, memory_valid=None,
+                generator=None):
+        def drop(x):
+            return _dropout(x, self.dropout, generator)
+
+        tgt = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt, tgt_valid,
+                                                   generator)))
+        tgt = self.norm2(tgt + drop(self.multihead_attn(
+            tgt, memory, memory, memory_valid, generator)))
+        return self.norm3(tgt + drop(self.linear2(drop(self.activation(
+            self.linear1(tgt))))))
 
 
 class TransformerDecoder(nn.Module):
@@ -112,17 +138,19 @@ class TransformerDecoder(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
-                 eps: float = FLAX_LN_EPS, final_norm: bool = True):
+                 eps: float = FLAX_LN_EPS, final_norm: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(d_model, num_heads, ff_size, activation,
-                                    eps) for _ in range(num_layers))
+                                    eps, dropout) for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=eps) if final_norm else None
 
-    def forward(self, tgt, memory, tgt_valid=None, memory_valid=None):
+    def forward(self, tgt, memory, tgt_valid=None, memory_valid=None,
+                generator=None):
         x = tgt
         for layer in self.layers:
-            x = layer(x, memory, tgt_valid, memory_valid)
+            x = layer(x, memory, tgt_valid, memory_valid, generator)
         return self.norm(x) if self.norm is not None else x
 
 
@@ -158,27 +186,31 @@ class _SkipStack(nn.Module):
 class SkipTransformerEncoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
-                 eps: float = FLAX_LN_EPS):
+                 eps: float = FLAX_LN_EPS, dropout: float = 0.0):
         super().__init__(
             lambda: TransformerEncoderLayer(d_model, num_heads, ff_size,
-                                            activation, eps),
+                                            activation, eps, dropout),
             d_model, num_layers, eps)
         self.num_heads = num_heads
 
-    def forward(self, src, key_valid: Optional[torch.Tensor] = None):
-        return self._run(src, lambda layer, x: layer(x, key_valid))
+    def forward(self, src, key_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        return self._run(src, lambda layer, x: layer(x, key_valid,
+                                                     generator))
 
 
 class SkipTransformerDecoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
-                 eps: float = FLAX_LN_EPS):
+                 eps: float = FLAX_LN_EPS, dropout: float = 0.0):
         super().__init__(
             lambda: TransformerDecoderLayer(d_model, num_heads, ff_size,
-                                            activation, eps),
+                                            activation, eps, dropout),
             d_model, num_layers, eps)
         self.num_heads = num_heads
 
-    def forward(self, tgt, memory, tgt_valid=None, memory_valid=None):
+    def forward(self, tgt, memory, tgt_valid=None, memory_valid=None,
+                generator: Optional[torch.Generator] = None):
         return self._run(
-            tgt, lambda layer, x: layer(x, memory, tgt_valid, memory_valid))
+            tgt, lambda layer, x: layer(x, memory, tgt_valid, memory_valid,
+                                        generator))

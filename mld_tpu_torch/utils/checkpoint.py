@@ -1,0 +1,131 @@
+"""Checkpoints of the port's training (the twin of
+``mld_tpu/utils/checkpoint.py``), and a reader of the JAX package's npz
+exports.
+
+A checkpoint is one ``torch.save`` file ``<dir>/<step>.pt`` holding
+``{"step", "state_dict", "optimizer"}``: the model's ``state_dict`` without
+the frozen CLIP tower (the JAX package strips it too and re-initialises it
+on load) and the optimizer's. The model's under ``state_dict``, in the
+reference torch names, is what the JAX package's
+``load_reference_checkpoint`` reads from a Lightning checkpoint, so a port
+checkpoint is a ``pretrained_vae`` / ``pretrained`` the JAX package loads.
+Every checkpoint is kept, as the reference keeps every one
+(``save_top_k=-1``); resume takes the latest step.
+
+``load_params_npz`` reads a ``save_params_npz`` file of the JAX package
+(``mld_tpu/utils/checkpoint.py:60-86``) with numpy alone, into the flax tree
+that ``utils/convert.py`` bridges to torch names; ``load_pretrained`` loads
+the vae and / or denoiser of either package's checkpoint into a model, so a
+VAE trained by either package hands off to the other's diffusion stage.
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict, Iterable, Mapping, Optional
+
+import numpy as np
+import torch
+
+from mld_tpu_torch.utils.convert import flax_to_state_dict
+
+_STEP_FILE = re.compile(r"^(\d+)\.pt$")
+
+
+def model_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's state_dict without the frozen CLIP tower."""
+    return {k: v for k, v in model.state_dict().items()
+            if not k.startswith("clip.")}
+
+
+class CheckpointManager:
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"{int(step)}.pt")
+
+    def save(self, step: int, model: torch.nn.Module, optimizer=None):
+        payload = {"step": int(step), "state_dict": model_state(model),
+                   "optimizer": (optimizer.state_dict()
+                                 if optimizer is not None else None)}
+        tmp = self.path(step) + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self.path(step))
+
+    def steps(self):
+        found = (_STEP_FILE.match(f) for f in os.listdir(self.directory))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None, map_location="cpu") -> Dict:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        return torch.load(self.path(step), map_location=map_location,
+                          weights_only=True)
+
+
+def load_params_npz(path: str) -> Dict:
+    """A JAX package ``save_params_npz`` file -> nested dict of numpy
+    arrays (keys split on "/")."""
+    tree: Dict = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = flat[key]
+    return tree
+
+
+def _state_from(path: str) -> Dict[str, torch.Tensor]:
+    """Torch-named state of the vae / denoiser in a checkpoint: a JAX npz
+    export, a port checkpoint file, or a port checkpoints directory (its
+    latest step)."""
+    if path.endswith(".npz"):
+        tree = load_params_npz(path)
+        tree = tree.get("params", tree)
+        return {f"{top}.{k}": v for top in ("vae", "denoiser") if top in tree
+                for k, v in flax_to_state_dict(tree[top]).items()}
+    if os.path.isdir(path):
+        return CheckpointManager(path).restore()["state_dict"]
+    return torch.load(path, map_location="cpu",
+                      weights_only=True)["state_dict"]
+
+
+def load_pretrained(model: torch.nn.Module, path: str,
+                    only: Optional[Iterable[str]] = None) -> Iterable[str]:
+    """Load the top-level modules `only` (default: every one the checkpoint
+    has among vae / denoiser) from `path` into `model`. Every parameter of
+    a loaded module must be in the checkpoint. Returns the modules loaded."""
+    state = _state_from(path)
+    tops = sorted({k.split(".", 1)[0] for k in state}
+                  & {"vae", "denoiser"})
+    if only is not None:
+        tops = [t for t in tops if t in set(only)]
+        missing_tops = set(only) - set(tops)
+        if missing_tops:
+            raise KeyError(f"{path} holds no {sorted(missing_tops)}")
+    own = model.state_dict()
+    sub = {k: v for k, v in state.items() if k.split(".", 1)[0] in tops}
+    missing = [k for k in own if k.split(".", 1)[0] in tops and k not in sub]
+    if missing:
+        raise KeyError(f"{path} lacks {missing[:5]} ...")
+    model.load_state_dict(sub, strict=False)
+    return tops
+
+
+def restore_model(model: torch.nn.Module, payload: Mapping):
+    """Load a checkpoint's model state (CLIP excluded) strictly."""
+    result = model.load_state_dict(payload["state_dict"], strict=False)
+    missing = [k for k in result.missing_keys if not k.startswith("clip.")]
+    if missing or result.unexpected_keys:
+        raise KeyError(f"checkpoint does not match the model: missing "
+                       f"{missing[:5]}, unexpected "
+                       f"{result.unexpected_keys[:5]}")

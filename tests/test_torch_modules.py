@@ -196,7 +196,8 @@ def test_vae_decode(vae_pair):
     z = rand(3, 1, 64, seed=3)
     ref = vae.apply({"params": p}, jnp.asarray(z), jnp.asarray(mask),
                     method=vae.decode)
-    out = port.decode(torch.from_numpy(z), torch.from_numpy(mask))
+    with torch.no_grad():      # the module is differentiable (training)
+        out = port.decode(torch.from_numpy(z), torch.from_numpy(mask))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
     assert not out.numpy()[~mask].any()
 
@@ -206,8 +207,9 @@ def test_vae_encode_mean(vae_pair):
     ref_z, (ref_mu, ref_logvar) = vae.apply(
         {"params": p}, jnp.asarray(feats), jnp.asarray(mask),
         sample_mean=True, method=vae.encode)
-    z, (mu, logvar) = port.encode(torch.from_numpy(feats),
-                                  torch.from_numpy(mask))
+    with torch.no_grad():      # the module is differentiable (training)
+        z, (mu, logvar) = port.encode(torch.from_numpy(feats),
+                                      torch.from_numpy(mask))
     np.testing.assert_allclose(mu.numpy(), np.asarray(ref_mu), atol=1e-4)
     np.testing.assert_allclose(logvar.numpy(), np.asarray(ref_logvar),
                                atol=1e-4)

@@ -188,8 +188,9 @@ def test_hoisted_preamble_matches_inline():
     time_tab, cond_lat = precompute_cond(den, timesteps, c)
     assert time_tab.shape == (3, 64) and cond_lat.shape == (8, 1, 64)
     for i, t in enumerate(timesteps.tolist()):
-        inline = den(s, t, c)
-        hoisted = den(s, t, c, time_emb=time_tab[i], cond_lat=cond_lat)
+        inline = den.fused_forward(s, t, c)
+        hoisted = den.fused_forward(s, t, c, time_emb=time_tab[i],
+                                    cond_lat=cond_lat)
         np.testing.assert_allclose(hoisted.numpy(), inline.numpy(),
                                    atol=1e-6, rtol=0)
 
