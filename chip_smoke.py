@@ -22,7 +22,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      each wrapper call compared must launch its kernel once (K5: the C
      entry's count of kernels too):
        K1 skip_encoder  the denoiser stack (S=3, D=256, H=4, F=1024, L=9),
-                        f32 and bf16 weights;
+                        f32 and bf16 weights, up to the evaluation's 64 and
+                        1,920 sequences;
        K2 encoder_layer one fused layer (S=3, the same widths), 2 and 256
                         sequences, f32 and bf16 weights;
        K5 skip_decoder  the VAE decoder stack (T=196, D=256, H=4, F=1024,
@@ -33,12 +34,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                         count, with their device ms split into GEMMs,
                         attention and the rest;
        K4 flash_causal  CLIP causal attention [128, 12, S, 64] for
-                        S = 8, 16, 32, 64, 77, f32 and bf16;
+                        S = 8, 16, 32, 64, 77, and the MultiModality batch's
+                        960 prompts at S = 16, f32 and bf16;
        K3 flash_attention  bidirectional attention at the shapes of the
                         raw-motion denoiser (self-attention [2B, 4, T, 128]
                         for T = 512, 196; cross-attention to 2 keys) and of
-                        the plain VAE decode ([128, 4, 196, 64] under the
-                        frame mask; 1 key), on views into packed projections
+                        the plain VAE decode ([128, 4, 196, 64] and the
+                        evaluation's [960, 4, 196, 64] under the frame mask;
+                        1 key), on views into packed projections
                         as the model hands them over, plus ragged cases
                         with a fully masked example (Sq and Sk off every
                         tile, Dh = 4 and 68), f32 and bf16;
@@ -81,7 +84,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      where the denoiser's attention runs K3 through its autograd.Function,
      held against the same step on the plain attention on the card, and one
      full-width diffusion step at B=8 on the card against the CPU;
-  7. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+  7. evaluation (mld_tpu_torch.eval.pipeline.Evaluator.run, the protocol of
+     test.py, at the protocol's constants): builds a 2,048-clip synthetic
+     corpus into build/ (its test split of 308 clips is above
+     diversity_times = 300; only the corpus and replication_times, 20 -> 1,
+     are cut), trains the t2m evaluator bundle on the card for 300 steps
+     (ms a step, batch top-1), runs full-width mld_humanml3d from seeded
+     random weights through the main pass (batches of 32), the
+     MultiModality pass (32 texts x 30 repeats a batch) and the
+     ground-truth pass, with the launches of every batch (K1 50, K4 24, K3
+     18), per-pass ms a batch, the host's metric seconds, finite metrics, a
+     projection to HumanML3D's test split, the trained bundle's GT R@1
+     above a random bundle's, and one main-pass batch's three embeddings
+     on the card against the CPU;
+  8. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
@@ -105,9 +121,13 @@ SEED = 0
 S, D, H, FF, N_LAYERS = 3, 256, 4, 1024, 9
 N_BLOCK = (N_LAYERS - 1) // 2
 B_LARGE = 128
-# sequences per call: B=1 and B=128 under CFG, plus counts that leave a
-# ragged last tile (the wrapper packs 10 sequences, 30 rows, a tile)
-KERNEL_SEQS = (2, 2 * B_LARGE, 201, 1001)
+# the evaluation protocol's batches (phase 7): the main pass's 32 prompts,
+# the MultiModality pass's 32 prompts x 30 repeats
+EVAL_B, EVAL_MM_ROWS = 32, 32 * 30
+# sequences per call: B=1 and B=128 under CFG, counts that leave a ragged
+# last tile (the wrapper packs 10 sequences, 30 rows, a tile), and the
+# evaluation's batches under CFG
+KERNEL_SEQS = (2, 2 * B_LARGE, 201, 1001, 2 * EVAL_B, 2 * EVAL_MM_ROWS)
 LAYER_SEQS = (2, 2 * B_LARGE)
 # VAE decode: 196 frames; B=6 leaves a ragged last 64-row GEMM tile and every
 # B a ragged last 64-query attention tile
@@ -177,6 +197,10 @@ FLASH_CASES += (
     ("odd self", 3, 4, 131, 131, 128, "ragged"),
     ("dh4", 3, 4, 131, 70, 4, "ragged"),
     ("dh68 self", 3, 4, 131, 131, 68, "ragged"),
+)
+# the plain VAE decode of the evaluation's MultiModality batch
+FLASH_CASES += (
+    ("eval decode self", EVAL_MM_ROWS, 4, T_FRAMES, T_FRAMES, 64, "demo"),
 )
 # the case whose times the kernels line carries: one self-attention of
 # novae_stress_s512 at the demo batch
@@ -320,19 +344,21 @@ def _time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, iters=10, tries=3):
+def _device_ms(torch, fn, iters=10, tries=4):
     """Device time of one fn() call: the durations of the device kernels
     (and memsets) torch.profiler sees over `iters` calls, over iters. Unlike
     _time_ms it leaves out the host's time between launches, which bounds
-    calls of microseconds. The profiler can drop events: a trace holding
-    fewer device kernels than `iters` times those of one call is taken
-    again, up to `tries` times, then raises."""
+    calls of microseconds. The profiler can drop events, most often all of
+    a short window's: a trace is kept once a second trace of `iters` calls
+    holds the same nonzero number of device kernels, a multiple of iters.
+    After `tries` traces without two that agree, the device time is not
+    measured: None, and a line says so (the event time `ms` stands)."""
     from torch.profiler import ProfilerActivity, profile
 
-    def trace(n):
+    def trace():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         return [e.time_range.elapsed_us() for e in prof.events()
@@ -340,13 +366,19 @@ def _device_ms(torch, fn, iters=10, tries=3):
 
     fn()
     torch.cuda.synchronize()
-    per_call = max(len(trace(1)) for _ in range(tries))
+    seen = []
     for _ in range(tries):
-        us = trace(iters)
-        if per_call and len(us) >= iters * per_call:
+        us = trace()
+        if us and len(us) % iters == 0 and len(us) in seen:
             return sum(us) / 1e3 / iters
-    raise RuntimeError(f"torch.profiler saw {len(us)} device kernels in "
-                       f"{iters} calls of {per_call}, {tries} times")
+        seen.append(len(us))
+    log(f"[kernel] device time not measured: torch.profiler saw {seen} "
+        f"device kernels in {tries} traces of {iters} calls")
+    return None
+
+
+def _ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def bound(flops, nbytes, peak, more=()):
@@ -401,14 +433,14 @@ def _hold(torch, name, kernel, plain, atol, what, count, mask=None,
         res["library_ms"] = _time_ms(torch, library, iters)
         res["library_device_ms"] = _device_ms(torch, library)
         extra += (f" library {res['library_ms']:.4f} ms (device "
-                  f"{res['library_device_ms']:.4f}; max_abs_err "
+                  f"{_ms_text(res['library_device_ms'])}; max_abs_err "
                   f"{res['library_err']:.3e})")
     if res["bound"] is not None:
         b = res["bound"]
         extra += (f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
                   f"{b['bound_peak']}; {b['bound_ms'] / ms:.1%} of it)")
     log(f"[kernel] {name} {what} max_abs_err={err:.3e} (atol {atol:g}) "
-        f"kernel {ms:.4f} ms (device {res['device_ms']:.4f}) plain "
+        f"kernel {ms:.4f} ms (device {_ms_text(res['device_ms'])}) plain "
         f"{plain_ms:.4f} ms{extra}")
     if not err <= atol:
         raise RuntimeError(f"{name} disagrees with its plain version: "
@@ -687,16 +719,21 @@ def profile_decoder(torch, vae, lengths, g):
         st = fsd.stack_skip_decoder(vae.decoder, getattr(torch, wdt))
         fsd.skip_decoder_stack(tgt, mem, valid, st, N_BLOCK, H)   # warm
         torch.cuda.synchronize()
-        before = fsd.KERNELS
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fsd.skip_decoder_stack(tgt, mem, valid, st, N_BLOCK, H)
-            torch.cuda.synchronize()
-        counted = fsd.KERNELS - before
-        traced = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.name.startswith(("Memcpy", "Memset"))]
         want = fsd.launch_count(N_BLOCK, 1)
+        # the profiler can drop a trace's events: up to three traces, the
+        # first that holds as many kernels as the C entry counted is kept
+        for _ in range(3):
+            before = fsd.KERNELS
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fsd.skip_decoder_stack(tgt, mem, valid, st, N_BLOCK, H)
+                torch.cuda.synchronize()
+            counted = fsd.KERNELS - before
+            traced = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))]
+            if len(traced) == counted:
+                break
         names, name_ms, kinds = Counter(), Counter(), Counter()
         for e in traced:
             # the kernel with its template arguments: the GEMM's by weight
@@ -734,28 +771,32 @@ def check_flash_causal(torch, g):
                                              sdpa_flash_causal)
     res = {}
     scale = CLIP_DH ** -0.5
+    # B=128 at each bucket, keyed by S; the MultiModality batch's prompts at
+    # the demo bucket, keyed by (B, S)
+    cases = [(B_LARGE, s, s) for s in CLIP_SEQS] + [
+        (EVAL_MM_ROWS, CLIP_KEY_S, (EVAL_MM_ROWS, CLIP_KEY_S))]
     for dname, dt, atol in (("f32", torch.float32, ATTN_F32_ATOL),
                             ("bf16", torch.bfloat16, ATTN_BF16_ATOL)):
-        for s in CLIP_SEQS:
-            shape = (B_LARGE, CLIP_HEADS, s, CLIP_DH)
+        for B, s, key in cases:
+            shape = (B, CLIP_HEADS, s, CLIP_DH)
             q, k = (torch.randn(shape, device=DEVICE, generator=g).to(dt)
                     for _ in range(2))
             v = (0.5 * torch.randn(shape, device=DEVICE, generator=g)).to(dt)
-            res[(dname, s)] = _hold(
+            res[(dname, key)] = _hold(
                 torch, "flash_causal",
                 lambda: sdpa_flash_causal(q, k, v, scale),
                 lambda: flash_causal_plain(q, k, v, scale),
-                atol, f"{dname} [{B_LARGE}, {CLIP_HEADS}, {s}, {CLIP_DH}]",
+                atol, f"{dname} [{B}, {CLIP_HEADS}, {s}, {CLIP_DH}]",
                 lambda: attention.LAUNCHES,
                 library=lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, scale=scale),
-                work=(2 * B_LARGE * CLIP_HEADS * CLIP_DH * s * (s + 1),
+                work=(2 * B * CLIP_HEADS * CLIP_DH * s * (s + 1),
                       4 * q.numel() * q.element_size(), FLASH_PEAK[dname]))
-            if s == CLIP_KEY_S:
+            if key == CLIP_KEY_S:
                 names = _library_kernels(
                     torch, lambda: F.scaled_dot_product_attention(
                         q, k, v, is_causal=True, scale=scale))
-                res[(dname, s)]["library_kernels"] = names
+                res[(dname, key)]["library_kernels"] = names
                 log(f"[kernel] flash_causal library {dname} at S={s}: "
                     f"{names}")
     return res
@@ -1665,7 +1706,309 @@ def phase_training(torch, smi):
     return runs
 
 
-def kernels_line(kr, runs, raw_runs, prompt_len, train_runs):
+# evaluation phase: the protocol of test.py on the synthetic corpus. 2,048
+# clips give a test split of 308, above diversity_times (300), so the
+# protocol's constants stand (batch 32, R groups of 32, 100 MultiModality
+# texts x 30 repeats); only the replications (20 -> 1) and the corpus (the
+# test split of HumanML3D holds 4,384 clips) are cut
+EVAL_ROOT = os.path.join(REPO, "build", "eval_smoke")
+EVAL_CLIPS = 2048
+EVAL_REPLICATIONS = 1
+# evaluator bundle training steps on the card (batch: cfg.train.batch_size)
+EVAL_TRAIN_STEPS = 300
+# HumanML3D's test split: 4,384 clips, 137 batches of 32; MultiModality: 100
+# texts, 4 batches of 32 texts x 30 repeats. The projection of one
+# replication multiplies the measured per-batch times by these counts
+HML_TEST_BATCHES, HML_MM_BATCHES = 137, 4
+# model and eval overrides of the phase (none: the preset's full width and
+# the protocol's constants); a CPU rehearsal sets small ones
+EVAL_MODEL = {}
+EVAL_EVAL = {}
+# card (kernels, f32 text tower) vs CPU (plain versions) embeddings of one
+# main-pass batch: the joints bar of phase 4; the evaluators take joints'
+# features through renorm4t2m and three f32 networks at no more than the
+# generator's own error
+EVAL_RTOL = 1e-3
+
+
+def _eval_cfg(**eval_over):
+    from mld_tpu_torch.config import load_config
+
+    return load_config(preset="mld_humanml3d", overrides={
+        "name": "smoke_eval", "debug": False, "model": dict(EVAL_MODEL),
+        "dataset": {"root": os.path.join(EVAL_ROOT, "humanml3d")},
+        "eval": {**EVAL_EVAL, **eval_over},
+        "test": {"replication_times": EVAL_REPLICATIONS},
+        "logger": {"folder": os.path.join(EVAL_ROOT, "experiments")}})
+
+
+def _eval_want(cfg):
+    """Kernel launches of one evaluated batch (main or MultiModality): the
+    generation of the default configuration, as phase 4's."""
+    m = cfg.model
+    return {"skip_encoder": m.scheduler.num_inference_timesteps,
+            "skip_decoder": 0, "skip_decoder_kernels": 0,
+            "flash_causal": 2 * m.clip_layers,
+            "flash_attention": 2 * m.num_layers}
+
+
+def _ms(secs):
+    return 1e3 * statistics.median(secs) if secs else float("nan")
+
+
+def _eval_kind(name):
+    """The layer a device kernel of an evaluated batch belongs to."""
+    for kind, keys in (("K1 denoiser", ("skip_encoder", "skip_kernel")),
+                       ("K4 CLIP attention", ("causal_kernel",)),
+                       ("K3 attention", ("flash_kernel",)),
+                       ("GRU (cuDNN)", ("rnn", "RNN", "gru", "GRU", "elemWise",
+                                        "LSTM")),
+                       ("conv (cuDNN)", ("conv", "Conv", "implicit_gemm",
+                                         "xmma_fprop", "fprop")),
+                       ("GEMM (cuBLAS)", ("gemm", "Gemm", "sm80_xmma",
+                                          "sm90_xmma", "cutlass"))):
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def profile_eval_batch(torch, ev, batch, draws, mm, label):
+    """One evaluated batch under torch.profiler: wall ms (the call ends in a
+    host copy, a synchronize), device busy ms and share, and device ms by
+    layer and by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ev.eval_batch(batch, "diffusion", draws, mm=mm)   # warm
+    _sync(torch)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev.eval_batch(batch, "diffusion", draws, mm=mm)
+        _sync(torch)
+    wall = (time.perf_counter() - t0) * 1e3
+    kinds, names, counts = Counter(), Counter(), Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        kinds[_eval_kind(e.name)] += ms
+        names[e.name[:60]] += ms
+        counts[e.name[:60]] += 1
+    busy = sum(kinds.values())
+    log(f"[eval:profile] {label}: wall {wall:.2f} ms traced, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(counts.values())} device kernels; by layer: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in kinds.most_common())
+        + "; top kernels: " + ", ".join(
+            f"{k} x{counts[k]} {v:.2f}" for k, v in names.most_common(6)))
+    return {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+            "by_layer_ms": dict(kinds)}
+
+
+def check_eval_reference(torch, cfg, dm, tree):
+    """One main-pass batch's three embeddings on the card (kernels) against
+    the same model on the CPU (plain versions), same weights and initial
+    latents, f32 text tower on both."""
+    from mld_tpu_torch.config.core import (config_from_dict, config_to_dict,
+                                           merge_dicts)
+    from mld_tpu_torch.eval.pipeline import Evaluator
+    from mld_tpu_torch.models.mld import MLD
+
+    cfg32 = config_from_dict(merge_dicts(config_to_dict(cfg), {
+        "model": {"clip_compute_dtype": "float32"}}))
+    batch = next(iter(dm.loader("test", shuffle=False,
+                                batch_size=cfg.eval.batch_size)))
+    n, T = batch["mask"].shape
+    init = torch.randn(n, cfg.model.latent_size, cfg.model.latent_dim,
+                       generator=torch.Generator().manual_seed(SEED + 7))
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        # K1 on the card and its plain version on the CPU (the CPU's
+        # default is the module path, LayerNorm eps 1e-6)
+        mld = MLD(cfg32, mean=dm.mean, std=dm.std, mean_eval=dm.mean_eval,
+                  std_eval=dm.std_eval, device=dev, fused_denoiser=True,
+                  generator=torch.Generator().manual_seed(SEED))
+        ev = Evaluator(cfg32, mld, dm, t2m_params=tree)
+        _reset_counts()
+        out[dev] = ev.eval_batch(batch, "diffusion", {"init_latents": init})
+        counts = _read_counts()
+        if dev == "cpu" and any(counts.values()):
+            raise RuntimeError(f"the CPU run launched kernels: {counts}")
+        del mld, ev
+    errs = {}
+    for key in ("lat_t", "lat_m", "lat_rm"):
+        ref = out["cpu"][key]
+        scale = float(abs(ref).max())
+        err = float(abs(out[DEVICE][key] - ref).max())
+        errs[key] = (err, scale)
+        if not err <= EVAL_RTOL * max(scale, 1.0):
+            raise RuntimeError(f"card {key} disagrees with the CPU: {err:.3e} "
+                               f"(scale {scale:.3e})")
+    log(f"[eval:reference] card vs CPU, one main-pass batch of {n}: "
+        + ", ".join(f"{k} max_abs_err {e:.3e} (scale {s:.3e})"
+                    for k, (e, s) in errs.items())
+        + f"; bar {EVAL_RTOL:g} x max(scale, 1)")
+    return {k: e for k, (e, _) in errs.items()}
+
+
+def phase_evaluation(torch, smi):
+    """The port's evaluation protocol on the card: the corpus, the evaluator
+    bundle trained on it, then Evaluator.run (main and MultiModality
+    passes) and the ground-truth pass on full-width mld_humanml3d, with the
+    launches a batch, per-pass ms a batch, the host's metric seconds, the
+    trained bundle against a random one, and a card-vs-CPU batch."""
+    import shutil
+
+    import numpy as np
+
+    from mld_tpu_torch.data.datamodule import get_datamodule
+    from mld_tpu_torch.data.synthetic import build_synthetic_dataset
+    from mld_tpu_torch.eval.pipeline import Evaluator
+    from mld_tpu_torch.eval.t2m_train import (save_t2m_params,
+                                              train_t2m_evaluator)
+    from mld_tpu_torch.models.clip_text import ClipTokenizer
+    from mld_tpu_torch.models.mld import MLD
+
+    shutil.rmtree(EVAL_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    build_synthetic_dataset(os.path.join(EVAL_ROOT, "humanml3d"),
+                            n_samples=EVAL_CLIPS, seed=SEED)
+    cfg = _eval_cfg()
+    dm = get_datamodule(cfg, tokenizer=ClipTokenizer(cfg.model.clip_path))
+    sizes = {s: len(dm.dataset(s)) for s in ("train", "val", "test")}
+    log(f"[eval] synthetic corpus: {EVAL_CLIPS} clips {sizes} in "
+        f"{time.perf_counter() - t0:.1f} s (host). Cuts: the corpus (the "
+        f"HumanML3D test split holds 4,384 clips) and replication_times "
+        f"{cfg.test.replication_times} (the protocol's 20); batch "
+        f"{cfg.eval.batch_size}, R groups {cfg.eval.r_size}, diversity_times "
+        f"{cfg.eval.diversity_times}, MultiModality {cfg.eval.mm_num_samples} "
+        f"texts x {cfg.eval.mm_num_repeats} repeats, mm_num_times "
+        f"{cfg.eval.mm_num_times}: the protocol's values")
+    if not sizes["test"] > cfg.eval.diversity_times:
+        raise RuntimeError("the test split is not above diversity_times")
+
+    # the evaluator bundle, trained on the card
+    npz = os.path.join(EVAL_ROOT, "t2m_trained.npz")
+    t0 = time.perf_counter()
+    bundle, report = train_t2m_evaluator(cfg, dm, steps=EVAL_TRAIN_STEPS,
+                                         device=DEVICE, log_every=0)
+    _sync(torch)
+    train_s = time.perf_counter() - t0
+    save_t2m_params(npz, bundle)
+    tree = bundle.params_tree()
+    del bundle
+    log(f"[eval:t2m-train] {report['steps']} steps at B="
+        f"{cfg.train.batch_size}: {1e3 * train_s / report['steps']:.2f} ms a "
+        f"step (with set-up, {train_s:.1f} s); nce {report['loss_first']:.4f}"
+        f" -> {report['loss_last']:.4f}, style mse "
+        f"{report['style_mse_last']:.4f}, batch top-1 "
+        f"{report['batch_top1_last']:.3f}")
+
+    cfg = _eval_cfg(t2m_params_path=npz)
+    mld = MLD(cfg, mean=dm.mean, std=dm.std, mean_eval=dm.mean_eval,
+              std_eval=dm.std_eval, device=DEVICE,
+              generator=torch.Generator().manual_seed(SEED))
+    ev = Evaluator(cfg, mld, dm)
+    want = _eval_want(cfg)
+    eval_batch = ev.eval_batch
+
+    def checked_batch(*args, **kwargs):
+        # the launches of every batch, main and MultiModality alike
+        before = _read_counts()
+        out = eval_batch(*args, **kwargs)
+        after = _read_counts()
+        _check_counts({k: after[k] - before[k] for k in after}, want,
+                      "an evaluated batch")
+        return out
+
+    ev.eval_batch = checked_batch
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = ev.run(torch.Generator(device=DEVICE).manual_seed(SEED),
+                 replication_times=EVAL_REPLICATIONS)
+    _sync(torch)
+    run_s = time.perf_counter() - t0
+    counts = _read_counts()
+    ev.eval_batch = eval_batch
+    times = {k: list(v) for k, v in ev.times.items()}
+    n_batches = len(times["main"]) + len(times["mm"])
+    _check_counts(counts, {k: v * n_batches for k, v in want.items()},
+                  f"Evaluator.run over {n_batches} batches")
+    for key in ("FID", "R_precision_top_1", "R_precision_top_2",
+                "R_precision_top_3", "Matching_score", "Diversity",
+                "MultiModality", "APE_root", "AVE_root"):
+        if not math.isfinite(res.get(key, float("nan"))):
+            raise RuntimeError(f"Evaluator.run gave no finite {key}: {res}")
+
+    _reset_counts()
+    gt = ev.run_gt(dm.loader("test", shuffle=False))
+    if any(_read_counts().values()):
+        raise RuntimeError("the ground-truth pass launched a kernel")
+    gt_ms = _ms(ev.times["gt"])
+    rand = Evaluator(_eval_cfg(), mld, dm).run_gt(
+        dm.loader("test", shuffle=False))
+    if not gt["R_precision_top_1"] > rand["R_precision_top_1"]:
+        raise RuntimeError(f"the trained bundle's GT R@1 "
+                           f"{gt['R_precision_top_1']:.4f} is not above the "
+                           f"random one's {rand['R_precision_top_1']:.4f}")
+    main_ms, mm_ms = _ms(times["main"]), _ms(times["mm"])
+    metric_s = sum(times["metrics"])
+    last = sizes["test"] % cfg.eval.batch_size or cfg.eval.batch_size
+    projection_s = (HML_TEST_BATCHES * main_ms + HML_MM_BATCHES * mm_ms) / 1e3
+    log(f"[eval:run] Evaluator.run, {EVAL_REPLICATIONS} replication in "
+        f"{run_s:.2f} s: main pass {len(times['main'])} batches of "
+        f"{cfg.eval.batch_size} (the last {last}), "
+        f"median {main_ms:.2f} ms a batch (all: "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in times['main'])}); "
+        f"MultiModality {len(times['mm'])} batches of up to "
+        f"{cfg.eval.batch_size * cfg.eval.mm_num_repeats} rows, median "
+        f"{mm_ms:.2f} ms (all: "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in times['mm'])}); host metrics "
+        f"{metric_s:.3f} s (APE/AVE updates, FID sqrtm, diversity, "
+        f"MultiModality); launches a batch {want}; GT pass "
+        f"{len(ev.times['gt'])} batches, median {gt_ms:.2f} ms, no kernel; "
+        f"{smi}")
+    log(f"[eval:run] projection, not a measurement: one replication over "
+        f"HumanML3D's test split ({HML_TEST_BATCHES} batches + "
+        f"{HML_MM_BATCHES} MultiModality batches) at these per-batch times "
+        f"= {projection_s:.1f} s of passes, plus the host's metrics")
+    log("[eval:metrics] " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(res.items())
+        if not k.endswith("/conf95")))
+    log(f"[eval:gt] trained bundle: GT R@1 {gt['R_precision_top_1']:.4f}, "
+        f"R@3 {gt['R_precision_top_3']:.4f}, Matching "
+        f"{gt['Matching_score']:.4f}; random-init bundle: GT R@1 "
+        f"{rand['R_precision_top_1']:.4f} (chance 1/{cfg.eval.r_size} = "
+        f"{1 / cfg.eval.r_size:.4f})")
+    # where a batch's time goes: one main batch and one MultiModality batch
+    batch = next(iter(dm.loader("test", shuffle=False,
+                                batch_size=cfg.eval.batch_size)))
+    n, T = batch["mask"].shape
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    prof = {"main": profile_eval_batch(
+        torch, ev, batch, ev.draw(n, T, "diffusion", gen), False,
+        f"main batch of {n}")}
+    reps = cfg.eval.mm_num_repeats
+    mm_batch = {k: np.repeat(np.asarray(batch[k]), reps, axis=0)
+                for k in ("text_ids", "mask", "length")}
+    prof["mm"] = profile_eval_batch(
+        torch, ev, mm_batch, ev.draw(n * reps, T, "diffusion", gen), True,
+        f"MultiModality batch of {n} x {reps}")
+    ref = check_eval_reference(torch, cfg, dm, tree)
+    del mld, ev
+    torch.cuda.empty_cache()
+    return {"metrics": res, "launches_a_batch": want, "counts": counts,
+            "main_ms": main_ms, "mm_ms": mm_ms, "gt_ms": gt_ms,
+            "metric_s": metric_s, "run_s": run_s,
+            "projection_s": projection_s,
+            "t2m_train_ms": 1e3 * train_s / report["steps"],
+            "t2m_top1": report["batch_top1_last"],
+            "gt_r1": gt["R_precision_top_1"],
+            "random_gt_r1": rand["R_precision_top_1"], "reference": ref,
+            "profile": prof}
+
+
+def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs):
     counts = runs["kernels"]["counts"]
     layer_res, layer_rounding = kr["encoder_layer"]
     dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
@@ -1691,12 +2034,16 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs):
         train = {stage: (r["launches"][name] if name != "encoder_layer"
                          else None)
                  for stage, r in train_runs.items() if "launches" in r}
+        # the evaluation protocol's main and MultiModality batches alike
+        evals = (eval_runs["launches_a_batch"][name]
+                 if name != "encoder_layer" else None)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst(results, key[0]), **arm(results[key]),
                 "bf16_max_abs_err": worst(results, "bf16"),
                 **arm(results[key16], "bf16_"),
                 "train_launches_a_step": train,
+                "eval_launches_a_batch": evals,
                 **extra}
 
     return {"kernels": [
@@ -1748,8 +2095,12 @@ def main():
     t0 = time.perf_counter()
     train_runs = phase_training(torch, smi)
     log(f"[time] training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eval_runs = phase_evaluation(torch, smi)
+    log(f"[time] evaluation: {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
-                                runs["kernels"]["prompt_len"], train_runs)))
+                                runs["kernels"]["prompt_len"], train_runs,
+                                eval_runs)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

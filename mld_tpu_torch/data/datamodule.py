@@ -1,12 +1,19 @@
 """The HumanML3D data module (the twin of ``HumanML3DDataModule``,
 ``mld_tpu/data/datamodule.py:22-75``): the corpus on disk, its Mean / Std,
-the word vectorizer, the collator and the per-split loaders.
+the word vectorizer, the collator and the per-split loaders, and the
+evaluator-space statistics and MultiModality sample swap of the evaluation
+protocol.
 
 When ``Mean.npy`` is missing, or the corpus carries a ``.synth_version``
 stamp other than the current one, the synthetic corpus is built in its place
 (64 clips in debug, else 256), as the original does; a real dataset never
-carries the stamp and is never touched. The evaluator-space statistics and
-the native C++ loader are not part of this slice.
+carries the stamp and is never touched. The native C++ loader is not part
+of the port.
+
+One departure: in MultiModality mode the JAX loader forces a batch of one
+text (``mld_tpu/data/datamodule.py:136-137``), whose 30 repeats then make a
+batch; the port's evaluator batches ``eval.batch_size`` texts x 30 repeats a
+call (``eval/pipeline.py``), so its loader keeps the batch size asked for.
 """
 from __future__ import annotations
 
@@ -20,6 +27,25 @@ from .collate import MldCollator
 from .dataset import DataLoader, PrefetchDataLoader, Text2MotionDataset
 from .synthetic import SYNTH_VERSION, build_synthetic_dataset
 from .word_vectorizer import WordVectorizer
+
+
+class MemoWordVectorizer(WordVectorizer):
+    """The word vectorizer with its offline fallback vectors (a fresh seeded
+    RandomState a lookup, ~0.3 ms: 22 tokens an item made the evaluator
+    trainer's loader 0.4 s a batch of 64 on the host) computed once a word.
+    A word's vector is a function of the word, so the values are the
+    carried vectorizer's; the cached arrays are read-only."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._memo = {}
+
+    def _fallback_vec(self, word: str) -> np.ndarray:
+        vec = self._memo.get(word)
+        if vec is None:
+            vec = self._memo[word] = super()._fallback_vec(word)
+            vec.setflags(write=False)
+        return vec
 
 
 def needs_synthesis(root: str) -> bool:
@@ -46,22 +72,46 @@ class HumanML3DDataModule:
                                     dataset=self.name)
         self.mean = np.load(pjoin(self.root, "Mean.npy"))
         self.std = np.load(pjoin(self.root, "Std.npy"))
-        self.w_vectorizer = WordVectorizer(ds.word_vectorizer_path, "our_vab")
+        # evaluator-space stats (t2m meta); fall back to model stats
+        t2m_meta = pjoin(cfg.model.t2m_path, "t2m", "Comp_v6_KLD01", "meta")
+        if os.path.exists(pjoin(t2m_meta, "mean.npy")):
+            self.mean_eval = np.load(pjoin(t2m_meta, "mean.npy"))
+            self.std_eval = np.load(pjoin(t2m_meta, "std.npy"))
+        else:
+            self.mean_eval, self.std_eval = self.mean, self.std
+        self.w_vectorizer = MemoWordVectorizer(ds.word_vectorizer_path,
+                                               "our_vab")
         self.collate = MldCollator(ds.max_motion_len, tokenizer)
         self._datasets = {}
+        self.is_mm = False
+        self._mm_backup = None
         self.nfeats = ds.nfeats
 
-    def _make(self, split: str):
+    def _make(self, split: str, eval_embeddings: Optional[bool] = None):
         ds = self.cfg.dataset
-        # GloVe/POS features feed the t2m evaluators only; the train split
-        # skips them
+        if eval_embeddings is None:
+            # GloVe/POS features feed the t2m evaluators only; the train
+            # split skips them
+            eval_embeddings = split != "train"
         return Text2MotionDataset(
             self.root, split, self.mean, self.std, self.w_vectorizer,
             max_motion_length=ds.max_motion_len,
             min_motion_length=ds.min_motion_len,
             max_text_len=ds.max_text_len, unit_length=ds.unit_len,
             fps=ds.frame_rate, debug=self.cfg.debug,
-            with_eval_embeddings=split != "train")
+            with_eval_embeddings=eval_embeddings)
+
+    def eval_embedding_loader(self, split: str = "train",
+                              batch_size: Optional[int] = None,
+                              seed: int = 0, shuffle: bool = True,
+                              drop_last: bool = True) -> DataLoader:
+        """Loader whose items carry GloVe/POS eval embeddings whatever the
+        split: the evaluator trainer's (eval/t2m_train.py)."""
+        if batch_size is None:
+            batch_size = self.cfg.train.batch_size
+        return DataLoader(self._make(split, eval_embeddings=True),
+                          batch_size, self.collate, shuffle=shuffle,
+                          seed=seed, drop_last=drop_last)
 
     def dataset(self, split: str) -> Text2MotionDataset:
         if split not in self._datasets:
@@ -86,6 +136,30 @@ class HumanML3DDataModule:
                 prefetch=prefetch)
         return DataLoader(self.dataset(split), batch_size, self.collate,
                           shuffle=shuffle, seed=seed, drop_last=drop_last)
+
+
+    def renorm4t2m_np(self, feats: np.ndarray) -> np.ndarray:
+        """model-space features -> the evaluators' normalisation."""
+        feats = feats * self.std + self.mean
+        return (feats - self.mean_eval) / self.std_eval
+
+    def mm_mode(self, on: bool = True, mm_num_samples: int = 100,
+                rng: Optional[np.random.RandomState] = None):
+        """Restrict the test set to a random sample subset for MultiModality
+        (HumanML3D.py:64-75), drawn from `rng` as the JAX package draws
+        it."""
+        test = self.dataset("test")
+        if on:
+            rng = rng or np.random.RandomState(0)
+            self._mm_backup = list(test.name_list)
+            n = min(mm_num_samples, len(test.name_list))
+            chosen = rng.choice(len(test.name_list), n, replace=False)
+            test.name_list = [self._mm_backup[i] for i in chosen]
+            self.is_mm = True
+        else:
+            if self._mm_backup is not None:
+                test.name_list = self._mm_backup
+            self.is_mm = False
 
 
 class KitDataModule(HumanML3DDataModule):

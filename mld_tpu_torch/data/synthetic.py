@@ -81,6 +81,24 @@ def _style_from_caption(verb: str, direction: str, adv: str) -> dict:
     return s
 
 
+def style_vector_from_caption(caption: str) -> np.ndarray:
+    """Parse a synthetic caption back to its 11-dim style vector (roughly
+    unit-scaled): the supervised anchor of the evaluator trainer
+    (eval/t2m_train.py), as ``mld_tpu/data/synthetic.py:83`` has it."""
+    words = caption.strip().rstrip(".").split()
+    verb = next(w for w in words if w in _VERB_STYLE)
+    adv = next(w for w in words if w in _ADV_TEMPO)
+    direction = next(d for d in _DIR_STYLE
+                     if f" {d} " in f" {' '.join(words)} ")
+    s = _style_from_caption(verb, direction, adv)
+    return np.array([
+        s["leg_amp"], s["leg_freq"] / 2.0, s["speed"] / 2.0,
+        s["yaw_rate"] / 3.0, s["bounce"] * 2.0, s["crouch"] * 2.0,
+        s["arm_amp"], s["arm_freq"] / 2.0, s["dir"][0], s["dir"][1],
+        s["tempo"],
+    ], np.float32)
+
+
 def synth_joints(T: int, J: int = 22, seed: int = 0,
                  raw_offsets=None, chains=None,
                  style: dict | None = None) -> np.ndarray:

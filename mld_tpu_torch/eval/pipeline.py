@@ -1,0 +1,384 @@
+"""The text-to-motion evaluation protocol (the counterpart of
+``mld_tpu/eval/pipeline.py`` for the text condition):
+
+  per batch         generate (or VAE-reconstruct) -> joints -> renorm4t2m ->
+                    length-descending sort -> the evaluators' embeddings
+                    (reference mld.py:618-708, t2m_eval)
+  replications      test.py:116-139: N passes, mean +- 1.96 std / sqrt(N)
+  ground truth      mld.py:771-809 (eval_gt)
+
+Metric accumulation and FID stay on the host in float64 (``metrics/``), as
+in the reference. The evaluator networks run in f32 without TF32, in cuBLAS
+and in cuDNN (the convolutions and the GRUs), for their own calls only
+(``strict_f32``): the JAX package pins its measuring stick to "highest"
+matmul precision so that serving-precision knobs never touch it.
+
+Randomness: each batch's initial latents (``init_latents``, or ``eps`` of
+the VAE stage) are drawn from one ``torch.Generator`` or given per batch by
+the caller (``draws=``, as ``train/steps.py`` takes them), so a test can
+replay the JAX package's draws. The host's metric RNG is
+``np.random.RandomState(rep)`` a replication, as in the JAX package.
+
+Where the port departs from the JAX package: it does not pad ragged batches
+to a fixed size (a compile workaround there), so it has no length-0 rows;
+and its MultiModality pass runs ``eval.batch_size`` texts x
+``mm_num_repeats`` a batch, where the JAX package runs one text's repeats a
+batch (the metric groups the repeats of each text either way).
+Action-to-motion evaluation and the multi-device ``mesh`` wait with those
+parts of the port (ROADMAP.md queue 1, items 5 and 6).
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from collections import defaultdict
+from typing import Dict, Iterable, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from mld_tpu_torch.metrics import (ComputeMetrics, MMMetrics, MRMetrics,
+                                   TM2TMetrics, UncondMetrics)
+from mld_tpu_torch.models.mld import crop_to_bucket, resolve_device
+from mld_tpu_torch.models.t2m_eval import (MotionEncoderBiGRUCo,
+                                           MovementConvEncoder,
+                                           TextEncoderBiGRUCo, init_evaluator)
+from mld_tpu_torch.utils.checkpoint import load_params_npz
+from mld_tpu_torch.utils.convert import (flax_t2m_to_state_dict,
+                                         state_dict_to_flax_t2m)
+
+# the JAX bundle's tree keys, the finest.tar keys, the bundle's attributes
+NETS = (("text", "text_encoder", "textencoder"),
+        ("move", "movement_encoder", "moveencoder"),
+        ("motion", "motion_encoder", "motionencoder"))
+
+
+@contextlib.contextmanager
+def strict_f32():
+    """f32 matmuls, convolutions and RNNs without TF32 inside; the caller's
+    settings are restored on the way out."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+
+
+class T2MEvaluatorBundle(nn.Module):
+    """The three evaluator networks, frozen, on the card unless `device`
+    names another.
+
+    Weights, in order: `params` (the JAX bundle's {"text", "move",
+    "motion"} tree of arrays); else the npz at ``cfg.eval.t2m_params_path``
+    (``save_params_npz`` of such a tree, as ``eval/t2m_train.py`` writes
+    it); else the reference's ``finest.tar`` under ``cfg.model.t2m_path``;
+    else random weights from `seed` (synthetic pipelines and smoke runs:
+    R-precision then sits at chance)."""
+
+    def __init__(self, cfg, params: Optional[Mapping] = None, *,
+                 device="cuda", seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        nfeats = cfg.dataset.nfeats
+        self.textencoder = TextEncoderBiGRUCo(300, 15, 512, 512)
+        self.moveencoder = MovementConvEncoder(nfeats - 4, 512, 512)
+        self.motionencoder = MotionEncoderBiGRUCo(512, 1024, 512)
+        npz = cfg.eval.t2m_params_path
+        tar = os.path.join(cfg.model.t2m_path, "t2m", "text_mot_match",
+                           "model", "finest.tar")
+        if params is None and npz and os.path.exists(npz):
+            params = load_params_npz(npz)
+        if params is not None:
+            for key, _, attr in NETS:
+                getattr(self, attr).load_state_dict(
+                    flax_t2m_to_state_dict(params[key]), strict=True)
+        elif os.path.exists(tar):
+            ckpt = torch.load(tar, map_location="cpu", weights_only=False)
+            for _, tar_key, attr in NETS:
+                getattr(self, attr).load_state_dict(ckpt[tar_key],
+                                                    strict=True)
+        else:
+            init_evaluator(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+        self.device = device
+        self.eval()
+        self.requires_grad_(False)
+
+    def params_tree(self) -> Dict:
+        """The weights as the JAX bundle's tree of numpy arrays."""
+        return {key: state_dict_to_flax_t2m(getattr(self, attr).state_dict())
+                for key, _, attr in NETS}
+
+    def motion_embedding(self, feats: torch.Tensor, m_lens) -> torch.Tensor:
+        """evaluator-normalised features [B, T, nfeats], lengths in units
+        [B] -> [B, 512]."""
+        with torch.no_grad(), strict_f32():
+            return self.motionencoder(self.moveencoder(feats[..., :-4]),
+                                      m_lens)
+
+    def text_embedding(self, word_embs, pos_ohot, text_lens) -> torch.Tensor:
+        """[B, S, 300], [B, S, 15], [B] -> [B, 512]."""
+        with torch.no_grad(), strict_f32():
+            return self.textencoder(word_embs, pos_ohot, text_lens)
+
+
+class Evaluator:
+    """The protocol over a data module's test (or val) split for one MLD
+    model, on the model's device. ``times`` holds the wall seconds of each
+    batch by pass ("main", "mm", "gt") and the host's metric seconds a
+    split ("metrics")."""
+
+    def __init__(self, cfg, mld, datamodule,
+                 t2m_params: Optional[Mapping] = None):
+        if cfg.model.condition == "action":
+            raise NotImplementedError(
+                "action-to-motion evaluation waits with action-to-motion "
+                "(ROADMAP.md queue 1, item 5)")
+        self.cfg = cfg
+        self.mld = mld
+        self.dm = datamodule
+        self.device = mld.device
+        self.bundle = T2MEvaluatorBundle(cfg, t2m_params, device=self.device)
+        self.unit_len = cfg.dataset.unit_len
+        self.times = defaultdict(list)
+
+    def run_split_a2m(self, *args, **kwargs):
+        raise NotImplementedError(
+            "action-to-motion evaluation (HumanAct12 / UESTC classifiers) "
+            "waits with action-to-motion (ROADMAP.md queue 1, item 5)")
+
+    # ---------------------------------------------------------- one batch
+    def draw(self, n_rows: int, n_frames: int, stage: str,
+             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """A batch's draws: the initial latents of sampling (scaled by
+        init_noise_sigma) or the VAE's eps."""
+        mld = self.mld
+        dev = generator.device
+        if stage == "vae":
+            shape = (n_rows, mld.latent_size, mld.latent_dim)
+            return {"eps": torch.randn(shape, generator=generator,
+                                       device=dev)}
+        shape = ((n_rows, n_frames, mld.nfeats) if mld.raw_motion
+                 else (n_rows, mld.latent_size, mld.latent_dim))
+        return {"init_latents": torch.randn(shape, generator=generator,
+                                            device=dev)
+                * mld.scheduler.init_noise_sigma}
+
+    @torch.no_grad()
+    def eval_batch(self, batch: Mapping, stage: str, draws: Mapping,
+                   mm: bool = False) -> Dict[str, np.ndarray]:
+        """One collated batch -> the evaluator embeddings sorted by length,
+        descending ("lat_t", "lat_m", "lat_rm", and "align", the order), and
+        the joints in batch order ("joints_rst", "joints_ref"). With `mm`
+        only "lat_rm" and "align", from "text_ids" (or, in the vae stage,
+        "motion"), "mask" and "length". Returned on the host."""
+        mld, dev = self.mld, self.device
+        mask = torch.as_tensor(batch["mask"], device=dev)
+        # a MultiModality batch of generations needs no reference motion
+        motion = (torch.as_tensor(batch["motion"], device=dev)
+                  if stage == "vae" or not mm else None)
+        if stage == "diffusion":
+            ids = crop_to_bucket(torch.as_tensor(batch["text_ids"],
+                                                 dtype=torch.long))
+            feats_rst = mld.generate_feats(ids.to(dev), mask,
+                                           init_latents=draws["init_latents"])
+        else:  # vae reconstruction (stage-1 eval)
+            feats_rst = mld.reconstruct(motion, mask, eps=draws["eps"])
+
+        lengths = torch.as_tensor(batch["length"]).long()
+        # stable: synthetic lengths tie often, and an unstable order would
+        # pair texts with other motions in R-precision
+        align = torch.argsort(-lengths, stable=True)
+        m_lens = lengths[align] // self.unit_len
+        out = {"align": align.numpy()}
+        align_d = align.to(dev)
+        out["lat_rm"] = self.bundle.motion_embedding(
+            mld.renorm4t2m(feats_rst)[align_d], m_lens)
+        if not mm:
+            out["lat_m"] = self.bundle.motion_embedding(
+                mld.renorm4t2m(motion)[align_d], m_lens)
+            out["lat_t"] = self.bundle.text_embedding(
+                torch.as_tensor(batch["word_embs"], device=dev),
+                torch.as_tensor(batch["pos_ohot"], device=dev),
+                torch.as_tensor(batch["text_len"]))[align_d]
+            keep = mask[..., None, None]
+            out["joints_rst"] = mld.feats2joints(feats_rst) * keep
+            out["joints_ref"] = mld.feats2joints(motion) * keep
+        return {k: v.cpu().numpy() if torch.is_tensor(v) else v
+                for k, v in out.items()}
+
+    # ------------------------------------------------------------ passes
+    def _accumulators(self, metrics, mm, diversity_times):
+        cfg = self.cfg
+        if mm:
+            return {"MMMetrics": MMMetrics(mm_num_times=cfg.eval.mm_num_times)}
+        accs = {}
+        if "TM2TMetrics" in metrics:
+            accs["TM2TMetrics"] = TM2TMetrics(R_size=cfg.eval.r_size,
+                                              diversity_times=diversity_times)
+        if "TemosMetric" in metrics:
+            ds = cfg.dataset.name.lower()
+            if ds not in ("humanml3d", "kit"):
+                raise TypeError(
+                    "APE/AVE metrics only support humanml3d and kit")
+            accs["TemosMetric"] = ComputeMetrics(
+                njoints=cfg.dataset.njoints,
+                jointstype="humanml3d" if ds == "humanml3d" else "mmm")
+        if "MRMetrics" in metrics:
+            accs["MRMetrics"] = MRMetrics(njoints=cfg.dataset.njoints)
+        if "UncondMetrics" in metrics:
+            accs["UncondMetrics"] = UncondMetrics(
+                diversity_times=diversity_times)
+        return accs
+
+    def run_split(self, loader: Iterable, *, stage: str = "diffusion",
+                  metrics=("TM2TMetrics", "TemosMetric"), mm: bool = False,
+                  generator: Optional[torch.Generator] = None,
+                  draws: Optional[Iterable[Mapping]] = None,
+                  compute_rng: Optional[np.random.RandomState] = None,
+                  diversity_times: Optional[int] = None,
+                  prediction_sink=None) -> Dict[str, float]:
+        """One metric pass over `loader`'s batches. With `mm` each text is
+        repeated ``eval.mm_num_repeats`` times and only MultiModality is
+        computed. `draws` gives each batch's draws (of its rows after the
+        repeat); without it they come from `generator` (default: seeded
+        with cfg.seed on the model's device). `prediction_sink(joints,
+        lengths)` receives each batch's generated joints."""
+        cfg = self.cfg
+        div_times = diversity_times or cfg.eval.diversity_times
+        accs = self._accumulators(metrics, mm, div_times)
+        if draws is None and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                cfg.seed)
+        draws = iter(draws) if draws is not None else None
+        reps = cfg.eval.mm_num_repeats if mm else 1
+        # what a MultiModality batch reads, repeated
+        mm_keys = ("text_ids", "mask", "length") + (
+            ("motion",) if stage == "vae" else ())
+        metric_s = 0.0
+        for batch in loader:
+            if mm:
+                batch = {k: np.repeat(np.asarray(batch[k]), reps, axis=0)
+                         for k in mm_keys}
+            n, n_frames = np.asarray(batch["mask"]).shape
+            d = (next(draws) if draws is not None
+                 else self.draw(n, n_frames, stage, generator))
+            t0 = time.perf_counter()
+            out = self.eval_batch(batch, stage, d, mm=mm)
+            self.times["mm" if mm else "main"].append(
+                time.perf_counter() - t0)
+            lengths = np.asarray(batch["length"])
+            sorted_lengths = lengths[out["align"]]
+            if prediction_sink is not None and not mm:
+                prediction_sink(out["joints_rst"], lengths)
+            t0 = time.perf_counter()
+            if mm:
+                # back to batch order: each text's repeats are consecutive
+                lat = np.empty_like(out["lat_rm"])
+                lat[out["align"]] = out["lat_rm"]
+                lat = lat.reshape(n // reps, reps, -1)
+                for i in range(n // reps):
+                    accs["MMMetrics"].update(lat[i:i + 1],
+                                             lengths[i * reps:i * reps + 1])
+            if "TM2TMetrics" in accs:
+                accs["TM2TMetrics"].update(out["lat_t"], out["lat_rm"],
+                                           out["lat_m"], sorted_lengths)
+            if "TemosMetric" in accs:
+                accs["TemosMetric"].update(out["joints_rst"],
+                                           out["joints_ref"], lengths)
+            if "MRMetrics" in accs:
+                accs["MRMetrics"].update(out["joints_rst"],
+                                         out["joints_ref"], lengths)
+            if "UncondMetrics" in accs:
+                accs["UncondMetrics"].update(out["lat_m"], sorted_lengths,
+                                             out["lat_rm"])
+            metric_s += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        results = {}
+        for acc in accs.values():
+            try:
+                results.update(acc.compute(rng=compute_rng))
+            except TypeError:  # metric without an rng-aware compute
+                results.update(acc.compute())
+        self.times["metrics"].append(metric_s + time.perf_counter() - t0)
+        return {k: float(v) for k, v in results.items()}
+
+    @torch.no_grad()
+    def run_gt(self, loader: Iterable) -> Dict[str, float]:
+        """Ground truth against ground truth (mld.py:771-809 eval_gt): the
+        dataset's own statistics, no generation."""
+        mld, dev = self.mld, self.device
+        acc = TM2TMetrics(R_size=self.cfg.eval.r_size,
+                          diversity_times=self.cfg.eval.diversity_times)
+        for batch in loader:
+            t0 = time.perf_counter()
+            lengths = torch.as_tensor(batch["length"]).long()
+            align = torch.argsort(-lengths, stable=True)
+            align_d = align.to(dev)
+            motion = torch.as_tensor(batch["motion"], device=dev)
+            lat_m = self.bundle.motion_embedding(
+                mld.renorm4t2m(motion)[align_d],
+                lengths[align] // self.unit_len).cpu().numpy()
+            lat_t = self.bundle.text_embedding(
+                torch.as_tensor(batch["word_embs"], device=dev),
+                torch.as_tensor(batch["pos_ohot"], device=dev),
+                torch.as_tensor(batch["text_len"]))[align_d].cpu().numpy()
+            self.times["gt"].append(time.perf_counter() - t0)
+            acc.update(lat_t, lat_m, lat_m, lengths[align].numpy())
+        t0 = time.perf_counter()
+        res = acc.compute()
+        self.times["metrics"].append(time.perf_counter() - t0)
+        return {k: float(v) for k, v in res.items()}
+
+    def run(self, generator: Optional[torch.Generator] = None,
+            replication_times: Optional[int] = None,
+            stage: str = "diffusion", with_mm: bool = True,
+            prediction_sink=None) -> Dict[str, float]:
+        """The test protocol: `replication_times` passes over the test split
+        (default ``cfg.test.replication_times``), each with its
+        MultiModality pass, reported as mean and "<metric>/conf95" (1.96
+        std / sqrt(N)). `prediction_sink` sees the first replication's main
+        pass."""
+        cfg = self.cfg
+        replication_times = replication_times or cfg.test.replication_times
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                cfg.seed)
+        all_metrics: Dict[str, list] = {}
+        for rep in range(replication_times):
+            # a fresh host rng a replication: a new mm subset and metric
+            # shuffle each time (test.py:116-131)
+            rep_rng = np.random.RandomState(rep)
+            loader = self.dm.loader("test", shuffle=False,
+                                    batch_size=cfg.eval.batch_size)
+            res = self.run_split(loader, stage=stage,
+                                 metrics=tuple(cfg.eval.metrics),
+                                 generator=generator, compute_rng=rep_rng,
+                                 prediction_sink=(prediction_sink
+                                                  if rep == 0 else None))
+            if with_mm and "TM2TMetrics" in cfg.eval.metrics:
+                self.dm.mm_mode(True, cfg.eval.mm_num_samples, rng=rep_rng)
+                try:
+                    mm_loader = self.dm.loader(
+                        "test", shuffle=False, batch_size=cfg.eval.batch_size)
+                    res.update(self.run_split(mm_loader, stage=stage, mm=True,
+                                              generator=generator,
+                                              compute_rng=rep_rng))
+                finally:
+                    self.dm.mm_mode(False)
+            for k, v in res.items():
+                all_metrics.setdefault(k, []).append(float(v))
+
+        out = {}
+        for k, vals in all_metrics.items():
+            arr = np.asarray(vals)
+            out[k] = float(arr.mean())
+            out[f"{k}/conf95"] = float(1.96 * arr.std() / np.sqrt(len(arr)))
+        return out

@@ -22,7 +22,10 @@ device.
 The training pieces (``noise_scheduler``, ``encode_motion``, ``denoise``
 with ``training=``, ``decode_latent`` with ``training=``) are differentiable
 and never take K1 or K5, as in the JAX package (``mld.py:284-319``,
-``372-396``); the steps that use them are ``train/steps.py``. Conventions:
+``372-396``); the steps that use them are ``train/steps.py``. The evaluation
+protocol (``eval/pipeline.py``) reads ``renorm4t2m`` (the evaluators'
+normalisation, ``mean_eval`` / ``std_eval``), ``generate_feats`` and, for the
+VAE stage, ``reconstruct``. Conventions:
 batch-first; latents [B, latent_size, latent_dim] or [B, T, nfeats]; masks
 [B, T] bool, True = valid.
 """
@@ -91,6 +94,20 @@ def resolve_device(device) -> torch.device:
                            "device is visible; pass device=\"cpu\" to run on "
                            "the CPU")
     return device
+
+
+def crop_to_bucket(token_ids: torch.Tensor) -> torch.Tensor:
+    """Full-context ids [B, 77] (the collator's) cropped to the smallest
+    MLD_TPU_TEXT_BUCKETS bucket that holds every row's EOT, the rule of
+    ``ClipTokenizer(buckets=)``: exact under causal attention and EOT
+    pooling."""
+    buckets = _text_buckets()
+    if not buckets:
+        return token_ids
+    # EOS is the largest vocab id and pad == EOS: argmax finds the EOT
+    eot_max = int(token_ids.argmax(dim=-1).max())
+    n = next((b for b in sorted(buckets) if b > eot_max), token_ids.shape[1])
+    return token_ids[:, :n]
 
 
 def lengths_to_mask(lengths, max_len: int, device=None) -> torch.Tensor:
@@ -195,7 +212,9 @@ class MLD(nn.Module):
     None) and no latent denoiser, so neither switch applies to it."""
 
     def __init__(self, cfg: Config, mean: Optional[np.ndarray] = None,
-                 std: Optional[np.ndarray] = None, *, device="cuda",
+                 std: Optional[np.ndarray] = None,
+                 mean_eval: Optional[np.ndarray] = None,
+                 std_eval: Optional[np.ndarray] = None, *, device="cuda",
                  weight_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
                  fused_decode: Optional[bool] = None,
@@ -251,7 +270,10 @@ class MLD(nn.Module):
         init_params(self, generator if generator is not None
                     else torch.Generator().manual_seed(cfg.seed))
         # normalisation stats: constants of the run, not checkpoint params
-        for name, val, default in (("mean", mean, 0.0), ("std", std, 1.0)):
+        # (and the t2m evaluators' twin, mld.py:66-75)
+        for name, val, default in (("mean", mean, 0.0), ("std", std, 1.0),
+                                   ("mean_eval", mean_eval, 0.0),
+                                   ("std_eval", std_eval, 1.0)):
             arr = np.full(self.nfeats, default) if val is None else val
             self.register_buffer(name, torch.as_tensor(arr, dtype=torch.float32),
                                  persistent=False)
@@ -449,6 +471,46 @@ class MLD(nn.Module):
     def feats2joints(self, feats: torch.Tensor) -> torch.Tensor:
         """de-normalise + RIC decode (HumanML3D.py:41-45)."""
         return recover_from_ric(feats * self.std + self.mean, self.njoints)
+
+    def renorm4t2m(self, feats: torch.Tensor) -> torch.Tensor:
+        """model-normalised features -> the t2m evaluators' normalisation
+        (HumanML3D.py:54-62)."""
+        return (feats * self.std + self.mean - self.mean_eval) / self.std_eval
+
+    @torch.no_grad()
+    def gen_from_latent(self, z: torch.Tensor, mask: torch.Tensor
+                        ) -> torch.Tensor:
+        """latent [B, latent_size, latent_dim] -> joints, zero outside the
+        mask (``mld.py:571-575``)."""
+        mask = mask.to(self.device)
+        return (self.feats2joints(self.decode_latent(z, mask))
+                * mask[..., None, None])
+
+    @torch.no_grad()
+    def reconstruct(self, feats_ref: torch.Tensor, mask: torch.Tensor, *,
+                    eps: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """motion features -> VAE encode (z = mu + eps * std, eps given or
+        drawn from `generator`; mu without either) -> serving decode."""
+        mask = mask.to(self.device)
+        z, _ = self.vae.encode(feats_ref.to(self.device), mask, generator,
+                               eps=eps)
+        return self.decode_latent(z, mask)
+
+    @torch.no_grad()
+    def recon_from_motion(self, feats_ref: torch.Tensor, mask: torch.Tensor,
+                          *, eps: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None):
+        """motion -> encode -> decode -> (joints, joints of the input), each
+        zero outside the mask (``mld.py:577-585``)."""
+        mask = mask.to(self.device)
+        feats_ref = feats_ref.to(self.device)
+        feats = self.reconstruct(feats_ref, mask, eps=eps,
+                                 generator=generator)
+        keep = mask[..., None, None]
+        return (self.feats2joints(feats) * keep,
+                self.feats2joints(feats_ref) * keep)
 
     def encode_uncond(self) -> torch.Tensor:
         """The empty prompt's embedding, one row [1, 1, text_dim]."""

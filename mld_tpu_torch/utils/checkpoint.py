@@ -13,7 +13,8 @@ Every checkpoint is kept, as the reference keeps every one
 (``save_top_k=-1``); resume takes the latest step.
 
 ``load_params_npz`` reads a ``save_params_npz`` file of the JAX package
-(``mld_tpu/utils/checkpoint.py:60-86``) with numpy alone, into the flax tree
+(``mld_tpu/utils/checkpoint.py:60-86``, which ``save_params_npz`` writes
+here too) with numpy alone, into the flax tree
 that ``utils/convert.py`` bridges to torch names; ``load_pretrained`` loads
 the vae and / or denoiser of either package's checkpoint into a model, so a
 VAE trained by either package hands off to the other's diffusion stage.
@@ -68,6 +69,23 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         return torch.load(self.path(step), map_location=map_location,
                           weights_only=True)
+
+
+def save_params_npz(path: str, tree: Mapping):
+    """A nested dict of arrays -> a JAX package ``save_params_npz`` file
+    (keys joined by "/")."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, Mapping):
+                walk(v, key)
+            else:
+                flat[key] = np.asarray(v)
+
+    walk(tree, "")
+    np.savez(path, **flat)
 
 
 def load_params_npz(path: str) -> Dict:

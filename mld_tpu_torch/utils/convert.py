@@ -13,6 +13,13 @@ Rules for the denoiser and VAE subtrees:
                                   linear_blocks, layers)
   ``emb_proj``                 -> ``emb_proj.1`` (Sequential(ReLU, Linear))
   ``pe``, ``global_motion_token`` and every other leaf pass unchanged.
+
+The t2m evaluator networks' trees (``flax_t2m_to_state_dict`` and its
+inverse ``state_dict_to_flax_t2m``): ``kernel`` -> ``weight`` with its axes
+reversed (Dense [in, out] -> [out, in]; Conv [k, in, out] -> Conv1d's
+[out, in, k]), ``out/output_net_N`` -> ``output_net.N``, ``main_N`` ->
+``main.N``, LayerNorm ``scale`` -> ``weight``; the GRU's torch-named leaves
+and ``hidden`` [2, 1, H] pass unchanged.
 """
 from __future__ import annotations
 
@@ -92,3 +99,55 @@ def flax_clip_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
                 out[f"{pre}.mlp.{sub}.weight"] = _tensor(np.asarray(p["kernel"]).T)
                 out[f"{pre}.mlp.{sub}.bias"] = _tensor(p["bias"])
     return out
+
+
+_T2M_SEQ = re.compile(r"^(main|output_net)_(\d+)$")
+
+
+def flax_t2m_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """One t2m evaluator net's flax tree (the JAX bundle's "text", "move" or
+    "motion") -> the torch module's state_dict (models/t2m_eval.py)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                m = _T2M_SEQ.match(key)
+                # "out" is the OutputNet's own scope; torch has none
+                walk(val, path if key == "out" else
+                     path + [f"{m.group(1)}.{m.group(2)}" if m else key])
+                continue
+            arr = np.asarray(val)
+            if key == "kernel":
+                key, arr = "weight", arr.T
+            elif key == "scale":
+                key = "weight"
+            out[".".join(path + [key])] = _tensor(arr)
+
+    walk(tree, [])
+    return out
+
+
+def state_dict_to_flax_t2m(state: Mapping) -> Dict:
+    """The inverse of flax_t2m_to_state_dict: a t2m evaluator module's
+    state_dict -> the JAX package's tree of numpy arrays."""
+    tree: Dict = {}
+    for name, val in state.items():
+        arr = val.detach().cpu().numpy() if torch.is_tensor(val) else val
+        *mods, leaf = name.split(".")
+        path, i = [], 0
+        while i < len(mods):
+            if mods[i] in ("main", "output_net"):
+                path += (["out"] if mods[i] == "output_net" else []) + [
+                    f"{mods[i]}_{mods[i + 1]}"]
+                i += 2
+            else:
+                path.append(mods[i])
+                i += 1
+        if leaf == "weight":
+            leaf, arr = ("kernel", arr.T) if arr.ndim >= 2 else ("scale", arr)
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.array(arr, order="C")
+    return tree

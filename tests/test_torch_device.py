@@ -59,3 +59,33 @@ def test_lengths_to_mask_device(no_cuda):
     # a tensor of lengths keeps its own device
     assert lengths_to_mask(torch.tensor([2]), 3).tolist() == [
         [True, True, False]]
+
+
+def test_evaluation_defaults_to_the_card():
+    from mld_tpu_torch.eval import __main__ as eval_cli
+    from mld_tpu_torch.eval.pipeline import T2MEvaluatorBundle
+    from mld_tpu_torch.eval.t2m_train import train_t2m_evaluator
+    assert (inspect.signature(T2MEvaluatorBundle).parameters["device"].default
+            == "cuda")
+    assert (inspect.signature(train_t2m_evaluator).parameters["device"]
+            .default == "cuda")
+    assert eval_cli.parse_args([]).device == "cuda"
+
+
+def test_evaluation_raises_without_cuda(no_cuda):
+    from mld_tpu_torch.eval import __main__ as eval_cli
+    from mld_tpu_torch.eval.pipeline import T2MEvaluatorBundle
+    cfg = load_config(preset="mld_humanml3d", overrides=SMALL)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        T2MEvaluatorBundle(cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        eval_cli.main([])
+
+
+def test_evaluator_builds_on_the_model_device(no_cuda):
+    from mld_tpu_torch.eval.pipeline import Evaluator
+    cfg = load_config(preset="mld_humanml3d", overrides=SMALL)
+    mld = MLD(cfg, device="cpu")
+    ev = Evaluator(cfg, mld, datamodule=None)
+    assert {p.device.type for p in ev.bundle.parameters()} == {"cpu"}
+    assert not any(p.requires_grad for p in ev.bundle.parameters())
