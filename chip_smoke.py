@@ -23,7 +23,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      entry's count of kernels too):
        K1 skip_encoder  the denoiser stack (S=3, D=256, H=4, F=1024, L=9),
                         f32 and bf16 weights, up to the evaluation's 64 and
-                        1,920 sequences;
+                        1,920 sequences; and mld_humanact12's L=15 stack at
+                        64 and 256 sequences;
        K2 encoder_layer one fused layer (S=3, the same widths), 2 and 256
                         sequences, f32 and bf16 weights;
        K5 skip_decoder  the VAE decoder stack (T=196, D=256, H=4, F=1024,
@@ -41,7 +42,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                         for T = 512, 196; cross-attention to 2 keys) and of
                         the plain VAE decode ([128, 4, 196, 64] and the
                         evaluation's [960, 4, 196, 64] under the frame mask;
-                        1 key), on views into packed projections
+                        1 key) and of the ACTOR VAE ([128, 4, 60, 64] under
+                        a ragged frame mask, to 1 key, and the encoder's
+                        [128, 4, 62, 64]), on views into packed projections
                         as the model hands them over, plus ragged cases
                         with a fully masked example (Sq and Sk off every
                         tile, Dh = 4 and 68), f32 and bf16;
@@ -97,7 +100,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      projection to HumanML3D's test split, the trained bundle's GT R@1
      above a random bundle's, and one main-pass batch's three embeddings
      on the card against the CPU;
-  8. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+  8. action-to-motion (mld_humanact12: denoiser 15x256, mld_uestc: 9x256,
+     each over [z; t; action], ACTOR VAE 9x256, 60 frames, from seeded
+     random weights): writes the synthetic archives into build/, each
+     preset in a root of its own (12 x 256 and 40 x 80 clips: test splits
+     of 308 and 320, above diversity_times = 300; only the archives and
+     replication_times, 20 -> 1, are cut), trains the HumanAct12 GRU
+     classifier on the card for 300 steps (ms a step, batch top-1, its GT
+     accuracy above a random classifier's), runs generate_action at B = 6
+     and 128 (launches of every call: K1 50, K3 18, K4 0, K5 0; median of 3
+     warm calls, the device busy share of a traced call), Evaluator.run one
+     replication per preset at the protocol's constants (launches of every
+     batch; the vae stage once for HumanAct12: K3 27, K1 0; ms a batch,
+     host metric seconds, finite metrics), and the joints of 8 actions on
+     the card against the CPU;
+  9. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
@@ -129,6 +146,16 @@ EVAL_B, EVAL_MM_ROWS = 32, 32 * 30
 # evaluation's batches under CFG
 KERNEL_SEQS = (2, 2 * B_LARGE, 201, 1001, 2 * EVAL_B, 2 * EVAL_MM_ROWS)
 LAYER_SEQS = (2, 2 * B_LARGE)
+# action-to-motion (phase 8): mld_humanact12's denoiser stack is 15 layers
+# (n_block = 7) over [z; t; action]; its sequences: the a2m evaluation's
+# batch of 32 and B = 128 under CFG
+A2M_LAYERS = 15
+A2M_N_BLOCK = (A2M_LAYERS - 1) // 2
+A2M_KERNEL_SEQS = (2 * EVAL_B, 2 * B_LARGE)
+# the a2m clip length (dataset.num_frames) and the ragged lengths of the
+# ACTOR attention checks (cycled over the batch)
+A2M_FRAMES = 60
+A2M_LENGTHS = (60, 52, 41, 33, 24, 17)
 # VAE decode: 196 frames; B=6 leaves a ragged last 64-row GEMM tile and every
 # B a ragged last 64-query attention tile
 T_FRAMES = 196
@@ -201,6 +228,16 @@ FLASH_CASES += (
 # the plain VAE decode of the evaluation's MultiModality batch
 FLASH_CASES += (
     ("eval decode self", EVAL_MM_ROWS, 4, T_FRAMES, T_FRAMES, 64, "demo"),
+)
+# the ACTOR VAE (phase 8) at B = 128: the decoder's self-attention over 60
+# frames under a ragged frame mask and its cross-attention to the latent,
+# and the encoder's self-attention over [mu; logvar; 60 frames] (the two
+# tokens always valid)
+FLASH_CASES += (
+    ("actor decode self", B_LARGE, 4, A2M_FRAMES, A2M_FRAMES, 64, "actor"),
+    ("actor decode cross", B_LARGE, 4, A2M_FRAMES, 1, 64, None),
+    ("actor encode self", B_LARGE, 4, A2M_FRAMES + 2, A2M_FRAMES + 2, 64,
+     "actor tokens"),
 )
 # the case whose times the kernels line carries: one self-attention of
 # novae_stress_s512 at the demo batch
@@ -591,6 +628,34 @@ def check_skip_encoder(torch, encoder, g):
     return res
 
 
+def check_skip_encoder_a2m(torch, g):
+    """K1 at mld_humanact12's depth (15 layers, n_block = 7) vs its plain
+    version, on seeded random weights of that stack."""
+    from mld_tpu_torch.models.mld import init_params
+    from mld_tpu_torch.ops import fused_layer
+    from mld_tpu_torch.ops.fused_layer import (skip_encoder_stack,
+                                               skip_encoder_stack_plain,
+                                               stack_skip_encoder)
+    from mld_tpu_torch.ops.transformer import SkipTransformerEncoder
+
+    encoder = SkipTransformerEncoder(D, H, A2M_LAYERS, FF)
+    init_params(encoder, torch.Generator().manual_seed(SEED + 9))
+    encoder.to(DEVICE)
+    res = {}
+    for wname, wdt, atol in WEIGHT_ARMS:
+        st = stack_skip_encoder(encoder, getattr(torch, wdt))
+        for n in A2M_KERNEL_SEQS:
+            x = torch.randn(n, S, D, device=DEVICE, generator=g)
+            res[(wname, n)] = _hold(
+                torch, "skip_encoder",
+                lambda: skip_encoder_stack(x, st, A2M_N_BLOCK, H),
+                lambda: skip_encoder_stack_plain(x, st, A2M_N_BLOCK, H),
+                atol, f"{wname} L={A2M_LAYERS} seqs={n} rows={n * S}",
+                lambda: fused_layer.LAUNCHES,
+                work=_encoder_work(n, A2M_N_BLOCK, st))
+    return res
+
+
 def check_encoder_layer(torch, layer, g):
     """K2 (K1's entry at n_block = 0) vs the plain stack at n_block = 0,
     and the bf16 rounding of that one layer."""
@@ -844,6 +909,11 @@ def check_flash(torch, lengths, g):
         elif mask == "demo":
             valid = lengths_to_mask((lengths * -(-B // len(lengths)))[:B],
                                     Sk, DEVICE)
+        elif mask in ("actor", "actor tokens"):
+            n_tok = Sk - A2M_FRAMES
+            frames = list(A2M_LENGTHS) * -(-B // len(A2M_LENGTHS))
+            valid = lengths_to_mask([n_tok + n for n in frames[:B]], Sk,
+                                    DEVICE)
         for dname, dt, atol in (("f32", torch.float32, ATTN_F32_ATOL),
                                 ("bf16", torch.bfloat16, ATTN_BF16_ATOL)):
             q, k, v = split(raw.to(dt) if torch.is_tensor(raw)
@@ -878,6 +948,7 @@ def phase_kernels(torch, mld, lengths):
     with torch.no_grad():
         return {
             "skip_encoder": check_skip_encoder(torch, mld.denoiser.encoder, g),
+            "skip_encoder_a2m": check_skip_encoder_a2m(torch, g),
             "encoder_layer": check_encoder_layer(
                 torch, mld.denoiser.encoder.middle_block, g),
             "skip_decoder": check_skip_decoder(torch, mld.vae, lengths, g),
@@ -2008,7 +2079,308 @@ def phase_evaluation(torch, smi):
             "profile": prof}
 
 
-def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs):
+# ---------------------------------------------------------- action-to-motion
+A2M_ROOT = os.path.join(REPO, "build", "a2m_smoke")
+# the synthetic archives, clips per class: 12 x 256 = 3,072 HumanAct12 clips
+# (308 in the test split) and 40 x 80 = 3,200 UESTC clips (320), so each
+# test split is above the protocol's diversity_times of 300
+A2M_CLIPS = {"mld_humanact12": 256, "mld_uestc": 80}
+A2M_PRESETS = ("mld_humanact12", "mld_uestc")
+A2M_REPLICATIONS = 1
+# the HumanAct12 classifier's training steps on the card
+A2M_TRAIN_STEPS = 300
+A2M_GEN_BATCHES = (6, B_LARGE)
+A2M_REF_B = 8
+# model and eval overrides of the phase (none: the presets' full width and
+# the protocol's constants); a CPU rehearsal sets small ones
+A2M_MODEL = {}
+A2M_EVAL = {}
+
+
+def _a2m_cfg(preset, **model):
+    from mld_tpu_torch.config import load_config
+
+    # each preset in a root of its own: the UESTC dataset copies its pkl to
+    # humanact12poses.pkl beside it
+    return load_config(preset=preset, overrides={
+        "name": f"smoke_{preset}", "debug": False,
+        "model": {**A2M_MODEL, "humanact12_rec_path":
+                  os.path.join(A2M_ROOT, "actionrecognition"),
+                  "uestc_rec_path": os.path.join(A2M_ROOT,
+                                                 "actionrecognition"),
+                  **model},
+        "dataset": {"root": os.path.join(A2M_ROOT, preset)},
+        "eval": dict(A2M_EVAL),
+        "test": {"replication_times": A2M_REPLICATIONS},
+        "logger": {"folder": os.path.join(A2M_ROOT, "experiments")}})
+
+
+def _a2m_want(cfg, stage="diffusion"):
+    """Kernel launches of one generate_action call or evaluated batch: K1 a
+    DDIM step and K3 in each ACTOR decoder layer's self- and
+    cross-attention; the vae stage encodes (K3 a layer) and decodes, no
+    K1."""
+    m = cfg.model
+    diffusion = stage == "diffusion"
+    return {"skip_encoder": (m.scheduler.num_inference_timesteps
+                             if diffusion else 0),
+            "skip_decoder": 0, "skip_decoder_kernels": 0, "flash_causal": 0,
+            "flash_attention": (2 if diffusion else 3) * m.num_layers}
+
+
+def _traced_busy(torch, fn):
+    """One fn() call under torch.profiler: (wall ms of the traced call,
+    device busy ms in it, device ms by layer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(torch)
+    wall = (time.perf_counter() - t0) * 1e3
+    kinds = Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kinds[_eval_kind(e.name)] += e.time_range.elapsed_us() / 1e3
+    return wall, sum(kinds.values()), dict(kinds)
+
+
+def drive_a2m(torch, mld, preset):
+    """generate_action at B = 6 and 128: the launches of every call, the
+    median of 3 warm calls and the device busy share of one traced call."""
+    import numpy as np
+
+    want = _a2m_want(mld.cfg)
+    T = mld.cfg.dataset.num_frames
+    n_cls = mld.cfg.model.nclasses
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    out = {}
+    for B in A2M_GEN_BATCHES:
+        actions = [i % n_cls for i in range(B)]
+        lengths = [A2M_LENGTHS[i % len(A2M_LENGTHS)] if B < B_LARGE else T
+                   for i in range(B)]
+
+        def call():
+            return mld.generate_action(actions, lengths, generator=gen)
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        motions = call()
+        first = time.perf_counter() - t0
+        _check_counts(_read_counts(), want, f"{preset} generate_action B={B}")
+        for m, n in zip(motions, lengths):
+            if m.shape != (n, 24, 3) or not np.isfinite(m).all():
+                raise RuntimeError(f"{preset}: bad motion {m.shape} for "
+                                   f"length {n}")
+        times = []
+        for _ in range(3):
+            _reset_counts()
+            t0 = time.perf_counter()
+            call()
+            times.append(time.perf_counter() - t0)
+            _check_counts(_read_counts(), want,
+                          f"{preset} generate_action B={B}")
+        med = sorted(times)[1]
+        # the profiler slows the host's launches, so the busy share is the
+        # traced call's device time over the untraced median call
+        wall, busy, kinds = _traced_busy(torch, call)
+        log(f"[a2m:{preset}] generate_action B={B}: first {first:.4f} s, "
+            f"then {', '.join(f'{t:.4f}' for t in times)} s (median "
+            f"{med:.4f} s, {B / med:.1f} motions/s); one traced call: "
+            f"device busy {busy:.2f} ms, {100 * busy / (1e3 * med):.1f}% of "
+            f"the median call ({wall:.2f} ms under the profiler); by layer: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in Counter(kinds)
+                        .most_common())
+            + f"; launches a call {want}")
+        out[B] = {"median_s": med, "busy_share": busy / (1e3 * med),
+                  "traced_ms": wall, "busy_ms": busy, "by_layer_ms": kinds}
+    return {"want": want, "batches": out}
+
+
+def _gt_accuracy(torch, mld, dm, metrics):
+    """A classifier's top-1 on the ground-truth joints of the test split."""
+    hits = n = 0
+    for b in dm.loader("test", shuffle=False):
+        mask = torch.as_tensor(b["mask"], device=DEVICE)
+        joints = mld.feats2joints(torch.as_tensor(b["motion"], device=DEVICE),
+                                  mask)
+        _, logits = metrics.classify(joints, b["length"])
+        hits += int((logits.argmax(-1).cpu()
+                     == torch.as_tensor(b["action"])).sum())
+        n += len(b["action"])
+    return hits / n
+
+
+def evaluate_a2m(torch, cfg, dm, mld, preset, stages):
+    """Evaluator.run (one replication) in the diffusion stage, and the vae
+    stage's split where asked, with the launches of every batch checked."""
+    from mld_tpu_torch.eval.pipeline import Evaluator
+
+    out = {}
+    for stage in stages:
+        ev = Evaluator(cfg, mld, dm)
+        want = _a2m_want(cfg, stage)
+        a2m_batch = ev.a2m_batch
+
+        def checked(*args, **kwargs):
+            before = _read_counts()
+            res = a2m_batch(*args, **kwargs)
+            after = _read_counts()
+            _check_counts({k: after[k] - before[k] for k in after}, want,
+                          f"{preset} {stage} a2m batch")
+            return res
+
+        ev.a2m_batch = checked
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+        t0 = time.perf_counter()
+        if stage == "diffusion":
+            res = ev.run(gen, replication_times=A2M_REPLICATIONS)
+        else:
+            res = ev.run_split_a2m(dm.loader("test", shuffle=False),
+                                   stage=stage, generator=gen)
+        _sync(torch)
+        run_s = time.perf_counter() - t0
+        for key in ("accuracy", "gt_accuracy", "FID", "Diversity"):
+            if not math.isfinite(res.get(key, float("nan"))):
+                raise RuntimeError(f"{preset} {stage}: no finite {key}: "
+                                   f"{res}")
+        if not all(math.isfinite(v) for v in res.values()):
+            raise RuntimeError(f"{preset} {stage}: non-finite metric {res}")
+        batch_ms = _ms(ev.times["a2m"])
+        metric_s = sum(ev.times["metrics"])
+        log(f"[a2m:{preset}] Evaluator {stage}: {len(ev.times['a2m'])} "
+            f"batches of {cfg.eval.batch_size} in {run_s:.2f} s, median "
+            f"{batch_ms:.2f} ms a batch (generation and the classifier; all: "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in ev.times['a2m'])}); host "
+            f"metrics {metric_s:.3f} s; launches a batch {want}; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(res.items())
+                        if not k.endswith("/conf95")))
+        out[stage] = {"metrics": res, "batch_ms": batch_ms,
+                      "metric_s": metric_s, "run_s": run_s,
+                      "launches_a_batch": want}
+    return out
+
+
+def check_a2m_reference(torch, cfg, preset):
+    """The joints of one batch of A2M_REF_B actions on the card (kernels)
+    and on the CPU (plain versions), same weights and initial latents."""
+    from mld_tpu_torch.models.mld import MLD, lengths_to_mask
+
+    n = A2M_REF_B
+    T = cfg.dataset.num_frames
+    init = torch.randn(n, cfg.model.latent_size, cfg.model.latent_dim,
+                       generator=torch.Generator().manual_seed(SEED + 12))
+    actions = torch.arange(n) % cfg.model.nclasses
+    lengths = [A2M_LENGTHS[i % len(A2M_LENGTHS)] for i in range(n)]
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        # K1 on the card and its plain version on the CPU
+        mld = MLD(cfg, device=dev, fused_denoiser=True,
+                  generator=torch.Generator().manual_seed(SEED))
+        _reset_counts()
+        out[dev] = mld.generate_joints(
+            actions, lengths_to_mask(lengths, T, mld.device),
+            init_latents=init).cpu()
+        counts = _read_counts()
+        del mld
+        if dev == "cpu" and any(counts.values()):
+            raise RuntimeError(f"the CPU run launched kernels: {counts}")
+    scale = out["cpu"].abs().max().item()
+    err = (out[DEVICE] - out["cpu"]).abs().max().item()
+    log(f"[a2m:{preset}] card vs CPU joints, {n} actions: max_abs_err "
+        f"{err:.3e} (scale {scale:.3e}, bar {E2E_RTOL:g} x max(scale, 1))")
+    if not err <= E2E_RTOL * max(scale, 1.0):
+        raise RuntimeError(f"{preset}: card joints disagree with the CPU")
+    return {"err": err, "scale": scale}
+
+
+def phase_action(torch, smi):
+    """Action-to-motion on the card: the synthetic archives, the HumanAct12
+    classifier trained on the card, generate_action for both presets, the
+    a2m evaluation protocol and a card-vs-CPU batch."""
+    import shutil
+
+    from mld_tpu_torch.data.a2m import synth_humanact12_pkl
+    from mld_tpu_torch.data.datamodule import get_datamodule
+    from mld_tpu_torch.eval.a2m_train import (save_a2m_params,
+                                              train_a2m_classifier)
+    from mld_tpu_torch.metrics import HUMANACTMetrics
+    from mld_tpu_torch.models.mld import MLD
+
+    shutil.rmtree(A2M_ROOT, ignore_errors=True)
+    runs = {}
+    for preset in A2M_PRESETS:
+        t_preset = time.perf_counter()
+        cfg = _a2m_cfg(preset)
+        m = cfg.model
+        t0 = time.perf_counter()
+        n_cls = m.nclasses
+        pkl = os.path.join(cfg.dataset.root, "humanact12poses.pkl")
+        synth_humanact12_pkl(pkl, n_per_class=A2M_CLIPS[preset],
+                             num_classes=n_cls)
+        if preset == "mld_uestc":
+            os.rename(pkl, os.path.join(cfg.dataset.root, "uestc_poses.pkl"))
+        dm = get_datamodule(cfg)
+        sizes = {s: len(dm.dataset(s)) for s in ("train", "test")}
+        log(f"[a2m:{preset}] denoiser {m.denoiser_num_layers}x"
+            f"{m.latent_dim} over [z; t; action], ACTOR VAE {m.num_layers}x"
+            f"{m.latent_dim}, {cfg.dataset.num_frames} frames, DDIM-"
+            f"{m.scheduler.num_inference_timesteps}, CFG "
+            f"{m.guidance_scale}, {n_cls} classes; synthetic archive "
+            f"{n_cls} x {A2M_CLIPS[preset]} clips {sizes} in "
+            f"{time.perf_counter() - t0:.1f} s (host). Cuts: the archive is "
+            f"synthetic and replication_times {cfg.test.replication_times} "
+            f"(the protocol's 20); eval batch {cfg.eval.batch_size}, "
+            f"diversity_times {cfg.eval.diversity_times}, mm_num_times "
+            f"{cfg.eval.mm_num_times}: the protocol's values")
+        if not sizes["test"] > cfg.eval.diversity_times:
+            raise RuntimeError("the test split is not above diversity_times")
+        mld = MLD(cfg, device=DEVICE,
+                  generator=torch.Generator().manual_seed(SEED))
+        run = {}
+        if preset == "mld_humanact12":
+            t0 = time.perf_counter()
+            params, report = train_a2m_classifier(
+                cfg, dm, mld, steps=A2M_TRAIN_STEPS, seed=SEED, log_every=0)
+            _sync(torch)
+            train_s = time.perf_counter() - t0
+            os.makedirs(m.humanact12_rec_path, exist_ok=True)
+            save_a2m_params(os.path.join(m.humanact12_rec_path,
+                                         "humanact12_gru_params.npz"), params)
+            trained = _gt_accuracy(torch, mld, dm, HUMANACTMetrics(
+                params=params, num_labels=n_cls, device=DEVICE))
+            untrained = _gt_accuracy(torch, mld, dm, HUMANACTMetrics(
+                num_labels=n_cls, device=DEVICE))
+            log(f"[a2m:cls-train] {report['steps']} steps at B="
+                f"{cfg.train.batch_size}: "
+                f"{1e3 * train_s / report['steps']:.2f} ms a step (with "
+                f"set-up, {train_s:.1f} s); ce {report['loss_first']:.4f} -> "
+                f"{report['loss_last']:.4f}, batch top-1 "
+                f"{report['train_acc_last']:.3f}; GT top-1 on the test split: "
+                f"trained {trained:.4f}, random {untrained:.4f} (chance "
+                f"{1 / n_cls:.4f})")
+            if not trained > untrained:
+                raise RuntimeError("the trained classifier's GT accuracy is "
+                                   "not above the random one's")
+            run.update(cls_train_ms=1e3 * train_s / report["steps"],
+                       cls_top1=report["train_acc_last"],
+                       gt_acc_trained=trained, gt_acc_random=untrained)
+        run["generate"] = drive_a2m(torch, mld, preset)
+        stages = (("diffusion", "vae") if preset == "mld_humanact12"
+                  else ("diffusion",))
+        run["eval"] = evaluate_a2m(torch, cfg, dm, mld, preset, stages)
+        del mld
+        torch.cuda.empty_cache()
+        run["reference"] = check_a2m_reference(torch, cfg, preset)
+        log(f"[time] a2m {preset}: {time.perf_counter() - t_preset:.1f} s; "
+            f"{smi}")
+        runs[preset] = run
+    return runs
+
+
+def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
+                 a2m_runs):
     counts = runs["kernels"]["counts"]
     layer_res, layer_rounding = kr["encoder_layer"]
     dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
@@ -2037,6 +2409,14 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs):
         # the evaluation protocol's main and MultiModality batches alike
         evals = (eval_runs["launches_a_batch"][name]
                  if name != "encoder_layer" else None)
+        # phase 8: a generate_action call, an evaluated a2m batch by stage
+        a2m = a2m_evals = None
+        if name != "encoder_layer":
+            a2m = {p: r["generate"]["want"][name]
+                   for p, r in a2m_runs.items()}
+            a2m_evals = {f"{p} {stage}": e["launches_a_batch"][name]
+                         for p, r in a2m_runs.items()
+                         for stage, e in r["eval"].items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst(results, key[0]), **arm(results[key]),
@@ -2044,13 +2424,21 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs):
                 **arm(results[key16], "bf16_"),
                 "train_launches_a_step": train,
                 "eval_launches_a_batch": evals,
+                "a2m_launches_a_call": a2m,
+                "a2m_eval_launches_a_batch": a2m_evals,
                 **extra}
 
     return {"kernels": [
         entry("skip_encoder", "mld_tpu_torch/csrc/skip_encoder.cu",
               "mld_tpu/ops/fused_layer.py:202", counts["skip_encoder"],
               kr["skip_encoder"], ("f32", 2 * B_LARGE),
-              ("bf16", 2 * B_LARGE)),
+              ("bf16", 2 * B_LARGE),
+              # mld_humanact12's 15-layer stack at 256 sequences
+              a2m_l15_max_abs_err=worst(kr["skip_encoder_a2m"], "f32"),
+              a2m_l15_bf16_max_abs_err=worst(kr["skip_encoder_a2m"], "bf16"),
+              **arm(kr["skip_encoder_a2m"][("f32", 2 * B_LARGE)], "a2m_l15_"),
+              **arm(kr["skip_encoder_a2m"][("bf16", 2 * B_LARGE)],
+                    "a2m_l15_bf16_")),
         # no caller on the main path: launches of one compared call
         entry("encoder_layer", "mld_tpu_torch/csrc/skip_encoder.cu",
               "mld_tpu/ops/fused_layer.py:137",
@@ -2075,7 +2463,12 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs):
         entry("flash_attention", "mld_tpu_torch/csrc/flash_attention.cu",
               "mld_tpu/ops/attention.py:77",
               raw_runs["novae_stress_s512"]["counts"]["flash_attention"],
-              kr["flash_attention"], ("f32", FLASH_KEY), ("bf16", FLASH_KEY)),
+              kr["flash_attention"], ("f32", FLASH_KEY), ("bf16", FLASH_KEY),
+              # the ACTOR decoder's self-attention at B = 128
+              **arm(kr["flash_attention"][("f32", ("actor decode self",
+                                                   B_LARGE))], "a2m_"),
+              **arm(kr["flash_attention"][("bf16", ("actor decode self",
+                                                    B_LARGE))], "a2m_bf16_")),
     ]}
 
 
@@ -2098,9 +2491,12 @@ def main():
     t0 = time.perf_counter()
     eval_runs = phase_evaluation(torch, smi)
     log(f"[time] evaluation: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    a2m_runs = phase_action(torch, smi)
+    log(f"[time] action-to-motion: {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
                                 runs["kernels"]["prompt_len"], train_runs,
-                                eval_runs)))
+                                eval_runs, a2m_runs)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Batch collator emitting static-shape numpy batches (carried copy of
-``lengths_to_mask_np`` and ``MldCollator`` from ``mld_tpu/data/collate.py``,
-held equal to the originals by ``tests/test_torch_train_data.py``).
+"""Batch collators emitting static-shape numpy batches (carried copy of
+``lengths_to_mask_np``, ``MldCollator`` and ``A2MCollator`` from
+``mld_tpu/data/collate.py``, held equal to the originals by
+``tests/test_torch_train_data.py`` and ``tests/test_torch_a2m.py``).
 
 Parity target: mld/data/utils.py:12-98 (right-padding, the text-length
 sort), except that motion is padded to the configured max_motion_len rather
@@ -56,3 +57,30 @@ class MldCollator:
             batch["text_ids"] = np.asarray(
                 self.tokenizer(batch["text"]), np.int32)
         return batch
+
+
+class A2MCollator:
+    """Action-to-motion batches (a2m_collate:77-98 semantics)."""
+
+    def __init__(self, max_motion_len: int = 60):
+        self.max_motion_len = max_motion_len
+
+    def __call__(self, items: List[dict]) -> dict:
+        B = len(items)
+        T = self.max_motion_len
+        nfeats = items[0]["motion"].shape[-1]
+        motion = np.zeros((B, T, nfeats), np.float32)
+        lengths = np.zeros((B,), np.int32)
+        actions = np.zeros((B,), np.int32)
+        for i, it in enumerate(items):
+            L = min(len(it["motion"]), T)
+            motion[i, :L] = it["motion"][:L]
+            lengths[i] = L
+            actions[i] = int(it["action"])
+        return {
+            "motion": motion,
+            "length": lengths,
+            "mask": lengths_to_mask_np(lengths, T),
+            "action": actions,
+            "action_text": [it.get("action_text", "") for it in items],
+        }

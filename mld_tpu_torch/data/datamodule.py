@@ -166,10 +166,16 @@ class KitDataModule(HumanML3DDataModule):
     name = "kit"
 
 
-def get_datamodule(cfg, tokenizer=None) -> HumanML3DDataModule:
+def get_datamodule(cfg, tokenizer=None):
+    """The data module of ``cfg.dataset.name`` (``datamodule.py:185-195``):
+    HumanML3D / KIT-ML (text), or HumanAct12 / UESTC (action, no
+    tokenizer)."""
     name = cfg.dataset.name.lower()
     if name == "humanml3d":
         return HumanML3DDataModule(cfg, tokenizer)
     if name == "kit":
         return KitDataModule(cfg, tokenizer)
-    raise ValueError(f"dataset {name} is not in the port yet")
+    if name in ("humanact12", "uestc"):
+        from .a2m import get_a2m_datamodule
+        return get_a2m_datamodule(cfg)
+    raise ValueError(f"dataset {name} not supported")

@@ -11,7 +11,10 @@ device the default raises. ``--checkpoint`` reads a port checkpoint (a
 ``.pt`` file or a checkpoints directory) or a JAX ``save_params_npz`` export.
 Missing datasets build the synthetic corpus; the evaluator networks load from
 ``eval.t2m_params_path``, the reference's ``finest.tar`` or random weights
-(``eval/pipeline.py:T2MEvaluatorBundle``).
+(``eval/pipeline.py:T2MEvaluatorBundle``). The action presets
+(``mld_humanact12``, ``mld_uestc``) take no tokenizer and evaluate through
+their classifiers (``Evaluator.make_a2m_accumulator``); ``--gt`` is a
+text-protocol pass and is ignored for them, as ``test.py`` ignores it.
 """
 import argparse
 import json
@@ -63,7 +66,10 @@ def main(argv=None):
     if stage not in ("vae", "diffusion"):
         stage = "diffusion"
 
-    dm = get_datamodule(cfg, tokenizer=ClipTokenizer(cfg.model.clip_path))
+    # the action presets have no text tokenizer (test.py:56)
+    dm = get_datamodule(cfg, tokenizer=(
+        None if cfg.model.condition == "action"
+        else ClipTokenizer(cfg.model.clip_path)))
     mld = MLD(cfg, mean=dm.mean, std=dm.std, mean_eval=dm.mean_eval,
               std_eval=dm.std_eval, device=device,
               generator=torch.Generator().manual_seed(0))
@@ -92,9 +98,13 @@ def main(argv=None):
         torch.Generator(device=device).manual_seed(cfg.seed),
         replication_times=cfg.test.replication_times, stage=stage,
         with_mm=not args.no_mm, prediction_sink=prediction_sink)
-    if args.gt:
+    if args.gt and not evaluator.is_a2m:
         gt = evaluator.run_gt(dm.loader("test", shuffle=False))
         results.update({f"gt_only/{k}": float(v) for k, v in gt.items()})
+    elif args.gt:
+        print("--gt: separate GT-only pass is a t2m-protocol feature; "
+              "the a2m protocol already folds GT statistics into the "
+              "accumulator (gt_accuracy/FID columns above) — flag ignored")
     if prediction_sink is not None:
         print(f"saved {counter['n']} evaluated-prediction npys")
     for name, secs in sorted(evaluator.times.items()):

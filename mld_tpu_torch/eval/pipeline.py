@@ -1,9 +1,12 @@
-"""The text-to-motion evaluation protocol (the counterpart of
-``mld_tpu/eval/pipeline.py`` for the text condition):
+"""The evaluation protocol (the counterpart of ``mld_tpu/eval/pipeline.py``):
 
-  per batch         generate (or VAE-reconstruct) -> joints -> renorm4t2m ->
+  text, per batch   generate (or VAE-reconstruct) -> joints -> renorm4t2m ->
                     length-descending sort -> the evaluators' embeddings
                     (reference mld.py:618-708, t2m_eval)
+  action, per batch generate (or VAE-reconstruct) -> SMPL-topology joints
+                    (HumanAct12: the GRU classifier) or rot6d rotations
+                    (UESTC: the ST-GCN) -> accuracy, FID, diversity,
+                    multimodality (mld.py:710-760, a2m_eval)
   replications      test.py:116-139: N passes, mean +- 1.96 std / sqrt(N)
   ground truth      mld.py:771-809 (eval_gt)
 
@@ -19,17 +22,18 @@ the caller (``draws=``, as ``train/steps.py`` takes them), so a test can
 replay the JAX package's draws. The host's metric RNG is
 ``np.random.RandomState(rep)`` a replication, as in the JAX package.
 
-Where the port departs from the JAX package: it does not pad ragged batches
-to a fixed size (a compile workaround there), so it has no length-0 rows;
-and its MultiModality pass runs ``eval.batch_size`` texts x
+Where the port departs from the JAX package: the text protocol does not pad
+ragged batches to a fixed size (a compile workaround there), so it has no
+length-0 rows; and its MultiModality pass runs ``eval.batch_size`` texts x
 ``mm_num_repeats`` a batch, where the JAX package runs one text's repeats a
-batch (the metric groups the repeats of each text either way).
-Action-to-motion evaluation and the multi-device ``mesh`` wait with those
-parts of the port (ROADMAP.md queue 1, items 5 and 6).
+batch (the metric groups the repeats of each text either way). The action
+protocol pads the ragged last batch to ``eval.batch_size`` and slices the
+padding off, as the JAX package does (rows are independent, and a batch's
+draws then have the JAX package's shape). The multi-device ``mesh`` waits
+with that part of the port (ROADMAP.md queue 1, item 6).
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 from collections import defaultdict
@@ -39,8 +43,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from mld_tpu_torch.metrics import (ComputeMetrics, MMMetrics, MRMetrics,
-                                   TM2TMetrics, UncondMetrics)
+from mld_tpu_torch.metrics import (ComputeMetrics, HUMANACTMetrics,
+                                   MMMetrics, MRMetrics, TM2TMetrics,
+                                   UESTCMetrics, UncondMetrics)
 from mld_tpu_torch.models.mld import crop_to_bucket, resolve_device
 from mld_tpu_torch.models.t2m_eval import (MotionEncoderBiGRUCo,
                                            MovementConvEncoder,
@@ -48,26 +53,12 @@ from mld_tpu_torch.models.t2m_eval import (MotionEncoderBiGRUCo,
 from mld_tpu_torch.utils.checkpoint import load_params_npz
 from mld_tpu_torch.utils.convert import (flax_t2m_to_state_dict,
                                          state_dict_to_flax_t2m)
+from mld_tpu_torch.utils.precision import strict_f32
 
 # the JAX bundle's tree keys, the finest.tar keys, the bundle's attributes
 NETS = (("text", "text_encoder", "textencoder"),
         ("move", "movement_encoder", "moveencoder"),
         ("motion", "motion_encoder", "motionencoder"))
-
-
-@contextlib.contextmanager
-def strict_f32():
-    """f32 matmuls, convolutions and RNNs without TF32 inside; the caller's
-    settings are restored on the way out."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = cudnn
 
 
 class T2MEvaluatorBundle(nn.Module):
@@ -131,27 +122,132 @@ class T2MEvaluatorBundle(nn.Module):
 class Evaluator:
     """The protocol over a data module's test (or val) split for one MLD
     model, on the model's device. ``times`` holds the wall seconds of each
-    batch by pass ("main", "mm", "gt") and the host's metric seconds a
-    split ("metrics")."""
+    batch by pass ("main", "mm", "gt", "a2m") and the host's metric seconds
+    a split ("metrics"). The action presets take no t2m bundle: their
+    classifiers are built a pass (``make_a2m_accumulator``)."""
 
     def __init__(self, cfg, mld, datamodule,
                  t2m_params: Optional[Mapping] = None):
-        if cfg.model.condition == "action":
-            raise NotImplementedError(
-                "action-to-motion evaluation waits with action-to-motion "
-                "(ROADMAP.md queue 1, item 5)")
         self.cfg = cfg
         self.mld = mld
         self.dm = datamodule
         self.device = mld.device
-        self.bundle = T2MEvaluatorBundle(cfg, t2m_params, device=self.device)
+        self.is_a2m = cfg.model.condition == "action"
+        self.bundle = (None if self.is_a2m else
+                       T2MEvaluatorBundle(cfg, t2m_params,
+                                          device=self.device))
         self.unit_len = cfg.dataset.unit_len
         self.times = defaultdict(list)
 
-    def run_split_a2m(self, *args, **kwargs):
-        raise NotImplementedError(
-            "action-to-motion evaluation (HumanAct12 / UESTC classifiers) "
-            "waits with action-to-motion (ROADMAP.md queue 1, item 5)")
+    # ------------------------------------------------------ action-to-motion
+    def make_a2m_accumulator(self, diversity_times: int):
+        """The HumanAct12 / UESTC metric accumulator, its classifier on the
+        model's device: the reference's frozen checkpoint when present
+        (modeltype/base.py:154, metrics/stgcn.py:41); for HumanAct12 else the
+        in-repo trained classifier (``humanact12_gru_params.npz``,
+        ``eval/a2m_train.py``); else random weights."""
+        cfg = self.cfg
+        kw = dict(num_labels=cfg.model.nclasses,
+                  diversity_times=diversity_times,
+                  multimodality_times=cfg.eval.mm_num_times,
+                  device=self.device)
+        if cfg.dataset.name.lower() == "uestc":
+            tar = os.path.join(cfg.model.uestc_rec_path,
+                               "uestc_rot6d_stgcn.tar")
+            if os.path.exists(tar):
+                return UESTCMetrics.from_checkpoint(tar, **kw)
+            return UESTCMetrics(**kw)
+        tar = os.path.join(cfg.model.humanact12_rec_path,
+                           "humanact12_gru.tar")
+        if os.path.exists(tar):
+            return HUMANACTMetrics.from_checkpoint(tar, **kw)
+        npz = os.path.join(cfg.model.humanact12_rec_path,
+                           "humanact12_gru_params.npz")
+        if os.path.exists(npz):
+            return HUMANACTMetrics(params=load_params_npz(npz), **kw)
+        return HUMANACTMetrics(**kw)
+
+    @torch.no_grad()
+    def a2m_batch(self, batch: Mapping, stage: str,
+                  draws: Mapping) -> Dict[str, torch.Tensor]:
+        """One collated a2m batch -> the generated (or VAE-reconstructed)
+        features "feats_rst" and the joints "joints_rst" / "joints_ref"
+        (SMPL topology, with the root translation, zero outside the mask),
+        on the device (``mld.py:710-760``)."""
+        mld, dev = self.mld, self.device
+        mask = torch.as_tensor(batch["mask"], device=dev)
+        motion = torch.as_tensor(batch["motion"], device=dev)
+        if stage == "diffusion":
+            feats_rst = mld.generate_feats(
+                torch.as_tensor(batch["action"], device=dev), mask,
+                init_latents=draws["init_latents"])
+        else:  # vae reconstruction
+            feats_rst = mld.reconstruct(motion, mask, eps=draws["eps"])
+        return {"feats_rst": feats_rst,
+                "joints_rst": mld.feats2joints(feats_rst, mask),
+                "joints_ref": mld.feats2joints(motion, mask)}
+
+    @staticmethod
+    def to_rots(feats: torch.Tensor) -> torch.Tensor:
+        """[B, T, 150] features -> the ST-GCN's rot6d input [B, 24, 6, T]
+        (base.py:895-903)."""
+        B, T, _ = feats.shape
+        return feats.reshape(B, T, 25, 6)[:, :, :24].permute(0, 2, 3, 1)
+
+    def run_split_a2m(self, loader: Iterable, *, stage: str = "diffusion",
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[Iterable[Mapping]] = None,
+                      compute_rng: Optional[np.random.RandomState] = None,
+                      diversity_times: Optional[int] = None,
+                      prediction_sink=None) -> Dict[str, float]:
+        """One metric pass over the a2m split (the allsplit_step a2m branch,
+        mld.py:875-907): accuracy, FID, Diversity and Multimodality through
+        the classifier. A ragged last batch is padded to ``eval.batch_size``
+        (zero motion, mask and action) and the padding sliced off before the
+        metrics. `draws` gives each batch's draws (of its padded rows);
+        without it they come from `generator` (default: seeded with
+        cfg.seed on the model's device)."""
+        cfg = self.cfg
+        acc = self.make_a2m_accumulator(diversity_times
+                                        or cfg.eval.diversity_times)
+        is_uestc = cfg.dataset.name.lower() == "uestc"
+        if draws is None and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                cfg.seed)
+        draws = iter(draws) if draws is not None else None
+        for batch in loader:
+            lengths = np.asarray(batch["length"])
+            actions = np.asarray(batch["action"])
+            n_real = len(actions)
+            padded = {k: np.asarray(batch[k])
+                      for k in ("motion", "mask", "action")}
+            pad_n = cfg.eval.batch_size - n_real
+            if pad_n > 0:
+                padded = {k: np.concatenate(
+                    [v, np.zeros((pad_n,) + v.shape[1:], v.dtype)])
+                    for k, v in padded.items()}
+            n, n_frames = padded["mask"].shape
+            d = (next(draws) if draws is not None
+                 else self.draw(n, n_frames, stage, generator))
+            # a batch's time: generation and the classifier's two passes,
+            # ending in the copy of their outputs to the host
+            t0 = time.perf_counter()
+            out = {k: v[:n_real]
+                   for k, v in self.a2m_batch(padded, stage, d).items()}
+            if prediction_sink is not None:
+                prediction_sink(out["joints_rst"].cpu().numpy(), lengths)
+            if is_uestc:
+                acc.update(actions, self.to_rots(out["feats_rst"]),
+                           self.to_rots(torch.as_tensor(
+                               padded["motion"][:n_real])), lengths)
+            else:
+                acc.update(actions, out["joints_rst"], out["joints_ref"],
+                           lengths)
+            self.times["a2m"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        res = acc.compute(rng=compute_rng)
+        self.times["metrics"].append(time.perf_counter() - t0)
+        return {k: float(v) for k, v in res.items()}
 
     # ---------------------------------------------------------- one batch
     def draw(self, n_rows: int, n_frames: int, stage: str,
@@ -356,13 +452,21 @@ class Evaluator:
             # a fresh host rng a replication: a new mm subset and metric
             # shuffle each time (test.py:116-131)
             rep_rng = np.random.RandomState(rep)
+            sink = prediction_sink if rep == 0 else None
             loader = self.dm.loader("test", shuffle=False,
                                     batch_size=cfg.eval.batch_size)
+            if self.is_a2m:
+                res = self.run_split_a2m(loader, stage=stage,
+                                         generator=generator,
+                                         compute_rng=rep_rng,
+                                         prediction_sink=sink)
+                for k, v in res.items():
+                    all_metrics.setdefault(k, []).append(float(v))
+                continue
             res = self.run_split(loader, stage=stage,
                                  metrics=tuple(cfg.eval.metrics),
                                  generator=generator, compute_rng=rep_rng,
-                                 prediction_sink=(prediction_sink
-                                                  if rep == 0 else None))
+                                 prediction_sink=sink)
             if with_mm and "TM2TMetrics" in cfg.eval.metrics:
                 self.dm.mm_mode(True, cfg.eval.mm_num_samples, rng=rep_rng)
                 try:

@@ -1,12 +1,16 @@
-"""The text-conditioned denoisers (port of ``mld_tpu/models/denoiser.py``
-for ``condition="text"``): ``MldDenoiser``, the latent-space ``trans_enc``
-with skip connections, and ``RawMotionDenoiser``, the ``trans_dec`` denoiser
-of raw motion (``diffusion_only``, the no-VAE presets).
+"""The denoisers (port of ``mld_tpu/models/denoiser.py``): ``MldDenoiser``,
+the latent-space ``trans_enc`` with skip connections, conditioned on text
+or on an action class (``EmbedAction``), and ``RawMotionDenoiser``, the
+``trans_dec`` denoiser of raw motion (``diffusion_only``, the no-VAE
+presets, text only).
 
-Token sequence: [sample tokens ; time token ; text tokens], sample first
-(mld_denoiser.py:187). The module holds the parameters under the reference
-torch names (``time_embedding.linear_1``, ``emb_proj.1``, ``query_pos.pe``,
-``encoder.*``). It has two forwards, as the JAX package's denoiser has
+Token sequence: [sample tokens ; time token ; condition token(s)], sample
+first (mld_denoiser.py:187). The module holds the parameters under the
+reference torch names (``time_embedding.linear_1``, ``emb_proj.1`` for text,
+``emb_proj.action_embedding`` for an action, ``query_pos.pe``,
+``encoder.*``). The timestep sinusoid is ``text_encoded_dim`` wide for text
+and ``latent_dim`` wide for an action (``denoiser.py:101``, ``107``):
+``time_proj_dim``. It has two forwards, as the JAX package's denoiser has
 (``mld_tpu/models/mld.py:372-396``): ``forward``, the module path (the
 plain ``SkipTransformerEncoder``, flax's LayerNorm eps 1e-6, dropout,
 differentiable), which training always takes; and ``fused_forward``, the
@@ -36,6 +40,46 @@ from mld_tpu_torch.ops.transformer import (SkipTransformerEncoder,
                                            TransformerDecoder)
 
 
+class EmbedAction(nn.Module):
+    """The action-class embedding with classifier-free-guidance masking
+    (reference mld_denoiser.py:231-279; ``denoiser.py:31-65``): ids [B] ->
+    [B, 1, latent_dim].
+
+    Serving with guidance (scale > 1) zeroes the first half of the batch,
+    the uncond half of the doubled CFG batch; without guidance every row is
+    real. In training the rows are kept with probability 1 -
+    ``guidance_uncondp`` and zeroed otherwise, drawn from `generator` (no
+    draw, no drop, without one), or as `keep` [B] bool gives them."""
+
+    def __init__(self, num_actions: int, latent_dim: int,
+                 guidance_scale: float = 7.5, guidance_uncondp: float = 0.1):
+        super().__init__()
+        self.guidance_scale = guidance_scale
+        self.guidance_uncondp = guidance_uncondp
+        self.action_embedding = nn.Parameter(torch.empty(num_actions,
+                                                         latent_dim))
+
+    def forward(self, action_ids: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ids = action_ids.reshape(-1).to(self.action_embedding.device,
+                                        torch.long)
+        out = self.action_embedding[ids]
+        B = out.shape[0]
+        if training:
+            if keep is None and self.guidance_uncondp > 0.0 \
+                    and generator is not None:
+                keep = torch.rand((B,), generator=generator,
+                                  device=generator.device) \
+                    < 1.0 - self.guidance_uncondp
+            if keep is not None:
+                out = out * keep.to(out.device, out.dtype)[:, None]
+        elif self.guidance_scale > 1.0:
+            out = torch.cat([torch.zeros_like(out[: B // 2]),
+                             out[B // 2:]])
+        return out[:, None, :]
+
+
 def _time_token(module, timestep, sample: torch.Tensor) -> torch.Tensor:
     """The time token [B, 1, d] of a host integer or a [B] / scalar tensor
     timestep."""
@@ -53,8 +97,12 @@ class MldDenoiser(nn.Module):
                  num_heads: int = 4, text_encoded_dim: int = 768,
                  pe_max_len: int = 500, activation: str = "gelu",
                  weight_dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, condition: str = "text",
+                 nclasses: int = 10, guidance_scale: float = 7.5,
+                 guidance_uncondp: float = 0.1):
         super().__init__()
+        if condition not in ("text", "action"):
+            raise ValueError(f"condition {condition} not supported")
         if activation != "gelu":
             raise ValueError("the fused denoiser stack computes gelu only")
         if latent_size + 2 > MAX_S:
@@ -62,11 +110,19 @@ class MldDenoiser(nn.Module):
                              f"stack's {MAX_S} tokens")
         self.latent_dim = latent_dim
         self.text_encoded_dim = text_encoded_dim
+        self.condition = condition
         self.weight_dtype = weight_dtype
-        self.time_embedding = TimestepEmbedding(text_encoded_dim, latent_dim)
-        self.emb_proj = (nn.Sequential(nn.ReLU(),
-                                       nn.Linear(text_encoded_dim, latent_dim))
-                         if text_encoded_dim != latent_dim else None)
+        if condition == "action":
+            self.time_proj_dim = latent_dim
+            self.emb_proj = EmbedAction(nclasses, latent_dim, guidance_scale,
+                                        guidance_uncondp)
+        else:
+            self.time_proj_dim = text_encoded_dim
+            self.emb_proj = (nn.Sequential(
+                nn.ReLU(), nn.Linear(text_encoded_dim, latent_dim))
+                if text_encoded_dim != latent_dim else None)
+        self.time_embedding = TimestepEmbedding(self.time_proj_dim,
+                                                latent_dim)
         self.query_pos = PositionEmbeddingLearned1D(latent_dim, pe_max_len)
         self.encoder = SkipTransformerEncoder(latent_dim, num_heads,
                                               num_layers, ff_size, activation,
@@ -98,13 +154,16 @@ class MldDenoiser(nn.Module):
 
     def forward(self, sample: torch.Tensor, timestep,
                 encoder_hidden_states: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                training: bool = False) -> torch.Tensor:
         """The module path (``denoiser.py:139-186``, trans_enc, latent
         mode): sample [B, latent_size, d]; timestep scalar or [B];
-        encoder_hidden_states [B, S_text, text_dim] -> [B, latent_size, d].
-        Dropout is on when a generator is given."""
+        encoder_hidden_states [B, S_text, text_dim], or [B] action ids ->
+        [B, latent_size, d]. Dropout is on when a generator is given; with
+        `training` an action's embedding is not CFG-masked (EmbedAction)."""
         emb = torch.cat([_time_token(self, timestep, sample),
-                         cond_tokens(self, encoder_hidden_states)], dim=1)
+                         cond_tokens(self, encoder_hidden_states, training)],
+                        dim=1)
         xseq = self.query_pos(torch.cat([sample, emb], dim=1))
         return self.encoder(xseq, generator=generator)[:, : sample.shape[1]]
 
@@ -142,6 +201,8 @@ class RawMotionDenoiser(nn.Module):
         d = latent_dim
         self.latent_dim = latent_dim
         self.text_encoded_dim = text_encoded_dim
+        self.time_proj_dim = text_encoded_dim
+        self.condition = "text"
         self.pose_embd = nn.Linear(nfeats, d)
         self.pose_proj = nn.Linear(d, nfeats)
         self.time_embedding = TimestepEmbedding(text_encoded_dim, d)

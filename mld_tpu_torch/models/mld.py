@@ -1,5 +1,5 @@
-"""MLD text-to-motion generation (port of ``mld_tpu/models/mld.py`` for the
-text condition), in two families:
+"""MLD motion generation (port of ``mld_tpu/models/mld.py``), in three
+families:
 
   latent (mld_humanml3d): texts -> tokens (host, EOT buckets) -> CLIP -> 50
       DDIM steps of the trans_enc denoiser with classifier-free guidance over
@@ -8,16 +8,20 @@ text condition), in two families:
   raw motion (novae_humanml3d, novae_stress_s512): the same text path -> 1000
       ancestral DDPM steps of the trans_dec denoiser over [B, T, nfeats]
       frames under CFG -> zero outside the mask -> de-norm -> joints
+  action (mld_humanact12, mld_uestc): class ids, with zero ids as the uncond
+      half of the CFG batch (no text tower, no tokenizer) -> 50 DDIM steps
+      of the trans_enc denoiser over [z; t; action] -> ACTOR VAE decode ->
+      SMPL-topology joints of the rot6d features (no de-normalisation)
 
 The latent denoiser's encoder stack runs as one CUDA kernel per step on the
 card (ops/fused_layer.py) when ``fused_denoiser`` is on, the text tower's
 causal attention as another (ops/attention.py:sdpa_flash_causal), and every
-bidirectional attention (the raw-motion denoiser's, the plain VAE's) as a
-third (ops/attention.py:sdpa). ``fused_decode``, the JAX package's switch of
-the same name, runs the VAE decoder stack through ops/fused_seq_decoder.py;
-it changes the result (LayerNorm eps 1e-5 against the plain modules' 1e-6),
-as ``fused_denoiser`` does. Everything else is plain PyTorch on the same
-device.
+bidirectional attention (the raw-motion denoiser's, the plain VAE's, the
+ACTOR VAE's) as a third (ops/attention.py:sdpa). ``fused_decode``, the JAX
+package's switch of the same name, runs the VAE decoder stack through
+ops/fused_seq_decoder.py; it changes the result (LayerNorm eps 1e-5 against
+the plain modules' 1e-6), as ``fused_denoiser`` does. Everything else is
+plain PyTorch on the same device.
 
 The training pieces (``noise_scheduler``, ``encode_motion``, ``denoise``
 with ``training=``, ``decode_latent`` with ``training=``) are differentiable
@@ -42,8 +46,10 @@ from mld_tpu_torch.config import Config
 from mld_tpu_torch.data.humanml.motion_process import recover_from_ric
 from mld_tpu_torch.diffusion.schedulers import (DDIMScheduler, DDPMScheduler,
                                                 DiffusionSchedule)
+from mld_tpu_torch.models.actor_vae import ActorVae
 from mld_tpu_torch.models.clip_text import ClipTextModel, ClipTokenizer
 from mld_tpu_torch.models.denoiser import MldDenoiser, RawMotionDenoiser
+from mld_tpu_torch.models.smpl import Rotation2Joints
 from mld_tpu_torch.models.vae import MldVae
 from mld_tpu_torch.ops.fused_denoiser import precompute_cond
 from mld_tpu_torch.ops.fused_seq_decoder import (can_fuse_decode,
@@ -130,15 +136,20 @@ def is_raw_motion(model_cfg) -> bool:
 def _check_supported(cfg: Config):
     m = cfg.model
     raw = is_raw_motion(m)
-    # the two families: the MLD VAE with the skip trans_enc denoiser and
-    # DDIM, or raw motion with the trans_dec denoiser and DDPM
+    action = m.condition == "action"
+    # the families: text with the MLD VAE, or an action with the ACTOR VAE,
+    # each with the skip trans_enc denoiser and DDIM; or text on raw motion
+    # with the trans_dec denoiser and DDPM
     arch, sched = ("trans_dec", "ddpm") if raw else ("trans_enc", "ddim")
+    vae_type = "actor" if action else "mld"
     unsupported = [
-        (m.condition != "text", f"condition={m.condition}"),
-        (not raw and m.vae_type != "mld", f"vae_type={m.vae_type}"),
-        (not raw and m.vae_arch != "encoder_decoder",
+        (m.condition not in ("text", "action"), f"condition={m.condition}"),
+        (action and raw, "condition=action without a VAE"),
+        (not raw and m.vae_type != vae_type,
+         f"vae_type={m.vae_type} with condition={m.condition}"),
+        (not raw and not action and m.vae_arch != "encoder_decoder",
          f"vae_arch={m.vae_arch}"),
-        (not raw and m.mlp_dist, "mlp_dist"),
+        (not raw and not action and m.mlp_dist, "mlp_dist"),
         (m.denoiser_arch != arch, f"denoiser_arch={m.denoiser_arch}"
          + (" with diffusion_only" if raw else " in latent mode")),
         (not raw and not m.skip_connect, "skip_connect=False"),
@@ -157,15 +168,18 @@ def _check_supported(cfg: Config):
         raise NotImplementedError(
             f"the PyTorch port covers text-to-motion with the MLD VAE, the "
             f"skip trans_enc denoiser and DDIM, or on raw motion with the "
-            f"trans_dec denoiser and DDPM; unsupported: {', '.join(bad)}")
+            f"trans_dec denoiser and DDPM, and action-to-motion with the "
+            f"ACTOR VAE, the skip trans_enc denoiser and DDIM; unsupported: "
+            f"{', '.join(bad)}")
 
 
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator):
     """Random weights with the JAX package's initialiser families:
-    lecun-normal Linear weights, xavier-uniform packed QKV and motion tokens,
-    zero biases, unit LayerNorm scales, uniform [0, 1) learned PE,
-    normal(0.02 / 0.01) CLIP embeddings and projection. CPU parameters."""
+    lecun-normal Linear weights, xavier-uniform packed QKV, motion tokens and
+    action table, zero biases, unit LayerNorm scales, uniform [0, 1) learned
+    PE, normal(0.02 / 0.01) CLIP embeddings and projection, normal(1) ACTOR
+    mu / logvar tokens. CPU parameters."""
     g = generator
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -175,7 +189,10 @@ def init_params(module: nn.Module, generator: torch.Generator):
             p.normal_(0.0, 0.02, generator=g)
         elif "position_embedding" in name:
             p.normal_(0.0, 0.01, generator=g)
-        elif leaf in ("in_proj_weight", "global_motion_token"):
+        elif leaf in ("mu_token", "logvar_token"):
+            p.normal_(0.0, 1.0, generator=g)
+        elif leaf in ("in_proj_weight", "global_motion_token",
+                      "action_embedding"):
             bound = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
             p.uniform_(-bound, bound, generator=g)
         elif leaf == "weight" and p.dim() == 2:
@@ -209,7 +226,10 @@ class MLD(nn.Module):
 
     Neither switch is a fallback: with it on, the kernel launches on the
     card or the call raises. The raw-motion family has no VAE (``vae`` is
-    None) and no latent denoiser, so neither switch applies to it."""
+    None) and no latent denoiser, so neither switch applies to it. The
+    action family has no text tower (``clip`` and ``tokenizer`` are None)
+    and the ACTOR VAE, whose decode is never fused; K1 serves its denoiser
+    as the text family's."""
 
     def __init__(self, cfg: Config, mean: Optional[np.ndarray] = None,
                  std: Optional[np.ndarray] = None,
@@ -233,6 +253,7 @@ class MLD(nn.Module):
         self.do_cfg = m.guidance_scale > 1.0
         self.clip_mode = "features"
         self.raw_motion = is_raw_motion(m)
+        self.condition = m.condition
         if fused_decode is None:
             fused_decode = _fused_decode_from_env(m)
         elif fused_decode and not can_fuse_decode(m):
@@ -252,20 +273,32 @@ class MLD(nn.Module):
                     pe_max_len=pe_max_len, activation=m.activation,
                     dropout=m.dropout)
             else:
-                self.vae = MldVae(self.nfeats, m.latent_size, m.latent_dim,
-                                  m.ff_size, m.num_layers, m.num_heads,
-                                  m.activation, weight_dtype=weight_dtype,
-                                  dropout=m.dropout)
+                if self.condition == "action":
+                    self.vae = ActorVae(self.nfeats, m.latent_size,
+                                        m.latent_dim, m.ff_size, m.num_layers,
+                                        m.num_heads, m.activation,
+                                        dropout=m.dropout)
+                else:
+                    self.vae = MldVae(self.nfeats, m.latent_size,
+                                      m.latent_dim, m.ff_size, m.num_layers,
+                                      m.num_heads, m.activation,
+                                      weight_dtype=weight_dtype,
+                                      dropout=m.dropout)
                 self.denoiser = MldDenoiser(
                     m.latent_size, m.latent_dim, m.ff_size,
                     m.denoiser_num_layers, m.num_heads, m.text_encoded_dim,
                     pe_max_len=pe_max_len, activation=m.activation,
-                    weight_dtype=weight_dtype, dropout=m.dropout)
-            self.clip = ClipTextModel(width=m.text_encoded_dim,
-                                      layers=m.clip_layers,
-                                      heads=m.clip_heads,
-                                      projection_dim=m.text_encoded_dim,
-                                      compute_dtype=m.clip_compute_dtype)
+                    weight_dtype=weight_dtype, dropout=m.dropout,
+                    condition=m.condition, nclasses=m.nclasses,
+                    guidance_scale=m.guidance_scale,
+                    guidance_uncondp=m.guidance_uncondp)
+            # the text tower serves the text conditions only (mld.py:134)
+            self.clip = (ClipTextModel(width=m.text_encoded_dim,
+                                       layers=m.clip_layers,
+                                       heads=m.clip_heads,
+                                       projection_dim=m.text_encoded_dim,
+                                       compute_dtype=m.clip_compute_dtype)
+                         if self.condition == "text" else None)
         self.to_empty(device="cpu")
         init_params(self, generator if generator is not None
                     else torch.Generator().manual_seed(cfg.seed))
@@ -293,11 +326,16 @@ class MLD(nn.Module):
         # the forward process of the training steps (mld.py:132-133)
         self.noise_scheduler = DDPMScheduler(schedule, sc.variance_type)
 
-        self.tokenizer = ClipTokenizer(m.clip_path)
-        # features mode: the empty prompt is [BOS, EOS, pad...]; under causal
-        # attention + EOT pooling only the first 2 positions matter, so the
-        # uncond row is encoded at context 8 (exact)
-        self.uncond_ids = self.tokenizer([""])[:, :8]
+        if self.condition == "action":
+            # rot6d features -> SMPL-topology joints (mld.py:77-84)
+            self.tokenizer = self.uncond_ids = None
+            self.rot2joints = Rotation2Joints(cfg.dataset.smpl_path, device)
+        else:
+            self.tokenizer = ClipTokenizer(m.clip_path)
+            # features mode: the empty prompt is [BOS, EOS, pad...]; under
+            # causal attention + EOT pooling only the first 2 positions
+            # matter, so the uncond row is encoded at context 8 (exact)
+            self.uncond_ids = self.tokenizer([""])[:, :8]
         if not self.raw_motion:
             self.denoiser.restack()
         if self.fused_decode:
@@ -317,19 +355,22 @@ class MLD(nn.Module):
         use instead of running the old weights."""
         if not self.raw_motion:
             self.denoiser.drop_stack()
-            self.vae.drop_stack()
+            if isinstance(self.vae, MldVae):
+                self.vae.drop_stack()
 
     def load_flax_params(self, tree: Mapping):
         """Load a JAX-package param tree {vae, denoiser, clip} of numpy (or
-        jax) arrays; the raw-motion family's tree has no vae. The kernels'
-        stacked weights are rebuilt on load."""
+        jax) arrays; the raw-motion family's tree has no vae, the action
+        family's no clip. The kernels' stacked weights are rebuilt on
+        load."""
         sd = {}
         for top in ("vae", "denoiser"):
             if top in tree:
                 sd.update({f"{top}.{k}": v for k, v in
                            flax_to_state_dict(tree[top]).items()})
-        sd.update({f"clip.{k}": v
-                   for k, v in flax_clip_to_state_dict(tree["clip"]).items()})
+        if self.clip is not None:
+            sd.update({f"clip.{k}": v for k, v in
+                       flax_clip_to_state_dict(tree["clip"]).items()})
         self.load_state_dict(sd, strict=True)
 
     # --------------------------------------------------------------- text
@@ -446,8 +487,9 @@ class MLD(nn.Module):
                 and self.use_fused_denoiser()):
             with torch.no_grad():
                 return self.denoiser.fused_forward(sample, t, cond_emb)
+        # training: an action's CFG zeroing is off (EmbedAction)
         return self.denoiser(sample, t, cond_emb,
-                             generator=dropout_generator)
+                             generator=dropout_generator, training=training)
 
     def decode_latent(self, z: torch.Tensor, mask: torch.Tensor, *,
                       training: bool = False,
@@ -468,9 +510,24 @@ class MLD(nn.Module):
                 return fused_vae_decode(self.vae, z, mask)
             return self.vae.decode(z, mask)
 
-    def feats2joints(self, feats: torch.Tensor) -> torch.Tensor:
-        """de-normalise + RIC decode (HumanML3D.py:41-45)."""
+    def feats2joints(self, feats: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """text: de-normalise + RIC decode (HumanML3D.py:41-45); action: the
+        rot6d features to SMPL-topology joints with the root translation,
+        zero outside `mask` when given, and no de-normalisation
+        (``mld.py:557-564``)."""
+        if self.condition == "action":
+            return self.rot2joints(feats, mask)
         return recover_from_ric(feats * self.std + self.mean, self.njoints)
+
+    def masked_joints(self, feats: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+        """feats2joints, zero outside the mask. (An action's padded frames
+        hold zero rot6d, whose Gram-Schmidt joints are NaN: the JAX package
+        multiplies them by the mask and keeps the NaN; the port zeroes
+        them.)"""
+        return self.feats2joints(feats).masked_fill(~mask[..., None, None],
+                                                    0.0)
 
     def renorm4t2m(self, feats: torch.Tensor) -> torch.Tensor:
         """model-normalised features -> the t2m evaluators' normalisation
@@ -483,8 +540,7 @@ class MLD(nn.Module):
         """latent [B, latent_size, latent_dim] -> joints, zero outside the
         mask (``mld.py:571-575``)."""
         mask = mask.to(self.device)
-        return (self.feats2joints(self.decode_latent(z, mask))
-                * mask[..., None, None])
+        return self.masked_joints(self.decode_latent(z, mask), mask)
 
     @torch.no_grad()
     def reconstruct(self, feats_ref: torch.Tensor, mask: torch.Tensor, *,
@@ -508,30 +564,41 @@ class MLD(nn.Module):
         feats_ref = feats_ref.to(self.device)
         feats = self.reconstruct(feats_ref, mask, eps=eps,
                                  generator=generator)
-        keep = mask[..., None, None]
-        return (self.feats2joints(feats) * keep,
-                self.feats2joints(feats_ref) * keep)
+        return (self.masked_joints(feats, mask),
+                self.masked_joints(feats_ref, mask))
 
     def encode_uncond(self) -> torch.Tensor:
         """The empty prompt's embedding, one row [1, 1, text_dim]."""
         return self.encode_text_tokens(
             torch.as_tensor(self.uncond_ids, device=self.device))
 
+    def condition_embedding(self, cond: torch.Tensor) -> torch.Tensor:
+        """The denoiser's condition over the CFG batch (uncond half first):
+        text ids [B, L] -> CLIP features, the uncond row encoded once and
+        broadcast; action ids [B] -> [zeros; ids], the ids themselves, which
+        the denoiser embeds (``mld.py:515-535``)."""
+        if self.condition == "action":
+            actions = torch.as_tensor(cond).to(self.device,
+                                               torch.long).reshape(-1)
+            return (torch.cat([torch.zeros_like(actions), actions])
+                    if self.do_cfg else actions)
+        cond_emb = self.encode_text_tokens(cond)
+        if self.do_cfg:
+            cond_emb = torch.cat([self.encode_uncond().expand_as(cond_emb),
+                                  cond_emb])
+        return cond_emb
+
     @torch.no_grad()
-    def generate_feats(self, token_ids: torch.Tensor, mask: torch.Tensor, *,
+    def generate_feats(self, cond: torch.Tensor, mask: torch.Tensor, *,
                        generator: Optional[torch.Generator] = None,
                        init_latents: Optional[torch.Tensor] = None,
                        step_noise=None) -> torch.Tensor:
-        """prompt ids [B, L] + mask [B, T] -> normalised features [B, T,
-        nfeats], zero outside the mask (``mld.py:511-542``). `init_latents`
-        and `step_noise` as in diffusion_reverse."""
+        """prompt ids [B, L] (or action ids [B]) + mask [B, T] -> normalised
+        features [B, T, nfeats], zero outside the mask
+        (``mld.py:511-542``). `init_latents` and `step_noise` as in
+        diffusion_reverse."""
         mask = mask.to(self.device)
-        cond_emb = self.encode_text_tokens(token_ids)
-        if self.do_cfg:
-            # the uncond embedding is prompt-independent: encode ONE row
-            # and broadcast it over the uncond half
-            cond_emb = torch.cat([self.encode_uncond().expand_as(cond_emb),
-                                  cond_emb])
+        cond_emb = self.condition_embedding(cond)
         z = self.diffusion_reverse(cond_emb, generator, init_latents, mask,
                                    step_noise)
         if self.raw_motion:
@@ -539,18 +606,18 @@ class MLD(nn.Module):
         return self.decode_latent(z, mask)
 
     @torch.no_grad()
-    def generate_joints(self, token_ids: torch.Tensor, mask: torch.Tensor, *,
+    def generate_joints(self, cond: torch.Tensor, mask: torch.Tensor, *,
                         generator: Optional[torch.Generator] = None,
                         init_latents: Optional[torch.Tensor] = None,
                         step_noise=None) -> torch.Tensor:
-        """prompt ids [B, L] + mask [B, T] -> [B, T, njoints, 3] joints,
-        zero outside the mask. `init_latents` and `step_noise` as in
-        diffusion_reverse."""
+        """prompt ids [B, L] (or action ids [B]) + mask [B, T] -> [B, T,
+        njoints, 3] joints, zero outside the mask. `init_latents` and
+        `step_noise` as in diffusion_reverse."""
         mask = mask.to(self.device)
-        feats = self.generate_feats(token_ids, mask, generator=generator,
+        feats = self.generate_feats(cond, mask, generator=generator,
                                     init_latents=init_latents,
                                     step_noise=step_noise)
-        return self.feats2joints(feats) * mask[..., None, None]
+        return self.masked_joints(feats, mask)
 
     def generate(self, texts: Sequence[str], lengths: Sequence[int],
                  generator: Optional[torch.Generator] = None
@@ -560,3 +627,21 @@ class MLD(nn.Module):
         joints = self.generate_joints(self.tokenize(texts), mask,
                                       generator=generator).cpu().numpy()
         return [joints[i, : int(n)] for i, n in enumerate(lengths)]
+
+    def generate_action(self, actions: Sequence[int],
+                        lengths: Optional[Sequence[int]] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> List[np.ndarray]:
+        """Action-to-motion: class ids -> list of [len, 24, 3] numpy arrays
+        (``mld.py:597-610``). The clip length is ``dataset.num_frames``, and
+        each length is cut to it (default: all of it)."""
+        actions = np.asarray(actions, np.int64).reshape(-1)
+        T = self.cfg.dataset.num_frames
+        if lengths is None:
+            lengths = [T] * len(actions)
+        lengths = [min(int(n), T) for n in lengths]
+        mask = lengths_to_mask(lengths, T, self.device)
+        joints = self.generate_joints(
+            torch.as_tensor(actions, device=self.device), mask,
+            generator=generator).cpu().numpy()
+        return [joints[i, : n] for i, n in enumerate(lengths)]

@@ -2,15 +2,21 @@
 
 Parity targets:
   learned 1D PE        — mld/models/operator/position_encoding.py:138-159
+  sinusoidal PE        — mld/models/operator/position_encoding_layer.py:6-30
   timestep sinusoid    — mld/models/architectures/tools/embeddings.py:245-322
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .dropout import dropout as _dropout
 
 # the denoisers' timestep sinusoid: cos first, no frequency shift
 # (mld_tpu/models/denoiser.py:79-80; every preset keeps these)
@@ -49,6 +55,47 @@ class PositionEmbeddingLearned1D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # x: [B, S, D]
         return x + self.pe[: x.shape[1], 0][None]
+
+
+@functools.lru_cache(maxsize=None)
+def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
+    """The sin/cos interleaved table [max_len, d_model] (f32, computed in
+    numpy as the JAX package computes it; read-only, shared)."""
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                 * (-math.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(position * div)
+    pe[:, 1::2] = np.cos(position * div)
+    pe.setflags(write=False)
+    return pe
+
+
+class PositionEmbeddingSine1D(nn.Module):
+    """The fixed sinusoidal additive PE (the ACTOR VAE's), with dropout when
+    a generator is given. The table is a constant of (max_len, d_model), not
+    a parameter: it is copied to a device at its first use there."""
+
+    def __init__(self, d_model: int, max_len: int = 500,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.d_model, self.max_len, self.dropout = d_model, max_len, dropout
+        self._tables = {}
+
+    def table(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        t = self._tables.get(device)
+        if t is None:
+            t = self._tables[device] = torch.as_tensor(
+                sinusoidal_table(self.max_len, self.d_model).copy(),
+                device=device)
+        return t
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:  # x: [B, S, D]
+        x = x + self.table(x.device)[: x.shape[1]][None]
+        return _dropout(x, self.dropout, generator)
 
 
 class TimestepEmbedding(nn.Module):

@@ -1,9 +1,10 @@
 """Inference forward of the latent denoiser over the fused encoder stack
-(port of ``mld_tpu/ops/fused_denoiser.py``, text condition).
+(port of ``mld_tpu/ops/fused_denoiser.py``, text and action conditions).
 
-Everything around the stack (timestep sinusoid + MLP, text projection,
-learned PE, the final norm) is plain PyTorch; the stack itself is
-``ops.fused_layer.skip_encoder_stack`` (the CUDA kernel on the card).
+Everything around the stack (timestep sinusoid + MLP, the text projection
+or the action table, learned PE, the final norm) is plain PyTorch; the
+stack itself is ``ops.fused_layer.skip_encoder_stack`` (the CUDA kernel on
+the card).
 """
 from __future__ import annotations
 
@@ -17,18 +18,26 @@ from .fused_layer import LN_EPS, skip_encoder_stack
 
 
 def time_embedding(denoiser, timesteps: torch.Tensor) -> torch.Tensor:
-    t_sin = get_timestep_embedding(timesteps, denoiser.text_encoded_dim,
+    # the sinusoid is text_encoded_dim wide for text, latent_dim for an
+    # action (denoiser.py:101, 107)
+    t_sin = get_timestep_embedding(timesteps, denoiser.time_proj_dim,
                                    DENOISER_FLIP_SIN_TO_COS,
                                    DENOISER_FREQ_SHIFT)
     return denoiser.time_embedding(t_sin)
 
 
-def cond_tokens(denoiser, text_emb: torch.Tensor) -> torch.Tensor:
+def cond_tokens(denoiser, cond: torch.Tensor,
+                training: bool = False) -> torch.Tensor:
+    """The condition tokens [B, S_cond, d]: for an action the table rows of
+    the ids [B], CFG-zeroed in the first half when serving (EmbedAction);
+    for text the projected CLIP features."""
+    if denoiser.condition == "action":
+        return denoiser.emb_proj(cond, training)
     # emb_proj is Sequential(ReLU, Linear): the reference applies ReLU
     # before the projection (denoiser.py:161-163)
     if denoiser.emb_proj is None:
-        return text_emb
-    return denoiser.emb_proj(text_emb)
+        return cond
+    return denoiser.emb_proj(cond)
 
 
 @torch.no_grad()
@@ -37,7 +46,8 @@ def precompute_cond(denoiser, timesteps: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The step-invariant preamble, computed once per generate call: the
     time-embedding table [n_steps, d] and the projected condition tokens
-    [B, S_cond, d]."""
+    [B, S_cond, d] (an action's: [B, 1, d], the uncond half zeroed under
+    guidance)."""
     return (time_embedding(denoiser, timesteps),
             cond_tokens(denoiser, encoder_hidden_states))
 
@@ -48,9 +58,9 @@ def fused_denoiser_forward(denoiser, sample: torch.Tensor,
                            time_emb: Optional[torch.Tensor] = None,
                            cond_lat: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """sample [B, L, d]; encoder_hidden_states [B, S_text, text_dim].
-    time_emb [d] and cond_lat [B, S_cond, d] come from precompute_cond
-    (both or neither). Returns [B, L, d]."""
+    """sample [B, L, d]; encoder_hidden_states [B, S_text, text_dim], or
+    [B] action ids. time_emb [d] and cond_lat [B, S_cond, d] come from
+    precompute_cond (both or neither). Returns [B, L, d]."""
     B, L, D = sample.shape
     if time_emb is None:
         timesteps = torch.as_tensor(timestep, device=sample.device)

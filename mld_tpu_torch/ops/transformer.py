@@ -130,6 +130,30 @@ class TransformerDecoderLayer(nn.Module):
             self.linear1(tgt))))))
 
 
+class TransformerEncoder(nn.Module):
+    """Plain stack of encoder layers (cross_attention.py:171-192;
+    ``transformer.py:238-261``): modules ``layers.N`` and, with
+    ``final_norm``, ``norm``. The default is no final norm, as the JAX
+    package's, torch's ``nn.TransformerEncoder(norm=None)`` (the ACTOR
+    VAE's encoder)."""
+
+    def __init__(self, d_model: int, num_heads: int, num_layers: int,
+                 ff_size: int = 1024, activation: str = "gelu",
+                 eps: float = FLAX_LN_EPS, final_norm: bool = False,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, num_heads, ff_size, activation,
+                                    eps, dropout) for _ in range(num_layers))
+        self.norm = nn.LayerNorm(d_model, eps=eps) if final_norm else None
+
+    def forward(self, src, key_valid=None, generator=None):
+        x = src
+        for layer in self.layers:
+            x = layer(x, key_valid, generator)
+        return self.norm(x) if self.norm is not None else x
+
+
 class TransformerDecoder(nn.Module):
     """Plain stack of decoder layers with a final norm
     (cross_attention.py:195-233; ``transformer.py:263-289``): modules

@@ -32,8 +32,9 @@ from mld_tpu_torch.data.datamodule import get_datamodule
 from mld_tpu_torch.eval.pipeline import Evaluator
 from mld_tpu_torch.models.clip_text import ClipTokenizer
 from mld_tpu_torch.models.mld import MLD, resolve_device
-from mld_tpu_torch.train.steps import (batch_to_device, create_train_state,
-                                       eval_step, train_step)
+from mld_tpu_torch.train.steps import (batch_to_device, check_trainable,
+                                       create_train_state, eval_step,
+                                       train_step)
 from mld_tpu_torch.utils.checkpoint import (CheckpointManager,
                                             load_pretrained, restore_model)
 
@@ -88,6 +89,7 @@ def train(cfg, max_steps: Optional[int] = None, resume: bool = False,
 
     `on_step(state, step, logs)` is called once before the first step
     (step 0, logs None) and after every optimizer step."""
+    check_trainable(cfg)
     stage = cfg.train.stage
     device = resolve_device(device)
     exp_dir = os.path.join(cfg.logger.folder, "mld", cfg.name)

@@ -12,7 +12,12 @@ Rules for the denoiser and VAE subtrees:
   ``input_blocks_0``           -> ``input_blocks.0`` (and output_blocks,
                                   linear_blocks, layers)
   ``emb_proj``                 -> ``emb_proj.1`` (Sequential(ReLU, Linear))
-  ``pe``, ``global_motion_token`` and every other leaf pass unchanged.
+  ``emb_proj_action``          -> ``emb_proj`` (EmbedAction, the reference's
+                                  ``emb_proj.action_embedding``)
+  ``pe``, ``global_motion_token``, the ACTOR VAE's ``mu_token`` and
+  ``logvar_token``, ``action_embedding`` and every other leaf pass
+  unchanged; the ACTOR VAE's ``seqTransEncoder`` / ``seqTransDecoder`` and
+  ``skel_embedding`` / ``final_layer`` follow the rules above.
 
 The t2m evaluator networks' trees (``flax_t2m_to_state_dict`` and its
 inverse ``state_dict_to_flax_t2m``): ``kernel`` -> ``weight`` with its axes
@@ -20,6 +25,12 @@ reversed (Dense [in, out] -> [out, in]; Conv [k, in, out] -> Conv1d's
 [out, in, k]), ``out/output_net_N`` -> ``output_net.N``, ``main_N`` ->
 ``main.N``, LayerNorm ``scale`` -> ``weight``; the GRU's torch-named leaves
 and ``hidden`` [2, 1, H] pass unchanged.
+
+The a2m classifiers: the HumanAct12 GRU's tree (``MotionDiscriminator``:
+``recurrent/weight_ih_l{k}`` ... leaves, flat as flax holds them or nested as
+an npz reads back, ``linear1`` / ``linear2`` Dense) and the UESTC ST-GCN's
+param dict (numpy leaves under the JAX package's keys, kept as they are,
+as tensors).
 """
 from __future__ import annotations
 
@@ -43,6 +54,8 @@ def _module_name(part: str) -> str:
         return f"{m.group(1)}.{m.group(2)}"
     if part == "emb_proj":
         return "emb_proj.1"
+    if part == "emb_proj_action":
+        return "emb_proj"
     return part
 
 
@@ -151,3 +164,49 @@ def state_dict_to_flax_t2m(state: Mapping) -> Dict:
             node = node.setdefault(p, {})
         node[leaf] = np.array(arr, order="C")
     return tree
+
+
+def flax_humanact12_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The HumanAct12 GRU classifier's flax tree -> the torch module's
+    state_dict (``models/humanact12_gru.py``): ``recurrent/weight_ih_l0``
+    -> ``recurrent.weight_ih_l0`` (torch's GRU layout already), Dense
+    ``kernel`` [in, out] -> ``weight`` [out, in]."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping) and key == "recurrent":
+            out.update({f"recurrent.{k}": _tensor(v) for k, v in val.items()})
+        elif isinstance(val, Mapping):
+            out[f"{key}.weight"] = _tensor(np.asarray(val["kernel"]).T)
+            out[f"{key}.bias"] = _tensor(val["bias"])
+        else:   # flax's flat "recurrent/<name>" leaf
+            out[key.replace("/", ".")] = _tensor(val)
+    return out
+
+
+def state_dict_to_flax_humanact12(state: Mapping) -> Dict:
+    """The inverse: the classifier's state_dict -> the JAX package's tree
+    (flat ``recurrent/...`` leaves, Dense ``kernel`` / ``bias``) of numpy
+    arrays."""
+    tree: Dict = {}
+    for name, val in state.items():
+        arr = val.detach().cpu().numpy()
+        mod, leaf = name.split(".", 1)
+        if mod == "recurrent":
+            tree[f"recurrent/{leaf}"] = arr
+        else:
+            tree.setdefault(mod, {})[
+                "kernel" if leaf == "weight" else "bias"] = np.array(
+                    arr.T if leaf == "weight" else arr, order="C")
+    return tree
+
+
+def stgcn_params_to_torch(tree, device="cpu"):
+    """The ST-GCN's param dict (the JAX package's layout: ``data_bn``,
+    ``st_gcn_networks_{i}`` / ``gcn`` / ``tcn`` / ``residual``, the list
+    ``edge_importance``, ``fcn``) with every leaf as an f32 tensor on
+    `device`."""
+    if isinstance(tree, Mapping):
+        return {k: stgcn_params_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [stgcn_params_to_torch(v, device) for v in tree]
+    return torch.as_tensor(np.asarray(tree, np.float32), device=device)

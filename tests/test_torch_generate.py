@@ -137,8 +137,15 @@ def test_guidance_off_and_config_checks():
                                  lengths_to_mask([12], mld.max_frames, "cpu"),
                                  generator=torch.Generator().manual_seed(0))
     assert joints.shape == (1, 40, 22, 3) and not joints[0, 12:].any()
-    with pytest.raises(NotImplementedError, match="condition=action"):
-        MLD(load_config(preset="mld_humanact12"), device="cpu")
+    # the action family builds (its generation: tests/test_torch_a2m.py)
+    a2m = MLD(load_config(preset="mld_humanact12"), device="cpu")
+    assert a2m.condition == "action" and a2m.clip is None
+    # an action needs the ACTOR VAE
+    with pytest.raises(NotImplementedError,
+                       match="vae_type=mld with condition=action"):
+        MLD(load_config(preset="mld_humanact12",
+                        overrides={"model": {"vae_type": "mld"}}),
+            device="cpu")
     # the trans_dec denoiser serves raw motion only, not the VAE's latents
     with pytest.raises(NotImplementedError,
                        match="denoiser_arch=trans_dec in latent mode"):
