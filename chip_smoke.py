@@ -114,7 +114,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      batch; the vae stage once for HumanAct12: K3 27, K1 0; ms a batch,
      host metric seconds, finite metrics), and the joints of 8 actions on
      the card against the CPU;
-  9. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+  9. training presets and modes (train(), full width, B=64, dropout 0.1,
+     5 steps an arm, the median of steps 2-4, step 5 traced): synthetic
+     archives into build/ (12 x 8 and 40 x 2 clips, one root a preset);
+     mld_humanact12's vae stage (one resumed step), diffusion with the vae
+     stage's ACTOR VAE handed over (pretrained_vae), vae_diffusion, and
+     mld_uestc's diffusion; the launches of every step (vae 0; diffusion
+     K3 9; vae_diffusion K3 27, K1 50), frozen params bit-identical,
+     trainable modules moved, finite logs, ms a step, device busy, peak
+     allocated memory a step; one step of each action diffusion stage at
+     B=8, dropout 0, card vs CPU; then mld_humanml3d's vae stage with
+     remat and in bf16 mixed precision, and its diffusion stage in bf16,
+     each against phase 6's f32 run of the same configuration (peak memory
+     and ms a step: bf16 against f32, remat against none), and one bf16
+     diffusion step against the f32 step on the same batch and draws;
+ 10. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
@@ -1367,36 +1381,53 @@ def _train_want(cfg, stage):
     sends the trainable modules' attention to the plain version (the
     reference's dispatch), so with it K3 runs only under no grad: in the
     frozen VAE encode of the diffusion loss and in the generation pass's
-    plain decode (self- and cross-attention a layer); K4 runs for the
-    prompts and the uncond row; K1 once a DDIM step of the generation
-    pass."""
+    plain decode (self- and cross-attention a layer); with dropout 0 the
+    trainable attention takes K3 too (the vae loss's encoder layers and
+    decoder layers, self- and cross-attention, and the denoiser's layers).
+    K4 runs for the prompts and the uncond row (an action has no text
+    tower); K1 once a DDIM step of the generation pass. The MLD VAE and the
+    ACTOR VAE count alike: num_layers encoder and decoder layers."""
     m = cfg.model
     want = {"skip_encoder": 0, "skip_decoder": 0, "skip_decoder_kernels": 0,
             "flash_causal": 0, "flash_attention": 0}
+    text = 2 * m.clip_layers if m.condition == "text" else 0
+    if m.dropout == 0.0 and stage in ("vae", "vae_diffusion"):
+        want["flash_attention"] = 3 * m.num_layers
     if stage == "vae":
         return want
-    want["flash_causal"] = 2 * m.clip_layers
-    want["flash_attention"] = m.num_layers
+    want["flash_causal"] = text
+    want["flash_attention"] += m.num_layers
     if m.dropout == 0.0:
         want["flash_attention"] += m.denoiser_num_layers
     if stage == "vae_diffusion":
-        want["flash_causal"] += 2 * m.clip_layers
+        want["flash_causal"] += text
         want["flash_attention"] += 2 * m.num_layers
         want["skip_encoder"] = m.scheduler.num_inference_timesteps
     return want
+
+
+def _peak_mib(torch):
+    """The card's peak allocated memory since the last reset, MiB."""
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def _reset_peak(torch):
+    torch.cuda.reset_peak_memory_stats()
 
 
 class _StepWatch:
     """The on_step callback of train(): the params before the first step,
     then each step's launches (checked, the last kept), the loop's wall ms
     from one step's end to the next's (ending in a synchronize), finite
-    logs, and a torch.profiler trace of the steps after `traced[0]` through
-    `traced[1]`. `step_ms` is filled by `timed_steps`."""
+    logs, each step's peak allocated memory, and a torch.profiler trace of
+    the steps after `traced[0]` through `traced[1]`. `step_ms` is filled by
+    `timed_steps`."""
 
     def __init__(self, torch, want, traced=(None, None)):
         self.torch, self.want, self.traced = torch, want, traced
         self.ms, self.logs, self.before, self.prof = {}, [], None, None
         self.step_ms, self.counts, self.busy = {}, None, None
+        self.peak = {}
 
     def __call__(self, state, step, logs):
         torch = self.torch
@@ -1408,6 +1439,7 @@ class _StepWatch:
             self.trainable = set(state.params)
         else:
             self.ms[step] = (now - self.t) * 1e3
+            self.peak[step] = _peak_mib(torch)
             self.counts = _read_counts()
             _check_counts(self.counts, self.want, f"training step {step}")
             vals = {k: float(v) for k, v in logs.items()}
@@ -1441,6 +1473,7 @@ class _StepWatch:
             self.prof.__enter__()
             self.t_prof = time.perf_counter()
         _reset_counts()
+        _reset_peak(torch)
         self.t = time.perf_counter()
 
     def median_ms(self, times):
@@ -1492,16 +1525,19 @@ def _check_params(torch, label, watch, mld):
     return len(moved), len(watch.trainable), len(frozen)
 
 
-def run_stage(torch, cfg, stage, smi, **kw):
-    """One stage through the loop's train(), checked and timed."""
+def run_stage(torch, cfg, stage, smi, steps=None, traced=None, label=None,
+              **kw):
+    """One stage through the loop's train(), checked and timed: by default
+    phase 6's steps and traced steps of the stage."""
     from mld_tpu_torch.train.loop import train
 
     want = _train_want(cfg, stage)
-    watch = _StepWatch(torch, want, TRAIN_TRACED[stage])
+    watch = _StepWatch(torch, want, traced or TRAIN_TRACED[stage])
+    label = label or stage
     t0 = time.perf_counter()
     with timed_steps(torch, watch):
-        mld = train(cfg, max_steps=TRAIN_STEPS[stage], device=DEVICE,
-                    on_step=watch, **kw)
+        mld = train(cfg, max_steps=steps or TRAIN_STEPS[stage],
+                    device=DEVICE, on_step=watch, **kw)
     wall = time.perf_counter() - t0
     moved, n_train, n_frozen = _check_params(torch, stage, watch, mld)
     with open(os.path.join(cfg.logger.folder, "mld", cfg.name,
@@ -1509,9 +1545,12 @@ def run_stage(torch, cfg, stage, smi, **kw):
         epochs = sum(json.loads(line)["split"] == "train" for line in f)
     step_med, n_step = watch.median_ms(watch.step_ms)
     loop_med, n_loop = watch.median_ms(watch.ms)
+    # the peak of the untraced steps after the first
+    peak = max(mib for step, mib in watch.peak.items() if step > 1 and not (
+        watch.traced[0] < step <= watch.traced[1]))
     b = watch.busy
     first, last = watch.logs[0], watch.logs[-1]
-    log(f"[train:{stage}] B={cfg.train.batch_size} dropout "
+    log(f"[train:{label}] B={cfg.train.batch_size} dropout "
         f"{cfg.model.dropout}: {len(watch.ms)} steps in {epochs} epochs; "
         f"train_step median "
         f"{step_med:.2f} ms (n={n_step} untraced steps after the first; "
@@ -1523,14 +1562,15 @@ def run_stage(torch, cfg, stage, smi, **kw):
         f"loop over {b['steps']} traced step(s); launches a step "
         f"{watch.counts}; trainable {moved}/{n_train} tensors moved, "
         f"{n_frozen} frozen unchanged; total {first['total']:.4f} -> "
-        f"{last['total']:.4f}; {wall:.1f} s with set-up; {smi}")
-    log(f"[train:{stage}] traced: {b['device_kernels_a_step']:.0f} device "
+        f"{last['total']:.4f}; peak allocated {peak:.1f} MiB a step; "
+        f"{wall:.1f} s with set-up; {smi}")
+    log(f"[train:{label}] traced: {b['device_kernels_a_step']:.0f} device "
         f"kernels a step; host self time a step by op: " + ", ".join(
             f"{name} {ms:.2f} ms x{count:.0f}"
             for name, ms, count in b["host_top_ms_a_step"]))
     return mld, watch, {"step_median_ms": step_med, "step_n": n_step,
                         "loop_median_ms": loop_med, "loop_n": n_loop,
-                        "epochs": epochs,
+                        "epochs": epochs, "peak_mib": peak,
                         "busy": b, "launches": watch.counts,
                         "logs_first": first, "logs_last": last}
 
@@ -1548,13 +1588,17 @@ def _batch(torch, cfg, B, device):
 
 def _diffusion_draws(torch, cfg, B, seed):
     """A diffusion step's draws from a CPU generator (steps.diffusion_loss's
-    draws= keys), so that two runs take the same."""
+    draws= keys: the CFG drop for text, EmbedAction's keep for an action),
+    so that two runs take the same."""
     m = cfg.model
     g = torch.Generator().manual_seed(seed)
     lat = (B, m.latent_size, m.latent_dim)
-    return {"eps": torch.randn(lat, generator=g),
-            "cfg_drop": torch.rand(B, generator=g) < m.guidance_uncondp,
-            "noise": torch.randn(lat, generator=g),
+    eps = torch.randn(lat, generator=g)
+    u = torch.rand(B, generator=g)
+    cond = ({"keep": u < 1.0 - m.guidance_uncondp}
+            if m.condition == "action"
+            else {"cfg_drop": u < m.guidance_uncondp})
+    return {"eps": eps, **cond, "noise": torch.randn(lat, generator=g),
             "t": torch.randint(0, m.scheduler.num_train_timesteps, (B,),
                                generator=g)}
 
@@ -2379,8 +2423,301 @@ def phase_action(torch, smi):
     return runs
 
 
+# ------------------------------------------- training: action presets, modes
+# phase 9: the action presets' three stages and the two training modes of
+# every configuration (bf16 mixed precision, remat). Each preset's synthetic
+# archive in a root of its own, clips per class: 12 x 8 = 96 HumanAct12 clips
+# (86 for training: one batch of TRAIN_B an epoch) and 40 x 2 = 80 UESTC
+# clips (72); the modes train on phase 6's corpus
+A2M_TRAIN_ROOT = os.path.join(REPO, "build", "a2m_train_smoke")
+A2M_TRAIN_CLIPS = {"mld_humanact12": 8, "mld_uestc": 2}
+# steps of each arm: step 1 a warm-up, step 5 traced (after step 4), the
+# median over steps 2-4; cut from phase 6's 8 to keep the phase near a
+# minute of the card
+MODE_STEPS = 5
+MODE_TRACED = (4, 5)
+# bf16 mixed precision against f32, one full-width diffusion step on the
+# same batch and draws, dropout 0: the bf16 step rounds weights and
+# activations to bf16 (relative steps of 2^-8, ~4e-3 on a prediction after
+# the 9 VAE encoder, 12 text and 9 denoiser layers), and the loss, a mean of
+# squared errors over B x 256 latents, averages those roundings: the tiny
+# CPU configuration (B x 32 latents) lands 3.3e-4 from its f32 step, the
+# card's full width 9.5e-6 (H100, 700 W). 1e-3 leaves 3x over the first
+BF16_LOSS_RTOL = 1e-3
+# and the bf16 step must differ from the f32 one: its worst gradient leaf
+# lies 1.98e-2 (relative L2) from the f32 step's at full width (H100,
+# 700 W), a step that silently computed in f32 would lie 0 from it; the
+# floor is 10x under the reading
+BF16_GAP_FLOOR = 2e-3
+
+
+def _a2m_train_cfg(preset, stage, dropout=None, **train):
+    from mld_tpu_torch.config import load_config
+
+    model = dict(TRAIN_MODEL)
+    if dropout is not None:
+        model["dropout"] = dropout
+    return load_config(preset=preset, overrides={
+        "name": f"smoke_{preset}_{stage}", "debug": True, "model": model,
+        "dataset": {"root": os.path.join(A2M_TRAIN_ROOT, preset)},
+        "train": {"stage": stage, "batch_size": TRAIN_B, **train},
+        "logger": {"folder": os.path.join(A2M_TRAIN_ROOT, "experiments"),
+                   "save_checkpoint_epoch": 10 ** 6,
+                   "val_every_epochs": 10 ** 6}})
+
+
+def _mode_cfg(stage, dtype="float32", remat=False, dropout=None):
+    from mld_tpu_torch.config.core import (config_from_dict, config_to_dict,
+                                           merge_dicts)
+
+    cfg = _train_cfg(stage, dropout=dropout, remat=remat)
+    return config_from_dict(merge_dicts(config_to_dict(cfg), {
+        "name": f"smoke_{stage}_{dtype}_remat{int(remat)}",
+        "model": {"dtype": dtype},
+        "logger": {"folder": os.path.join(A2M_TRAIN_ROOT, "experiments")}}))
+
+
+def _train_draws(torch, cfg, stage, B, seed):
+    """A step's draws (steps' draws= keys) from CPU generators."""
+    if stage == "diffusion":
+        return _diffusion_draws(torch, cfg, B, seed)
+    m = cfg.model
+    g = torch.Generator().manual_seed(seed + 1)
+    lat = (B, m.latent_size, m.latent_dim)
+    return {"vae": {"eps": torch.randn(lat, generator=g)},
+            "diffusion": _diffusion_draws(torch, cfg, B, seed),
+            "gen_init": torch.randn(lat, generator=g)}
+
+
+def check_a2m_train_reference(torch, preset, stage):
+    """One full-width step of an action stage at B=REF_TRAIN_B, dropout 0:
+    the card (kernels; K3 under autograd in the trainable attention, K1 in
+    the generation pass) against the CPU (plain versions, K1's too), the
+    same params, batch and draws."""
+    from mld_tpu_torch.data.datamodule import get_datamodule
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.train import steps
+
+    cfg = _a2m_train_cfg(preset, stage, dropout=0.0)
+    batch = steps.batch_to_device(next(iter(get_datamodule(cfg).loader(
+        "train", batch_size=REF_TRAIN_B, prefetch=0, drop_last=True))), "cpu")
+    draws = _train_draws(torch, cfg, stage, REF_TRAIN_B, SEED + 14)
+    want = _train_want(cfg, stage)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        mld = MLD(cfg, device=dev, fused_denoiser=True,
+                  generator=torch.Generator().manual_seed(SEED))
+        state = steps.create_train_state(mld, stage)
+        dbatch = {k: v.to(dev) for k, v in batch.items()}
+        _reset_counts()
+        logs, grads = steps.compute_grads(state, dbatch, None, draws)
+        _sync(torch)
+        counts = _read_counts()
+        if dev == "cpu":
+            if any(counts.values()):
+                raise RuntimeError(f"the CPU step launched kernels: {counts}")
+        else:
+            _check_counts(counts, want, f"{preset} {stage} reference step")
+        out[dev] = ({k: v.cpu() for k, v in logs.items()},
+                    {k: g.cpu() for k, g in grads.items()})
+        del mld, state
+    loss_err, grad_err = _grad_err(*out[DEVICE], *out["cpu"])
+    log(f"[train9:{preset} {stage}:reference] full-width step B="
+        f"{REF_TRAIN_B} dropout 0, card vs CPU: launches on the card {want}; "
+        f"loss {float(out[DEVICE][0]['total']):.6f} vs "
+        f"{float(out['cpu'][0]['total']):.6f} (rel err {loss_err:.2e}), "
+        f"worst gradient leaf {grad_err:.2e} of its scale (bar "
+        f"{TRAIN_REF_RTOL:g})")
+    if not (loss_err <= TRAIN_REF_RTOL and grad_err <= TRAIN_REF_RTOL):
+        raise RuntimeError(f"{preset} {stage}: the card's training step "
+                           f"disagrees with the CPU")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "launches": want}
+
+
+def _val_want(cfg):
+    """Kernel launches of one validation diffusion step (eval_step): the
+    frozen VAE encode (K3 a layer), the prompts and the uncond row (K4),
+    one K1 call for the denoiser."""
+    m = cfg.model
+    return {"skip_encoder": 1, "skip_decoder": 0, "skip_decoder_kernels": 0,
+            "flash_causal": 2 * m.clip_layers if m.condition == "text" else 0,
+            "flash_attention": m.num_layers}
+
+
+def check_bf16_step(torch):
+    """One full-width mld_humanml3d diffusion step, dropout 0, in bf16 mixed
+    precision against the same step in f32: the same params, batch and
+    draws. K3's bf16 arm runs in the frozen encode and, through its
+    autograd.Function, in the denoiser. Then the validation step
+    (eval_step) of each, whose denoiser is K1: in bf16 on the bf16 copies'
+    matrices (K1's bf16-weight arm)."""
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.train import steps
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _mode_cfg("diffusion", dtype=dtype, dropout=0.0)
+        if dtype == "float32":
+            batch, dm = _batch(torch, cfg, TRAIN_B, DEVICE)
+            draws = _diffusion_draws(torch, cfg, TRAIN_B, SEED + 15)
+        mld = MLD(cfg, mean=dm.mean, std=dm.std, device=DEVICE,
+                  generator=torch.Generator().manual_seed(SEED))
+        state = steps.create_train_state(mld, "diffusion")
+        _reset_counts()
+        logs, grads = steps.compute_grads(state, batch, None, draws)
+        _sync(torch)
+        _check_counts(_read_counts(), _train_want(cfg, "diffusion"),
+                      f"{dtype} diffusion step")
+        _reset_counts()
+        val = steps.eval_step(state, batch, None, draws)
+        _sync(torch)
+        _check_counts(_read_counts(), _val_want(cfg),
+                      f"{dtype} validation diffusion step")
+        out[dtype] = ({k: float(v) for k, v in logs.items()},
+                      {k: g.detach().clone() for k, g in grads.items()},
+                      float(val["total"]))
+        del mld, state
+    (f_logs, f_grads, f_val), (b_logs, b_grads, b_val) = (out["float32"],
+                                                          out["bfloat16"])
+    loss_err = abs(b_logs["total"] - f_logs["total"]) / abs(f_logs["total"])
+    val_err = abs(b_val - f_val) / abs(f_val)
+    grad_err = max(float((b_grads[k] - g).norm() / g.norm().clamp_min(1e-30))
+                   for k, g in f_grads.items())
+    log(f"[train9:bf16-vs-f32] full-width diffusion step B={TRAIN_B} "
+        f"dropout 0: total loss bf16 {b_logs['total']:.6f} vs f32 "
+        f"{f_logs['total']:.6f} (rel err {loss_err:.2e}, bar "
+        f"{BF16_LOSS_RTOL:g}); worst gradient leaf rel L2 {grad_err:.2e} "
+        f"(floor {BF16_GAP_FLOOR:g}: bf16 applied); launches "
+        f"{_train_want(cfg, 'diffusion')}; validation step (K1) bf16 "
+        f"{b_val:.6f} vs f32 {f_val:.6f} (rel err {val_err:.2e}, bar "
+        f"{BF16_LOSS_RTOL:g}), launches {_val_want(cfg)}")
+    if not (loss_err <= BF16_LOSS_RTOL and val_err <= BF16_LOSS_RTOL):
+        raise RuntimeError("the bf16 step's loss is not the f32 step's")
+    if not grad_err >= BF16_GAP_FLOOR:
+        raise RuntimeError(f"the bf16 step's gradients lie {grad_err:.2e} "
+                           f"from the f32 step's: bf16 was not applied")
+    return {"loss_rel_err": loss_err, "grad_rel_l2_worst": grad_err,
+            "val_loss_rel_err": val_err, "val_launches": _val_want(cfg)}
+
+
+def phase_train_modes(torch, smi, train_runs):
+    """The trainer's action presets and modes on the card: mld_humanact12's
+    three stages (with a resumed step and the pretrained_vae handoff) and
+    mld_uestc's diffusion stage, each action diffusion stage a card-vs-CPU
+    step; bf16 mixed precision (vae, diffusion) and remat (vae) of
+    mld_humanml3d, each against its f32 / no-remat twin, phase 6's run of
+    the same configuration (`train_runs`), and a bf16-vs-f32 step."""
+    import shutil
+
+    from mld_tpu_torch.data.a2m import synth_humanact12_pkl
+    from mld_tpu_torch.data.synthetic import build_synthetic_dataset
+    from mld_tpu_torch.train.loop import train
+    from mld_tpu_torch.utils.checkpoint import CheckpointManager
+
+    shutil.rmtree(A2M_TRAIN_ROOT, ignore_errors=True)
+    arm = {"steps": MODE_STEPS, "traced": MODE_TRACED}
+    runs = {}
+    for preset, n in A2M_TRAIN_CLIPS.items():
+        cfg = _a2m_train_cfg(preset, "vae")
+        pkl = os.path.join(cfg.dataset.root, "humanact12poses.pkl")
+        synth_humanact12_pkl(pkl, n_per_class=n,
+                             num_classes=cfg.model.nclasses)
+        if preset == "mld_uestc":
+            os.rename(pkl, os.path.join(cfg.dataset.root, "uestc_poses.pkl"))
+
+    preset = "mld_humanact12"
+    cfg = _a2m_train_cfg(preset, "vae")
+    m = cfg.model
+    log(f"[train9:{preset}] ACTOR VAE {m.num_layers}x{m.latent_dim}, denoiser "
+        f"{m.denoiser_num_layers}x{m.latent_dim}, {cfg.dataset.num_frames} "
+        f"frames, B={TRAIN_B}, dropout {m.dropout}; {MODE_STEPS} steps an "
+        f"arm (phase 6: 8)")
+    mld, _, runs[f"{preset} vae"] = run_stage(
+        torch, cfg, "vae", smi, label=f"{preset} vae", **arm)
+    del mld
+    vae_dir = os.path.join(cfg.logger.folder, "mld", cfg.name, "checkpoints")
+    mgr = CheckpointManager(vae_dir)
+    saved = mgr.restore(map_location=DEVICE)
+    watch = _StepWatch(torch, _train_want(cfg, "vae"))
+    mld = train(cfg, max_steps=1, resume=True, device=DEVICE, on_step=watch)
+    restored = [k for k, v in saved["state_dict"].items()
+                if not torch.equal(watch.before[k], v)]
+    if restored or mgr.latest_step() != saved["step"] + 1:
+        raise RuntimeError(f"resume did not restore the checkpoint of epoch "
+                           f"{saved['step']}: {restored[:5]}")
+    log(f"[train9:{preset} vae] resumed from the checkpoint of epoch "
+        f"{saved['step']}, one more step, saved epoch {mgr.latest_step()}")
+    del mld, saved
+    cfg = _a2m_train_cfg(preset, "diffusion", pretrained_vae=vae_dir)
+    mld, _, runs[f"{preset} diffusion"] = run_stage(
+        torch, cfg, "diffusion", smi, label=f"{preset} diffusion", **arm)
+    handed = mgr.restore(map_location=DEVICE)["state_dict"]
+    for k, p in mld.vae.named_parameters():
+        if not torch.equal(p, handed["vae." + k]):
+            raise RuntimeError(f"the diffusion stage's ACTOR VAE is not the "
+                               f"handed-over one: vae.{k}")
+    log(f"[train9:{preset} diffusion] its frozen ACTOR VAE is the vae "
+        f"stage's checkpoint (epoch {mgr.latest_step()}), bit for bit")
+    diff_dir = os.path.join(cfg.logger.folder, "mld", cfg.name,
+                            "checkpoints")
+    del mld, handed
+    cfg = _a2m_train_cfg(preset, "vae_diffusion", pretrained=diff_dir)
+    mld, _, runs[f"{preset} vae_diffusion"] = run_stage(
+        torch, cfg, "vae_diffusion", smi, label=f"{preset} vae_diffusion",
+        **arm)
+    del mld
+    cfg = _a2m_train_cfg("mld_uestc", "diffusion")
+    mld, _, runs["mld_uestc diffusion"] = run_stage(
+        torch, cfg, "diffusion", smi, label="mld_uestc diffusion", **arm)
+    del mld
+    torch.cuda.empty_cache()
+    for stage in ("diffusion", "vae_diffusion"):
+        runs[f"{preset} {stage} reference"] = check_a2m_train_reference(
+            torch, preset, stage)
+    torch.cuda.empty_cache()
+
+    if not os.path.exists(os.path.join(TRAIN_ROOT, "humanml3d", "Std.npy")):
+        build_synthetic_dataset(os.path.join(TRAIN_ROOT, "humanml3d"),
+                                n_samples=TRAIN_CLIPS, seed=SEED)
+    modes = (("vae", "float32", True), ("vae", "bfloat16", False),
+             ("diffusion", "bfloat16", False))
+    for stage, dtype, remat in modes:
+        label = f"mld_humanml3d {stage} {dtype}{' remat' if remat else ''}"
+        mld, _, runs[label] = run_stage(
+            torch, _mode_cfg(stage, dtype, remat), stage, smi, label=label,
+            **arm)
+        del mld
+        torch.cuda.empty_cache()
+    # the f32 / no-remat twins: phase 6's vae and diffusion stages
+    for stage in ("vae", "diffusion"):
+        runs[f"mld_humanml3d {stage} float32"] = {
+            k: train_runs[stage][k] for k in ("peak_mib", "step_median_ms")}
+    peaks = {k: r["peak_mib"] for k, r in runs.items() if "peak_mib" in r}
+    ms = {k: r["step_median_ms"] for k, r in runs.items()
+          if "step_median_ms" in r}
+    arm = "mld_humanml3d {} {}".format
+    ratios = {"vae bf16 / f32": ("vae", "bfloat16", "vae", "float32"),
+              "diffusion bf16 / f32": ("diffusion", "bfloat16", "diffusion",
+                                       "float32"),
+              "vae remat / none": ("vae", "float32 remat", "vae", "float32")}
+    f32_vae, remat = peaks[arm("vae", "float32")], peaks[arm(
+        "vae", "float32 remat")]
+    log(f"[train9:memory] peak allocated a step, MiB (f32 twins: phase 6): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in peaks.items()) + "; "
+        + ", ".join(f"{name}: peak {peaks[arm(*r[:2])] / peaks[arm(*r[2:])]:.3f}"
+                    f", ms {ms[arm(*r[:2])] / ms[arm(*r[2:])]:.3f}"
+                    for name, r in ratios.items())
+        + ("" if remat < f32_vae else
+           f" (remat did NOT lower the peak: {remat - f32_vae:+.1f} MiB)")
+        + f"; {smi}")
+    runs["bf16_vs_f32"] = check_bf16_step(torch)
+    torch.cuda.empty_cache()
+    return runs
+
+
 def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
-                 a2m_runs):
+                 a2m_runs, mode_runs):
     counts = runs["kernels"]["counts"]
     layer_res, layer_rounding = kr["encoder_layer"]
     dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
@@ -2410,8 +2747,11 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
         evals = (eval_runs["launches_a_batch"][name]
                  if name != "encoder_layer" else None)
         # phase 8: a generate_action call, an evaluated a2m batch by stage
-        a2m = a2m_evals = None
+        a2m = a2m_evals = a2m_train = None
         if name != "encoder_layer":
+            # phase 9: a training step of each action stage
+            a2m_train = {k: r["launches"][name] for k, r in mode_runs.items()
+                         if k.startswith(A2M_PRESETS) and "peak_mib" in r}
             a2m = {p: r["generate"]["want"][name]
                    for p, r in a2m_runs.items()}
             a2m_evals = {f"{p} {stage}": e["launches_a_batch"][name]
@@ -2426,6 +2766,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                 "eval_launches_a_batch": evals,
                 "a2m_launches_a_call": a2m,
                 "a2m_eval_launches_a_batch": a2m_evals,
+                "a2m_train_launches_a_step": a2m_train,
                 **extra}
 
     return {"kernels": [
@@ -2494,9 +2835,12 @@ def main():
     t0 = time.perf_counter()
     a2m_runs = phase_action(torch, smi)
     log(f"[time] action-to-motion: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mode_runs = phase_train_modes(torch, smi, train_runs)
+    log(f"[time] training presets and modes: {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
                                 runs["kernels"]["prompt_len"], train_runs,
-                                eval_runs, a2m_runs)))
+                                eval_runs, a2m_runs, mode_runs)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

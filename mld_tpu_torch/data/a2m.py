@@ -29,6 +29,7 @@ import torch
 
 from mld_tpu_torch.ops.rotation import axis_angle_to_rotation_6d
 from .collate import A2MCollator
+from .datamodule import make_loader
 from .dataset import DataLoader
 
 HUMANACT12_ACTIONS = {
@@ -197,14 +198,21 @@ class A2MDataModule:
         return self._datasets[split]
 
     def loader(self, split: str, batch_size: Optional[int] = None,
-               shuffle: Optional[bool] = None, seed: int = 0):
+               shuffle: Optional[bool] = None, seed: int = 0,
+               drop_last: bool = False,
+               prefetch: Optional[int] = None) -> DataLoader:
+        """The text loader's parameters (``datamodule.py:121-124``). The
+        JAX package's a2m loader has no `drop_last`, so its ``train()``
+        raises on these presets (``loop.py:217``); for one seed, this one's
+        batches are its batches, with a short last batch dropped under
+        `drop_last`."""
         if batch_size is None:
             batch_size = (self.cfg.train.batch_size if split == "train"
                           else self.cfg.eval.batch_size)
         if shuffle is None:
             shuffle = split == "train"
-        return DataLoader(self.dataset(split), batch_size, self.collate,
-                          shuffle=shuffle, seed=seed)
+        return make_loader(self.dataset(split), batch_size, self.collate,
+                           split, shuffle, seed, drop_last, prefetch)
 
 
 def get_a2m_datamodule(cfg):

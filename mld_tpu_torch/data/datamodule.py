@@ -127,15 +127,8 @@ class HumanML3DDataModule:
                           else self.cfg.eval.batch_size)
         if shuffle is None:
             shuffle = split == "train"
-        if prefetch is None:
-            prefetch = 3 if split == "train" else 0
-        if prefetch > 0:
-            return PrefetchDataLoader(
-                self.dataset(split), batch_size, self.collate,
-                shuffle=shuffle, seed=seed, drop_last=drop_last,
-                prefetch=prefetch)
-        return DataLoader(self.dataset(split), batch_size, self.collate,
-                          shuffle=shuffle, seed=seed, drop_last=drop_last)
+        return make_loader(self.dataset(split), batch_size, self.collate,
+                           split, shuffle, seed, drop_last, prefetch)
 
 
     def renorm4t2m_np(self, feats: np.ndarray) -> np.ndarray:
@@ -164,6 +157,21 @@ class HumanML3DDataModule:
 
 class KitDataModule(HumanML3DDataModule):
     name = "kit"
+
+
+def make_loader(dataset, batch_size: int, collate, split: str,
+                shuffle: bool, seed: int, drop_last: bool,
+                prefetch: Optional[int]) -> DataLoader:
+    """A data module's loader: `prefetch` batches assembled ahead on a
+    thread (default 3 for the train split, none otherwise), or none."""
+    if prefetch is None:
+        prefetch = 3 if split == "train" else 0
+    if prefetch > 0:
+        return PrefetchDataLoader(dataset, batch_size, collate,
+                                  shuffle=shuffle, seed=seed,
+                                  drop_last=drop_last, prefetch=prefetch)
+    return DataLoader(dataset, batch_size, collate, shuffle=shuffle,
+                      seed=seed, drop_last=drop_last)
 
 
 def get_datamodule(cfg, tokenizer=None):

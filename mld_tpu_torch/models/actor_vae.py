@@ -15,6 +15,9 @@ Parameter names follow the reference torch module: ``encoder.skel_embedding``,
 ``decoder.seqTransDecoder.*``, ``decoder.final_layer``. LayerNorm eps is
 flax's 1e-6, as the plain modules' (``ops/transformer.py``). The interface
 is ``MldVae``'s (``encode``, ``decode``); it has no kernel stack of its own.
+Under bf16 mixed precision the f32 sine PE promotes the activations to f32,
+and the layers after it compute in f32 on the bf16 weights, as the JAX
+package's do.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 from torch import nn
 
 from mld_tpu_torch.ops.embeddings import PositionEmbeddingSine1D
-from mld_tpu_torch.ops.transformer import (TransformerDecoder,
+from mld_tpu_torch.ops.transformer import (Linear, TransformerDecoder,
                                            TransformerEncoder)
 
 PE_MAX_LEN = 5000
@@ -37,7 +40,7 @@ class ActorAgnosticEncoder(nn.Module):
                  activation: str = "gelu"):
         super().__init__()
         d = latent_dim
-        self.skel_embedding = nn.Linear(nfeats, d)
+        self.skel_embedding = Linear(nfeats, d)
         self.mu_token = nn.Parameter(torch.empty(d))
         self.logvar_token = nn.Parameter(torch.empty(d))
         self.sequence_pos_encoding = PositionEmbeddingSine1D(
@@ -72,7 +75,7 @@ class ActorAgnosticDecoder(nn.Module):
         self.seqTransDecoder = TransformerDecoder(
             d, num_heads, num_layers, ff_size, activation, final_norm=False,
             dropout=dropout)
-        self.final_layer = nn.Linear(d, nfeats)
+        self.final_layer = Linear(d, nfeats)
 
     def forward(self, z: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

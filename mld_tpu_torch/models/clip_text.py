@@ -7,8 +7,10 @@ self_attn.q_proj``, ``...mlp.fc1``, ``text_model.final_layer_norm``,
 ``text_projection``), so an HF CLIP state_dict loads as it is.
 
 The tower computes in ``compute_dtype`` (bf16 in the serving preset) while its
-parameters stay f32 and its output is f32; softmax and LayerNorm statistics are
-f32. Each layer's causal attention is ``ops.attention.sdpa_flash_causal``: the
+output is f32; softmax and LayerNorm statistics are f32. Its parameters are
+f32, or their bf16 copies under bf16 mixed-precision training
+(``train/steps.py``), where the final LayerNorm and projection compute in f32
+on the bf16 weights, as the JAX package's do. Each layer's causal attention is ``ops.attention.sdpa_flash_causal``: the
 CUDA kernel K4 on the card, its plain version on the CPU. ``ClipTokenizer`` is a carried copy of the JAX package's (crc32 fallback
 and EOT buckets), held equal by a test.
 """
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mld_tpu_torch.ops.attention import sdpa_flash_causal
+from mld_tpu_torch.ops.transformer import LayerNorm, Linear
 
 CLIP_VOCAB = 49408
 CLIP_BOS = 49406
@@ -44,8 +47,8 @@ def _linear(x, layer: nn.Linear):
 
 def _layer_norm(x, ln: nn.LayerNorm):
     # statistics in f32, output in the compute dtype
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(x.dtype)
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(x.dtype)
 
 
 class ClipAttention(nn.Module):
@@ -119,7 +122,7 @@ class ClipTextTransformer(nn.Module):
         super().__init__()
         self.embeddings = ClipEmbeddings(vocab_size, width, context_length)
         self.encoder = ClipEncoder(width, layers, heads, intermediate)
-        self.final_layer_norm = nn.LayerNorm(width, eps=1e-5)
+        self.final_layer_norm = LayerNorm(width, eps=1e-5)
 
 
 class ClipTextModel(nn.Module):
@@ -134,7 +137,7 @@ class ClipTextModel(nn.Module):
         self.text_model = ClipTextTransformer(
             vocab_size, width, layers, heads, context_length,
             intermediate_size or 4 * width)
-        self.text_projection = nn.Linear(width, projection_dim, bias=False)
+        self.text_projection = Linear(width, projection_dim, bias=False)
         self.compute_dtype = getattr(torch, compute_dtype)
 
     def forward(self, input_ids: torch.Tensor, mode: str = "pooled"):

@@ -82,13 +82,13 @@ class EmbedAction(nn.Module):
 
 def _time_token(module, timestep, sample: torch.Tensor) -> torch.Tensor:
     """The time token [B, 1, d] of a host integer or a [B] / scalar tensor
-    timestep."""
+    timestep, in the sample's dtype."""
     B = sample.shape[0]
     if isinstance(timestep, torch.Tensor):
         timesteps = timestep.to(sample.device).expand(B)
     else:   # a host integer: filled on the device, no copy to wait for
         timesteps = torch.full((B,), int(timestep), device=sample.device)
-    return time_embedding(module, timesteps)[:, None]
+    return time_embedding(module, timesteps, sample.dtype)[:, None]
 
 
 class MldDenoiser(nn.Module):
@@ -141,6 +141,13 @@ class MldDenoiser(nn.Module):
         self._stacked = None
 
     def stacked_encoder(self) -> StackedSkipEncoder:
+        """K1's stacked weights: the cached stack of the parameters or,
+        while a forward runs on their bf16 copies (a mixed-precision step's
+        validation, ``train/steps.py:_segment``), a stack of those copies
+        built for the call, matrices in bf16."""
+        dtype = self.encoder.norm.weight.dtype
+        if dtype != torch.float32:
+            return stack_skip_encoder(self.encoder, dtype)
         if self._stacked is None:
             self.restack()
         return self._stacked
@@ -155,15 +162,17 @@ class MldDenoiser(nn.Module):
     def forward(self, sample: torch.Tensor, timestep,
                 encoder_hidden_states: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                training: bool = False) -> torch.Tensor:
+                training: bool = False,
+                cond_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The module path (``denoiser.py:139-186``, trans_enc, latent
         mode): sample [B, latent_size, d]; timestep scalar or [B];
         encoder_hidden_states [B, S_text, text_dim], or [B] action ids ->
         [B, latent_size, d]. Dropout is on when a generator is given; with
-        `training` an action's embedding is not CFG-masked (EmbedAction)."""
+        `training` an action's embedding is not CFG-masked, and its rows are
+        zeroed where `cond_keep` [B] bool is False (EmbedAction's drop)."""
         emb = torch.cat([_time_token(self, timestep, sample),
-                         cond_tokens(self, encoder_hidden_states, training)],
-                        dim=1)
+                         cond_tokens(self, encoder_hidden_states, training,
+                                     cond_keep)], dim=1)
         xseq = self.query_pos(torch.cat([sample, emb], dim=1))
         return self.encoder(xseq, generator=generator)[:, : sample.shape[1]]
 

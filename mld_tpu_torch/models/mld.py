@@ -26,7 +26,9 @@ plain PyTorch on the same device.
 The training pieces (``noise_scheduler``, ``encode_motion``, ``denoise``
 with ``training=``, ``decode_latent`` with ``training=``) are differentiable
 and never take K1 or K5, as in the JAX package (``mld.py:284-319``,
-``372-396``); the steps that use them are ``train/steps.py``. The evaluation
+``372-396``); the steps that use them are ``train/steps.py``, which read
+``dtype``, the training steps' compute dtype (``model.dtype``: f32, or bf16
+mixed precision). Serving ignores it, as the JAX package's does. The evaluation
 protocol (``eval/pipeline.py``) reads ``renorm4t2m`` (the evaluators'
 normalisation, ``mean_eval`` / ``std_eval``), ``generate_feats`` and, for the
 VAE stage, ``reconstruct``. Conventions:
@@ -159,9 +161,7 @@ def _check_supported(cfg: Config):
         (m.clip_last_hidden, "clip_last_hidden"),
         (m.scheduler.kind != sched, f"scheduler={m.scheduler.kind}"
          + (" without a VAE" if raw else " with a VAE")),
-        (m.dtype != "float32", f"dtype={m.dtype} (bf16 mixed precision, "
-         f"train/steps.py:104-115 of the JAX package, is a later slice of "
-         f"the port)"),
+        (m.dtype not in ("float32", "bfloat16"), f"dtype={m.dtype}"),
     ]
     bad = [msg for cond, msg in unsupported if cond]
     if bad:
@@ -254,6 +254,8 @@ class MLD(nn.Module):
         self.clip_mode = "features"
         self.raw_motion = is_raw_motion(m)
         self.condition = m.condition
+        # the training forwards' compute dtype (mld.py:65)
+        self.dtype = torch.bfloat16 if m.dtype == "bfloat16" else torch.float32
         if fused_decode is None:
             fused_decode = _fused_decode_from_env(m)
         elif fused_decode and not can_fuse_decode(m):
@@ -474,12 +476,16 @@ class MLD(nn.Module):
     def denoise(self, sample: torch.Tensor, t, cond_emb: torch.Tensor,
                 mask: Optional[torch.Tensor] = None, *,
                 training: bool = False,
-                dropout_generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                dropout_generator: Optional[torch.Generator] = None,
+                cond_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One denoiser call (``mld.py:372-396``): K1 when serving with the
         fused denoiser on, else the module path, which training and any
-        dropout always take. `mask` [B, T] zeroes the raw-motion output
-        outside the frames."""
+        dropout always take. A mixed-precision step's validation calls K1
+        on its bf16 copies of the parameters, as JAX's fused path reads
+        the cast params (``ops.fused_denoiser.fused_denoiser_forward``).
+        `mask` [B, T] zeroes the raw-motion output outside the frames; in
+        training `cond_keep` [B] bool is EmbedAction's drop of an action's
+        rows (``denoiser.py:57-60``)."""
         if self.raw_motion:
             return self.denoiser(sample, t, cond_emb, mask,
                                  generator=dropout_generator)
@@ -489,7 +495,8 @@ class MLD(nn.Module):
                 return self.denoiser.fused_forward(sample, t, cond_emb)
         # training: an action's CFG zeroing is off (EmbedAction)
         return self.denoiser(sample, t, cond_emb,
-                             generator=dropout_generator, training=training)
+                             generator=dropout_generator, training=training,
+                             cond_keep=cond_keep)
 
     def decode_latent(self, z: torch.Tensor, mask: torch.Tensor, *,
                       training: bool = False,
@@ -502,7 +509,9 @@ class MLD(nn.Module):
         (LayerNorm eps 1e-5, as JAX's fused path) or the plain modules (eps
         1e-6, as JAX's XLA path). With training or a dropout generator it is
         the plain modules with the gradient, never fused, as the JAX package
-        fuses only without a dropout rng (``mld.py:303-319``)."""
+        fuses only without a dropout rng (``mld.py:303-319``). A
+        mixed-precision step's validation fuses on its bf16 copies of the
+        parameters (``ops.fused_seq_decoder.fused_vae_decode``)."""
         if training or dropout_generator is not None:
             return self.vae.decode(z, mask, dropout_generator)
         with torch.no_grad():

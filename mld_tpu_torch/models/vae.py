@@ -70,6 +70,13 @@ class MldVae(nn.Module):
         self._stacked = None
 
     def stacked_decoder(self) -> StackedSkipDecoder:
+        """K5's stacked weights: the cached stack of the parameters or,
+        while a forward runs on their bf16 copies (a mixed-precision step's
+        validation, ``train/steps.py:_segment``), a stack of those copies
+        built for the call, matrices in bf16."""
+        dtype = self.decoder.norm.weight.dtype
+        if dtype != torch.float32:
+            return stack_skip_decoder(self.decoder, dtype)
         if self._stacked is None:
             self.restack()
         return self._stacked

@@ -17,22 +17,24 @@ from .embeddings import (DENOISER_FLIP_SIN_TO_COS, DENOISER_FREQ_SHIFT,
 from .fused_layer import LN_EPS, skip_encoder_stack
 
 
-def time_embedding(denoiser, timesteps: torch.Tensor) -> torch.Tensor:
+def time_embedding(denoiser, timesteps: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     # the sinusoid is text_encoded_dim wide for text, latent_dim for an
-    # action (denoiser.py:101, 107)
+    # action (denoiser.py:101, 107), cast to the sample's dtype (l.156)
     t_sin = get_timestep_embedding(timesteps, denoiser.time_proj_dim,
                                    DENOISER_FLIP_SIN_TO_COS,
                                    DENOISER_FREQ_SHIFT)
-    return denoiser.time_embedding(t_sin)
+    return denoiser.time_embedding(t_sin.to(dtype))
 
 
-def cond_tokens(denoiser, cond: torch.Tensor,
-                training: bool = False) -> torch.Tensor:
+def cond_tokens(denoiser, cond: torch.Tensor, training: bool = False,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The condition tokens [B, S_cond, d]: for an action the table rows of
-    the ids [B], CFG-zeroed in the first half when serving (EmbedAction);
-    for text the projected CLIP features."""
+    the ids [B], CFG-zeroed in the first half when serving, and in training
+    zeroed where `keep` [B] bool is False (EmbedAction's drop); for text the
+    projected CLIP features."""
     if denoiser.condition == "action":
-        return denoiser.emb_proj(cond, training)
+        return denoiser.emb_proj(cond, training, keep=keep)
     # emb_proj is Sequential(ReLU, Linear): the reference applies ReLU
     # before the projection (denoiser.py:161-163)
     if denoiser.emb_proj is None:
@@ -60,11 +62,18 @@ def fused_denoiser_forward(denoiser, sample: torch.Tensor,
                            ) -> torch.Tensor:
     """sample [B, L, d]; encoder_hidden_states [B, S_text, text_dim], or
     [B] action ids. time_emb [d] and cond_lat [B, S_cond, d] come from
-    precompute_cond (both or neither). Returns [B, L, d]."""
+    precompute_cond (both or neither). Returns [B, L, d] in the sample's
+    dtype.
+
+    The preamble computes in the sample's dtype, as JAX's does. The stack
+    takes f32 activations: a bf16 sample (a mixed-precision step's
+    validation, on bf16 copies of the parameters) enters it in f32 with
+    the matrices of those copies in bf16, K1's bf16-weight arm."""
     B, L, D = sample.shape
     if time_emb is None:
         timesteps = torch.as_tensor(timestep, device=sample.device)
-        time_emb = time_embedding(denoiser, timesteps.expand(B))[:, None]
+        time_emb = time_embedding(denoiser, timesteps.expand(B),
+                                  sample.dtype)[:, None]
         cond_lat = cond_tokens(denoiser, encoder_hidden_states)
     else:
         time_emb = time_emb.to(sample.dtype).reshape(1, 1, D).expand(B, 1, D)
@@ -72,9 +81,10 @@ def fused_denoiser_forward(denoiser, sample: torch.Tensor,
     xseq = xseq + denoiser.query_pos.pe[: xseq.shape[1], 0][None]
 
     enc = denoiser.encoder
-    x = skip_encoder_stack(xseq.contiguous(), denoiser.stacked_encoder(),
-                           len(enc.input_blocks), enc.num_heads)
+    x = skip_encoder_stack(xseq.float().contiguous(),
+                           denoiser.stacked_encoder(), len(enc.input_blocks),
+                           enc.num_heads)
     mu = x.mean(-1, keepdim=True)
     var = ((x - mu) ** 2).mean(-1, keepdim=True)
     x = (x - mu) / torch.sqrt(var + LN_EPS) * enc.norm.weight + enc.norm.bias
-    return x[:, :L]
+    return x[:, :L].to(sample.dtype)

@@ -381,15 +381,19 @@ def fused_vae_decode(vae, z: torch.Tensor, mask: torch.Tensor
     """Serving-path MldVae.decode (``fused_vae_decode``,
     ``fused_seq_decoder.py:178-201``): learned-PE queries pe[:T] -> the
     decoder stack (kernel) -> final LayerNorm at eps 1e-5 -> final_layer ->
-    zero outside the mask. z [B, M, D], mask [B, T] bool -> [B, T, nfeats]."""
+    zero outside the mask. z [B, M, D], mask [B, T] bool -> [B, T, nfeats]
+    in z's dtype. The stack takes f32 activations: a bf16 z (a
+    mixed-precision step's validation, on bf16 copies of the parameters)
+    enters it in f32 with the matrices of those copies in bf16, K5's
+    bf16-weight arm."""
     B, T = mask.shape
     D = z.shape[-1]
     queries = vae.query_pos_decoder.pe[:T, 0][None].expand(B, T, D)
     dec = vae.decoder
-    h = skip_decoder_stack(queries.to(z.dtype).contiguous(), z.contiguous(),
-                           mask, vae.stacked_decoder(),
+    h = skip_decoder_stack(queries.float().contiguous(),
+                           z.float().contiguous(), mask, vae.stacked_decoder(),
                            len(dec.input_blocks), dec.num_heads)
     # the final norm at the kernel's eps (1e-5), as JAX's fused_vae_decode
     # (l.197)
     h = _layer_norm(h, dec.norm.weight, dec.norm.bias)
-    return vae.final_layer(h) * mask[..., None]
+    return vae.final_layer(h.to(z.dtype)) * mask[..., None]

@@ -13,6 +13,12 @@ modules use flax's default 1e-6 (``transformer.py:101-102``, ``142-144``,
 ``199``, ``235``), which is what these modules default to. The fused
 denoiser path uses 1e-5 (``ops/fused_layer.py``).
 
+``Linear`` and ``LayerNorm`` compute in the promoted dtype of their input and
+parameters, as flax's ``Dense`` and ``LayerNorm`` (``dtype=None``) do, with
+LayerNorm's statistics in f32: under bf16 mixed-precision training
+(``train/steps.py``) an f32 activation meeting bf16 weights computes in f32,
+as in the JAX package (the ACTOR VAE after its f32 sine PE).
+
 Dropout (rate ``dropout``, the config's ``model.dropout``) is applied where
 the JAX layers apply it (``transformer.py:72-79``, ``103-117``, ``145-160``):
 on the attention probabilities, after each attention, after the FFN's
@@ -43,6 +49,39 @@ def get_activation(name: str):
     raise ValueError(f"activation {name} not supported")
 
 
+def _promoted(x: torch.Tensor, *params: Optional[torch.Tensor]):
+    """x and params in their promoted dtype (each unchanged when it has
+    it)."""
+    dt = x.dtype
+    for p in params:
+        if p is not None:
+            dt = torch.promote_types(dt, p.dtype)
+    return x.to(dt), *(None if p is None else p.to(dt) for p in params)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in the promoted dtype of input and weights (flax's
+    ``Dense``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.linear(*_promoted(x, self.weight, self.bias))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with f32 statistics and its output in the promoted
+    dtype of input and params (flax's ``LayerNorm``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype == torch.float32:
+            return super().forward(x)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(dt)
+
+
 class MultiheadAttention(nn.Module):
     """Packed-QKV multi-head attention with torch MHA's parameter names."""
 
@@ -52,12 +91,14 @@ class MultiheadAttention(nn.Module):
         self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model)
 
     def forward(self, query, key, value, key_valid=None, generator=None):
         d = query.shape[-1]
-        w, b = self.in_proj_weight, self.in_proj_bias
-        if query is key and key is value:
+        self_attn = query is key and key is value
+        query, w, b = _promoted(query, self.in_proj_weight, self.in_proj_bias)
+        key, value = key.to(w.dtype), value.to(w.dtype)
+        if self_attn:
             q, k, v = F.linear(query, w, b).split(d, dim=-1)
         else:
             q = F.linear(query, w[:d], b[:d])
@@ -83,10 +124,10 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.self_attn = MultiheadAttention(d_model, num_heads, dropout)
-        self.linear1 = nn.Linear(d_model, ff_size)
-        self.linear2 = nn.Linear(ff_size, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=eps)
-        self.norm2 = nn.LayerNorm(d_model, eps=eps)
+        self.linear1 = Linear(d_model, ff_size)
+        self.linear2 = Linear(ff_size, d_model)
+        self.norm1 = LayerNorm(d_model, eps=eps)
+        self.norm2 = LayerNorm(d_model, eps=eps)
         self.activation = get_activation(activation)
 
     def forward(self, src, key_valid=None, generator=None):
@@ -110,11 +151,11 @@ class TransformerDecoderLayer(nn.Module):
         self.dropout = dropout
         self.self_attn = MultiheadAttention(d_model, num_heads, dropout)
         self.multihead_attn = MultiheadAttention(d_model, num_heads, dropout)
-        self.linear1 = nn.Linear(d_model, ff_size)
-        self.linear2 = nn.Linear(ff_size, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=eps)
-        self.norm2 = nn.LayerNorm(d_model, eps=eps)
-        self.norm3 = nn.LayerNorm(d_model, eps=eps)
+        self.linear1 = Linear(d_model, ff_size)
+        self.linear2 = Linear(ff_size, d_model)
+        self.norm1 = LayerNorm(d_model, eps=eps)
+        self.norm2 = LayerNorm(d_model, eps=eps)
+        self.norm3 = LayerNorm(d_model, eps=eps)
         self.activation = get_activation(activation)
 
     def forward(self, tgt, memory, tgt_valid=None, memory_valid=None,
@@ -145,7 +186,7 @@ class TransformerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, num_heads, ff_size, activation,
                                     eps, dropout) for _ in range(num_layers))
-        self.norm = nn.LayerNorm(d_model, eps=eps) if final_norm else None
+        self.norm = LayerNorm(d_model, eps=eps) if final_norm else None
 
     def forward(self, src, key_valid=None, generator=None):
         x = src
@@ -168,7 +209,7 @@ class TransformerDecoder(nn.Module):
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(d_model, num_heads, ff_size, activation,
                                     eps, dropout) for _ in range(num_layers))
-        self.norm = nn.LayerNorm(d_model, eps=eps) if final_norm else None
+        self.norm = LayerNorm(d_model, eps=eps) if final_norm else None
 
     def forward(self, tgt, memory, tgt_valid=None, memory_valid=None,
                 generator=None):
@@ -192,8 +233,8 @@ class _SkipStack(nn.Module):
         self.middle_block = make_layer()
         self.output_blocks = nn.ModuleList(make_layer() for _ in range(n_block))
         self.linear_blocks = nn.ModuleList(
-            nn.Linear(2 * d_model, d_model) for _ in range(n_block))
-        self.norm = nn.LayerNorm(d_model, eps=eps)
+            Linear(2 * d_model, d_model) for _ in range(n_block))
+        self.norm = LayerNorm(d_model, eps=eps)
 
     def _run(self, x, layer_fn):
         stack = []

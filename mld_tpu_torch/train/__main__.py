@@ -3,6 +3,11 @@ that apply to one card):
 
     python -m mld_tpu_torch.train --preset mld_humanml3d --stage vae
     python -m mld_tpu_torch.train --stage diffusion --device cpu --max_steps 2
+    python -m mld_tpu_torch.train --preset mld_humanact12 --stage vae
+
+bf16 mixed precision and rematerialisation come through ``--cfg``, as with
+the repository's ``train.py``: ``model: {dtype: bfloat16}``,
+``train: {remat: true}``.
 
 Trains on the card unless ``--device`` names another; without a visible
 CUDA device the default raises.

@@ -11,9 +11,9 @@ condition at 15 and 9 layers (n_block 7 and 4).
 
 Also here: the datasets and collator (items and batches of one synthetic
 pkl, both presets), the weight bridges, ``global_norm`` against
-``optax.global_norm`` on a 3M-element leaf (fault 3.4), the training entry
-points refusing the action presets, and a child process importing every
-module of the port with jax, flax, optax and mld_tpu made unimportable.
+``optax.global_norm`` on a 3M-element leaf (fault 3.4), and a child process
+importing every module of the port with jax, flax, optax and mld_tpu made
+unimportable.
 """
 import inspect
 import json
@@ -61,7 +61,6 @@ from mld_tpu_torch.ops.fused_denoiser import (fused_denoiser_forward,
                                               precompute_cond)
 from mld_tpu_torch.ops.transformer import TransformerEncoder
 from mld_tpu_torch.train import steps
-from mld_tpu_torch.train.loop import train
 from mld_tpu_torch.utils.convert import flax_to_state_dict
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -599,18 +598,6 @@ def test_global_norm_matches_optax():
     exact = np.sqrt(sum(np.sum(v.astype(np.float64) ** 2)
                         for v in tree.values()))
     assert abs(out.item() - exact) <= 1e-7 * exact
-
-
-def test_training_refuses_the_action_presets(model_pair, tmp_path):
-    preset, _, _, tmld = model_pair
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        steps.create_train_state(tmld, "diffusion")
-    cfg = load_config(preset=preset, overrides={
-        **SMALL, "dataset": {"root": str(tmp_path / "never")},
-        "logger": {"folder": str(tmp_path / "exp")}})
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        train(cfg, max_steps=1, device="cpu")
-    assert not (tmp_path / "never").exists()
 
 
 # --------------------------------------------------------- the port's imports

@@ -1,18 +1,47 @@
 """Training in the port vs the JAX package: one step of each stage.
 
 The tiny config of tests/test_data_training.py (D=32, ff 64, 3 layers, CLIP
-2 layers, 64 frames, B=4) on a 24-clip synthetic corpus, with dropout 0 and
-the text tower in f32 on both sides, and JAX's random draws replayed
-through ``draws=`` (the VAE eps, the CFG drop, the noise, the timesteps and
-the generation pass's initial latents). Tolerances:
+2 layers, 64 frames, B=4) on a 24-clip synthetic corpus, and for the action
+presets the same widths at 16 frames on a synthetic pose archive, with
+dropout 0 and the text tower in f32 on both sides, and JAX's random draws
+replayed through ``draws=`` (the VAE eps, the CFG drop or EmbedAction's
+keep, the noise, the timesteps and the generation pass's initial latents).
+Tolerances:
 - every log value within 1e-5 x max(|v|, 1);
 - every gradient leaf within 1e-4 x max(max |g_jax|, 1e-6): f32 through two
   packages' summation orders over the 3-layer stacks;
 - AdamW on the same gradients (JAX's, bridged by flax_to_state_dict) equal
-  to ``make_optimizer``'s update within 1e-7. Adam's first step is nearly
+  to ``make_optimizer``'s update within 1e-7, but for the ACTOR VAE's
+  normal(1) mu and logvar tokens, held within the larger of 1e-7 and one
+  f32 ulp of the parameter (past 2 in magnitude the rounding of p + u
+  alone exceeds 1e-7). Adam's first step is nearly
   sign(g), so gradients 1e-7 apart around zero would give updates 2 x lr
   apart: the optimizer is compared on one set of gradients.
+
+bf16 mixed precision (``model.dtype: bfloat16``) is held to JAX's
+``_compute_cast`` step at bf16 bars: each log within 2e-2 x max(|v|, 1)
+and each gradient leaf within 5e-2 relative L2 error, 1.2e-1 in the MLD
+VAE's vae stage. Both packages round the same f32 weights and inputs to
+bf16 (a relative step of 2^-8), but round their activations at different
+points (JAX's attention casts the probabilities to bf16 before P.V, the
+port's plain attention keeps them in f32; XLA and torch sum bf16
+cotangents and round GELU and LayerNorm outputs apart), and the layers and
+their backward carry each such difference on. Measured on these inputs,
+worst logs 1.6e-3, worst leaves 1.5e-2 (diffusion), 1.1e-2 (the ACTOR
+VAE, which like JAX's computes in f32 after its f32 sine PE) and 8.7e-2
+(the MLD VAE, whose joints loss runs through recover_from_ric's rotation
+chain: there JAX's own bf16 step is 7.8e-2 from its f32 step on its worst
+leaf, the port's 5.2e-2 from its own, so two bf16 steps cannot agree much
+closer). Those bars would pass an f32 step too, so a forward hook on every
+Linear of the trained module holds that it ran on its weight's bf16 copy
+and on bf16 activations. A validation step in bf16 (``eval_step``) takes
+K1, and K5 with the fused decode on, on the bf16 copies, as JAX's fused
+paths read the cast params: its logs are held to JAX's at the log bar.
+``train.remat`` with dropout 0.1 is held to the same step without it:
+logs and gradients equal, and the generator in the same state after it.
 """
+import os
+
 import numpy as np
 import pytest
 import jax
@@ -29,6 +58,8 @@ from mld_tpu.train import steps as jsteps
 from mld_tpu.utils.torch_convert import torch_state_dict_to_flax
 
 from mld_tpu_torch.config import load_config
+from mld_tpu_torch.data.a2m import synth_humanact12_pkl
+from mld_tpu_torch.data.datamodule import get_datamodule
 from mld_tpu_torch.data.synthetic import build_synthetic_dataset
 from mld_tpu_torch.models.mld import MLD
 from mld_tpu_torch.ops import dropout as tdropout
@@ -39,6 +70,11 @@ from mld_tpu_torch.utils.convert import flax_to_state_dict
 LOG_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 ADAM_ATOL = 1e-7
+BF16_LOG_RTOL = 2e-2
+BF16_GRAD_RTOL = 5e-2
+BF16_VAE_GRAD_RTOL = 1.2e-1
+REMAT_RTOL = 1e-6
+A2M_PRESETS = ("mld_humanact12", "mld_uestc")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -58,18 +94,42 @@ def synth_root(tmp_path_factory):
     return str(root)
 
 
-def tiny_over(synth_root, stage, preset="mld_humanml3d", dropout=0.0):
+@pytest.fixture(scope="module")
+def a2m_roots(tmp_path_factory):
+    """A synthetic pose archive for each action preset, each in a root of
+    its own (the UESTC dataset copies its pkl within its root)."""
+    roots = {}
+    for preset in A2M_PRESETS:
+        root = tmp_path_factory.mktemp(f"synth_{preset}_torch_train")
+        pkl = root / "humanact12poses.pkl"
+        if preset == "mld_uestc":
+            synth_humanact12_pkl(str(pkl), n_per_class=1, num_classes=40)
+            os.rename(pkl, root / "uestc_poses.pkl")
+        else:
+            synth_humanact12_pkl(str(pkl), n_per_class=2)
+        roots[preset] = str(root)
+    return roots
+
+
+def root_of(preset, synth_root, a2m_roots):
+    return a2m_roots[preset] if preset in A2M_PRESETS else synth_root
+
+
+def tiny_over(synth_root, stage, preset="mld_humanml3d", dropout=0.0,
+              dtype="float32", remat=False):
     model = {"latent_dim": 32, "ff_size": 64, "num_layers": 3,
              "denoiser_num_layers": 3, "num_heads": 4,
              "text_encoded_dim": 32, "clip_layers": 2, "clip_heads": 2,
              "clip_compute_dtype": "float32", "dropout": dropout,
-             "scheduler": {"num_inference_timesteps": 3}}
+             "dtype": dtype, "scheduler": {"num_inference_timesteps": 3}}
     if preset == "novae_humanml3d":
         model["denoiser_num_layers"] = 2
-    return {"debug": True, "model": model,
-            "dataset": {"root": synth_root, "max_motion_len": 64,
-                        "min_motion_len": 16, "native_loader": False},
-            "train": {"stage": stage, "batch_size": 4}}
+    dataset = ({"root": synth_root, "num_frames": 16}
+               if preset in A2M_PRESETS else
+               {"root": synth_root, "max_motion_len": 64,
+                "min_motion_len": 16, "native_loader": False})
+    return {"debug": True, "model": model, "dataset": dataset,
+            "train": {"stage": stage, "batch_size": 4, "remat": remat}}
 
 
 def jax_params_of(tmld):
@@ -79,8 +139,10 @@ def jax_params_of(tmld):
     # copies: JAX on the CPU may alias a numpy buffer, which the port's
     # in-place optimizer step would then change under it
     sd = {k: v.detach().numpy().copy() for k, v in tmld.state_dict().items()}
-    params = {"clip": convert_hf_clip_text(
-        {k[5:]: v for k, v in sd.items() if k.startswith("clip.")})}
+    params = {}
+    if tmld.clip is not None:
+        params["clip"] = convert_hf_clip_text(
+            {k[5:]: v for k, v in sd.items() if k.startswith("clip.")})
     for top in ("vae", "denoiser"):
         sub = {k[len(top) + 1:]: v for k, v in sd.items()
                if k.startswith(top + ".")}
@@ -88,26 +150,38 @@ def jax_params_of(tmld):
             tree = torch_state_dict_to_flax(sub)
             if "emb_proj_1" in tree:
                 tree["emb_proj"] = tree.pop("emb_proj_1")
+            elif top == "denoiser" and tmld.condition == "action":
+                tree["emb_proj_action"] = tree.pop("emb_proj")
             params[top] = jax.tree_util.tree_map(jnp.asarray, tree)
     return params
 
 
-def make_pair(synth_root, stage, preset="mld_humanml3d"):
-    over = tiny_over(synth_root, stage, preset)
+def make_pair(synth_root, stage, preset="mld_humanml3d", **over_kw):
+    over = tiny_over(synth_root, stage, preset, **over_kw)
     jcfg = jax_load_config(preset=preset, overrides=over)
-    # the corpus's statistics, as training uses them: feats2joints of a
-    # random model's features then stays well conditioned
-    mean = np.load(f"{synth_root}/Mean.npy")
-    std = np.load(f"{synth_root}/Std.npy")
+    tcfg = load_config(preset=preset, overrides=over)
+    if preset in A2M_PRESETS:
+        # rot6d features: no statistics; the port's loader (its batches
+        # are the JAX package's, tests/test_torch_a2m.py)
+        mean = std = None
+        batch = next(iter(get_datamodule(tcfg).loader(
+            "train", batch_size=4, prefetch=0)))
+        keys = ("motion", "mask", "action")
+    else:
+        # the corpus's statistics, as training uses them: feats2joints of
+        # a random model's features then stays well conditioned
+        mean = np.load(f"{synth_root}/Mean.npy")
+        std = np.load(f"{synth_root}/Std.npy")
+        batch = None
+        keys = ("motion", "mask", "text_ids")
     jmld = JaxMLD(jcfg, mean=mean, std=std)
-    tmld = MLD(load_config(preset=preset, overrides=over), mean=mean,
-               std=std, device="cpu",
+    tmld = MLD(tcfg, mean=mean, std=std, device="cpu",
                generator=torch.Generator().manual_seed(0))
     params = jax_params_of(tmld)
-    dm = jax_get_datamodule(jcfg, tokenizer=jmld.tokenizer)
-    batch = next(iter(dm.loader("train", batch_size=4, prefetch=0)))
-    jbatch = {k: jnp.asarray(batch[k]) for k in ("motion", "mask",
-                                                  "text_ids")}
+    if batch is None:
+        dm = jax_get_datamodule(jcfg, tokenizer=jmld.tokenizer)
+        batch = next(iter(dm.loader("train", batch_size=4, prefetch=0)))
+    jbatch = {k: jnp.asarray(batch[k]) for k in keys}
     jbatch["row_valid"] = jnp.ones(4, bool)
     return jmld, params, tmld, jbatch, steps.batch_to_device(batch, "cpu")
 
@@ -126,13 +200,19 @@ def jax_draws(jmld, stage, rng, batch):
         return {"eps": _t(jax.random.normal(rng_z, lat))}
 
     def diffusion(r):
-        rng_z, rng_drop, rng_noise, rng_t, _ = jax.random.split(r, 5)
+        rng_z, rng_drop, rng_noise, rng_t, rng_cond = jax.random.split(r, 5)
         z_shape = lat if jmld.is_vae else batch["motion"].shape
-        d = {"cfg_drop": _t(jax.random.bernoulli(
-                rng_drop, jmld.cfg.model.guidance_uncondp, (B, 1, 1)))[:, 0, 0],
-             "noise": _t(jax.random.normal(rng_noise, z_shape)),
+        p = jmld.cfg.model.guidance_uncondp
+        d = {"noise": _t(jax.random.normal(rng_noise, z_shape)),
              "t": _t(jax.random.randint(
                  rng_t, (B,), 0, jmld.schedule.num_train_timesteps))}
+        if jmld.condition == "action":
+            # EmbedAction's draw (denoiser.py:57-60)
+            d["keep"] = _t(jax.random.bernoulli(
+                rng_cond, 1.0 - p, (B, 1)))[:, 0]
+        else:
+            d["cfg_drop"] = _t(jax.random.bernoulli(
+                rng_drop, p, (B, 1, 1)))[:, 0, 0]
         if jmld.is_vae:
             d["eps"] = _t(jax.random.normal(rng_z, lat))
         return d
@@ -166,12 +246,15 @@ def torch_named(tree):
 
 
 CASES = [("mld_humanml3d", "vae"), ("mld_humanml3d", "diffusion"),
-         ("mld_humanml3d", "vae_diffusion"), ("novae_humanml3d", "diffusion")]
+         ("mld_humanml3d", "vae_diffusion"), ("novae_humanml3d", "diffusion"),
+         ("mld_humanact12", "vae"), ("mld_humanact12", "diffusion"),
+         ("mld_humanact12", "vae_diffusion"), ("mld_uestc", "diffusion")]
 
 
 @pytest.mark.parametrize("preset,stage", CASES)
-def test_step_matches_jax(synth_root, preset, stage):
-    jmld, params, tmld, jbatch, tbatch = make_pair(synth_root, stage, preset)
+def test_step_matches_jax(synth_root, a2m_roots, preset, stage):
+    jmld, params, tmld, jbatch, tbatch = make_pair(
+        root_of(preset, synth_root, a2m_roots), stage, preset)
     rng = jax.random.PRNGKey(7)
     jstate, jlogs, jgrads = jax_grads(jmld, params, stage, jbatch, rng)
 
@@ -203,8 +286,18 @@ def test_step_matches_jax(synth_root, preset, stage):
     for k, p in state.params.items():
         upd = (p.detach().double() - before[k].double()).numpy()
         ref = (new[k].double() - before[k].double()).numpy()
-        np.testing.assert_allclose(upd, ref, rtol=0, atol=ADAM_ATOL,
-                                   err_msg=k)
+        if k.rsplit(".", 1)[-1] in ("mu_token", "logvar_token"):
+            # the ACTOR VAE's mu and logvar tokens are normal(1), as JAX
+            # initialises them: where one lies past 2 in magnitude, one f32
+            # ulp of the rounded p + u alone exceeds 1e-7, so the bar for
+            # these two leaves is the larger of that ulp and 1e-7
+            mag = np.maximum(before[k].abs().numpy(), np.abs(new[k].numpy()))
+            atol = np.maximum(np.spacing(mag.astype(np.float32)), ADAM_ATOL)
+            err = np.abs(upd - ref)
+            assert (err <= atol).all(), (k, float((err - atol).max()))
+        else:
+            np.testing.assert_allclose(upd, ref, rtol=0, atol=ADAM_ATOL,
+                                       err_msg=k)
         assert not np.array_equal(upd, np.zeros_like(upd)), k
 
     # the frozen subtree is untouched
@@ -345,3 +438,207 @@ def test_dropout_masks_reproducible_and_at_rate(synth_root):
     assert float(ev) == float(steps.eval_step(state, tbatch, None,
                                               eps)["total"])
     assert loss(1) != float(ev)
+
+
+def test_action_validation_loss_is_jaxs(a2m_roots):
+    """The validation diffusion loss of an action preset: JAX's eval step
+    calls the denoiser with training=False, so EmbedAction zeroes the first
+    half of the batch's condition under guidance_scale > 1
+    (denoiser.py:61-64); the port's eval_step does the same."""
+    jmld, params, tmld, jbatch, tbatch = make_pair(
+        a2m_roots["mld_humanact12"], "diffusion", "mld_humanact12")
+    rng = jax.random.PRNGKey(9)
+    jstate = jsteps.create_train_state(jmld, params, "diffusion")
+    jlogs = jsteps.make_eval_step(jmld, "diffusion")(jstate, jbatch, rng)
+    draws = jax_draws(jmld, "diffusion", rng, jbatch)
+    del draws["keep"]       # no drop outside training
+    state = steps.create_train_state(tmld, "diffusion")
+    seen = []
+    hook = tmld.denoiser.emb_proj.register_forward_hook(
+        lambda m, i, out: seen.append(out.detach().clone()))
+    try:
+        logs = steps.eval_step(state, tbatch, None, draws)
+    finally:
+        hook.remove()
+    assert set(logs) == set(jlogs)
+    for k, v in jlogs.items():
+        v = float(v)
+        assert abs(float(logs[k]) - v) <= LOG_RTOL * max(abs(v), 1.0), (
+            k, float(logs[k]), v)
+    (cond,) = seen
+    assert tmld.guidance_scale > 1.0
+    assert not cond[:2].any() and cond[2:].abs().min() > 0
+
+
+BF16_CASES = [("mld_humanml3d", "vae"), ("mld_humanml3d", "diffusion"),
+              ("mld_humanact12", "vae"), ("mld_humanact12", "diffusion")]
+
+
+@pytest.mark.parametrize("preset,stage", BF16_CASES)
+def test_bf16_step_matches_jax_compute_cast(synth_root, a2m_roots, preset,
+                                            stage):
+    """One step with model.dtype bfloat16 against JAX's _compute_cast step
+    (steps.py:104-121): logs and gradients at the bf16 bars of the module
+    docstring; every Linear of the trained module ran on its bf16 copy and
+    on bf16 activations (those bars alone would pass an f32 step);
+    gradients, masters and AdamW's moments stay f32."""
+    jmld, params, tmld, jbatch, tbatch = make_pair(
+        root_of(preset, synth_root, a2m_roots), stage, preset,
+        dtype="bfloat16")
+    assert jmld.dtype == jnp.bfloat16 and tmld.dtype == torch.bfloat16
+    rng = jax.random.PRNGKey(7)
+    _, jlogs, jgrads = jax_grads(jmld, params, stage, jbatch, rng)
+
+    state = steps.create_train_state(tmld, stage)
+    # every Linear of the module the stage trains, seen by a forward hook
+    top = tmld.vae if stage == "vae" else tmld.denoiser
+    linears = {name: m for name, m in top.named_modules()
+               if isinstance(m, torch.nn.Linear)}
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda m, i, out, name=name: seen.setdefault(name, []).append(
+            (i[0].dtype, m.weight.dtype, out.dtype)))
+        for name, m in linears.items()]
+    try:
+        logs, grads = steps.compute_grads(
+            state, tbatch, None, jax_draws(jmld, stage, rng, jbatch))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    # each ran on its weight's bf16 copy, on bf16 activations; in the ACTOR
+    # VAE the f32 sine PE promotes the activations after skel_embedding to
+    # f32, as in JAX's, so every later layer there computes in f32
+    assert set(seen) == set(linears)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name, calls in seen.items():
+        act = (f32 if preset in A2M_PRESETS and stage == "vae"
+               and name != "encoder.skel_embedding" else bf16)
+        assert set(calls) == {(act, bf16, act)}, (name, calls)
+
+    assert set(logs) == set(jlogs)
+    for k, v in jlogs.items():
+        v = float(v)
+        assert abs(float(logs[k]) - v) <= BF16_LOG_RTOL * max(abs(v), 1.0), (
+            k, float(logs[k]), v)
+    want = torch_named(jgrads)
+    assert set(grads) == set(want)
+    bar = (BF16_VAE_GRAD_RTOL if (preset, stage) == ("mld_humanml3d", "vae")
+           else BF16_GRAD_RTOL)
+    for k, g in want.items():
+        assert grads[k].dtype == torch.float32, k
+        ref = g.double()
+        err = float((grads[k].double() - ref).norm()
+                    / max(float(ref.norm()), 1e-30))
+        assert err <= bar, (k, err)
+
+    assert steps.apply_grads(state, logs["grad_norm"])
+    for k, p in tmld.named_parameters():
+        assert p.dtype == torch.float32, k
+    moments = state.optimizer.optimizer.state
+    assert moments and all(
+        v.dtype == torch.float32 for st in moments.values()
+        for key, v in st.items() if key in ("exp_avg", "exp_avg_sq"))
+
+
+BF16_EVAL_CASES = [("mld_humanml3d", "vae"), ("mld_humanml3d", "diffusion"),
+                   ("mld_humanact12", "diffusion")]
+
+
+@pytest.mark.parametrize("preset,stage", BF16_EVAL_CASES)
+def test_bf16_validation_takes_the_kernels(synth_root, a2m_roots, monkeypatch,
+                                           preset, stage):
+    """A bf16 validation step with the fused denoiser and the fused decode
+    on, against JAX's eval_step on the cast params (its fused paths, Pallas
+    in interpret mode): the logs within the bf16 log bar, and the port's
+    call went through K1's wrapper (diffusion) or K5's (vae) with f32
+    activations and the bf16 copies' matrices."""
+    from mld_tpu_torch.ops import fused_denoiser, fused_seq_decoder
+
+    monkeypatch.setenv("MLD_TPU_FUSED_DENOISER", "1")
+    monkeypatch.setenv("MLD_TPU_FUSED_DECODE", "1")
+    jmld, params, tmld, jbatch, tbatch = make_pair(
+        root_of(preset, synth_root, a2m_roots), stage, preset,
+        dtype="bfloat16")
+    assert tmld.use_fused_denoiser()
+    assert tmld.fused_decode == (preset not in A2M_PRESETS)
+    rng = jax.random.PRNGKey(5)
+    jstate = jsteps.create_train_state(jmld, params, stage)
+    jlogs = jsteps.make_eval_step(jmld, stage)(jstate, jbatch, rng)
+
+    seen = []
+    for mod, name, field in ((fused_denoiser, "skip_encoder_stack", "wqkv"),
+                             (fused_seq_decoder, "skip_decoder_stack",
+                              "wqkv_s")):
+        inner = getattr(mod, name)
+
+        def spy(x, *a, inner=inner, name=name, field=field):
+            stacked = next(v for v in a if hasattr(v, field))
+            seen.append((name, x.dtype, getattr(stacked, field).dtype))
+            return inner(x, *a)
+
+        monkeypatch.setattr(mod, name, spy)
+    state = steps.create_train_state(tmld, stage)
+    logs = steps.eval_step(state, tbatch, None,
+                           jax_draws(jmld, stage, rng, jbatch))
+    kernel = "skip_decoder_stack" if stage == "vae" else "skip_encoder_stack"
+    assert seen == [(kernel, torch.float32, torch.bfloat16)]
+    assert set(logs) == set(jlogs)
+    for k, v in jlogs.items():
+        v = float(v)
+        assert abs(float(logs[k]) - v) <= BF16_LOG_RTOL * max(abs(v), 1.0), (
+            k, float(logs[k]), v)
+
+
+REMAT_CASES = [("mld_humanml3d", "vae"), ("mld_humanml3d", "diffusion"),
+               ("mld_humanml3d", "vae_diffusion"), ("mld_humanact12", "vae")]
+
+
+@pytest.mark.parametrize("preset,stage", REMAT_CASES)
+def test_remat_equals_no_remat(synth_root, a2m_roots, preset, stage):
+    """train.remat recomputes its segments in the backward (the stack
+    under grad runs twice) and replays their dropout masks: with dropout
+    0.1 and one seeded generator the logs and every gradient leaf equal the
+    step without it, and the generator ends in the same state."""
+    root = root_of(preset, synth_root, a2m_roots)
+    out = {}
+    for remat in (False, True):
+        over = tiny_over(root, stage, preset, dropout=0.1, remat=remat)
+        tcfg = load_config(preset=preset, overrides=over)
+        mean = std = None
+        if preset not in A2M_PRESETS:
+            mean = np.load(f"{root}/Mean.npy")
+            std = np.load(f"{root}/Std.npy")
+        tmld = MLD(tcfg, mean=mean, std=std, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+        if preset in A2M_PRESETS:
+            batch = next(iter(get_datamodule(tcfg).loader(
+                "train", batch_size=4, prefetch=0)))
+        else:
+            batch = next(iter(get_datamodule(tcfg, tmld.tokenizer).loader(
+                "train", batch_size=4, prefetch=0)))
+        state = steps.create_train_state(tmld, stage)
+        segment = (tmld.vae.encoder if stage == "vae"
+                   else tmld.denoiser.encoder)
+        calls = []
+        hook = segment.register_forward_pre_hook(
+            lambda *a: calls.append(None) if torch.is_grad_enabled()
+            else None)
+        g = torch.Generator().manual_seed(11)
+        try:
+            logs, grads = steps.compute_grads(
+                state, steps.batch_to_device(batch, "cpu"), g)
+        finally:
+            hook.remove()
+        out[remat] = (logs, {k: v.clone() for k, v in grads.items()},
+                      g.get_state(), len(calls))
+    (logs, grads, g_state, n), (r_logs, r_grads, r_state, r_n) = (
+        out[False], out[True])
+    assert r_n == 2 * n
+    assert torch.equal(r_state, g_state)
+    for k, v in logs.items():
+        assert abs(float(r_logs[k]) - float(v)) <= REMAT_RTOL * max(
+            abs(float(v)), 1.0), (k, float(r_logs[k]), float(v))
+    assert set(r_grads) == set(grads)
+    for k, g in grads.items():
+        scale = max(float(g.abs().max()), 1e-12)
+        assert float((r_grads[k] - g).abs().max()) <= REMAT_RTOL * scale, k
