@@ -44,7 +44,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                         evaluation's [960, 4, 196, 64] under the frame mask;
                         1 key) and of the ACTOR VAE ([128, 4, 60, 64] under
                         a ragged frame mask, to 1 key, and the encoder's
-                        [128, 4, 62, 64]), on views into packed projections
+                        [128, 4, 62, 64]) and of the text-family options
+                        (phase 10: the hidden-mode denoiser [256, 4, 79,
+                        64], the plain-encoder denoiser [256, 4, 3, 64],
+                        the latent trans_dec's [256, 4, 1, 64] to 1 and 2
+                        keys, the all_encoder decode [128, 4, 197, 64]
+                        under [1; mask], raw motion's trans_enc [256, 4,
+                        198, 128]), on views into packed projections
                         as the model hands them over, plus ragged cases
                         with a fully masked example (Sq and Sk off every
                         tile, Dh = 4 and 68), f32 and bf16;
@@ -128,7 +134,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      each against phase 6's f32 run of the same configuration (peak memory
      and ms a step: bf16 against f32, remat against none), and one bf16
      diffusion step against the f32 step on the same batch and draws;
- 10. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+ 10. the text family's model options (seeded random weights at the
+     presets' full widths and depths; only the option changes), each arm
+     through MLD.generate on the demo prompts, then generate_joints at
+     B=128 (the launches of every call against the counts derived from the
+     model, the median of 3 warm calls, the device busy share of one traced
+     call) and the card's joints for one prompt against the CPU's (plain
+     versions, f32 text tower, the same ids and initial latents): hidden
+     mode (clip_last_hidden: K3 468, K4 24 at S = 77, K1 0), text_uncond
+     (K1 50, K3 18, K4 12), the ablation (all_encoder + mlp_dist VAE, sine
+     PE, pre-norm, a plain encoder denoiser: K3 459), VPosert (K1 50, K3 0),
+     latent_size 7 with fused_decode (K3 450, K5 1), mld_kit (251
+     features, 21 joints), the latent trans_dec denoiser (K3 918) and raw
+     motion's trans_enc with DDIM-50 (K3 450); then training at B=64,
+     dropout 0.1, 3 steps an arm: hidden-mode diffusion (K4 24 at S = 77,
+     K3 9) and the ablation's vae stage (K3 0), each with its launches,
+     finite logs, frozen params unchanged, ms a step and peak memory, and
+     one B=8 dropout-0 step against the CPU;
+ 11. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
@@ -252,6 +275,22 @@ FLASH_CASES += (
     ("actor decode cross", B_LARGE, 4, A2M_FRAMES, 1, 64, None),
     ("actor encode self", B_LARGE, 4, A2M_FRAMES + 2, A2M_FRAMES + 2, 64,
      "actor tokens"),
+)
+# the text-family options (phase 10) at B = 128 under CFG: the hidden-mode
+# denoiser's self-attention over [z; t; 77 hidden states] (79 tokens, off
+# every tile, no mask); the plain-encoder denoiser over [z; t; text] (3);
+# the latent trans_dec denoiser's self-attention over its one latent token
+# and its cross-attention to [t; text] (2 keys); the all_encoder VAE's
+# decode over [z; 196 frames] under [1; mask] at B = 128; and raw motion's
+# trans_enc denoiser over [t; text; 196 frames] (4 heads of 128)
+FLASH_CASES += (
+    ("hidden denoiser self", 2 * B_LARGE, 4, 79, 79, 64, None),
+    ("plain denoiser self", 2 * B_LARGE, 4, 3, 3, 64, None),
+    ("latent dec self", 2 * B_LARGE, 4, 1, 1, 64, None),
+    ("latent dec cross", 2 * B_LARGE, 4, 1, 2, 64, None),
+    ("all_encoder decode self", B_LARGE, 4, T_FRAMES + 1, T_FRAMES + 1, 64,
+     "decode tokens"),
+    ("raw enc self", 2 * B_LARGE, 4, T_FRAMES + 2, T_FRAMES + 2, 128, None),
 )
 # the case whose times the kernels line carries: one self-attention of
 # novae_stress_s512 at the demo batch
@@ -757,7 +796,8 @@ def check_skip_decoder(torch, vae, lengths, g):
                 atol, f"{wname} B={B} T={T_FRAMES} M=1",
                 lambda: fsd.LAUNCHES, mask=valid, iters=10,
                 work=_decoder_work(tgt, mem, valid, st))
-    # the general cross-attention path (can_fuse_decode admits M <= 8)
+    # the general cross-attention path (can_fuse_decode admits M <= 8): 2
+    # latent tokens, and MLD-7's 7 at B=128 in both weight arms (phase 10)
     st = stack_skip_decoder(vae.decoder)
     tgt, mem, valid = _decode_inputs(torch, vae, lengths, 6, 2, g)
     _hold(torch, "skip_decoder",
@@ -765,6 +805,16 @@ def check_skip_decoder(torch, vae, lengths, g):
           lambda: skip_decoder_stack_plain(tgt, mem, valid, st, N_BLOCK, H),
           F32_ATOL, f"f32 B=6 T={T_FRAMES} M=2", lambda: fsd.LAUNCHES,
           mask=valid, iters=5)
+    tgt, mem, valid = _decode_inputs(torch, vae, lengths, B_LARGE, 7, g)
+    for wname, wdt, atol in WEIGHT_ARMS:
+        st = stack_skip_decoder(vae.decoder, getattr(torch, wdt))
+        res[(wname, ("M=7", B_LARGE))] = _hold(
+            torch, "skip_decoder", lambda: kernel(tgt, mem, valid, st),
+            lambda: skip_decoder_stack_plain(tgt, mem, valid, st, N_BLOCK,
+                                             H),
+            atol, f"{wname} B={B_LARGE} T={T_FRAMES} M=7",
+            lambda: fsd.LAUNCHES, mask=valid, iters=5,
+            work=_decoder_work(tgt, mem, valid, st))
     # the bf16 rounding, at the first layer
     st16 = _first_layer(stack_skip_decoder(vae.decoder, torch.bfloat16))
     st32 = _first_layer(stack_skip_decoder(vae.decoder))
@@ -928,6 +978,11 @@ def check_flash(torch, lengths, g):
             frames = list(A2M_LENGTHS) * -(-B // len(A2M_LENGTHS))
             valid = lengths_to_mask([n_tok + n for n in frames[:B]], Sk,
                                     DEVICE)
+        elif mask == "decode tokens":
+            # [ones(latent tokens); the demo lengths' frame mask]
+            n_tok = Sk - T_FRAMES
+            frames = (lengths * -(-B // len(lengths)))[:B]
+            valid = lengths_to_mask([n_tok + n for n in frames], Sk, DEVICE)
         for dname, dt, atol in (("f32", torch.float32, ATTN_F32_ATOL),
                                 ("bf16", torch.bfloat16, ATTN_BF16_ATOL)):
             q, k, v = split(raw.to(dt) if torch.is_tensor(raw)
@@ -1386,13 +1441,16 @@ def _train_want(cfg, stage):
     decoder layers, self- and cross-attention, and the denoiser's layers).
     K4 runs for the prompts and the uncond row (an action has no text
     tower); K1 once a DDIM step of the generation pass. The MLD VAE and the
-    ACTOR VAE count alike: num_layers encoder and decoder layers."""
+    ACTOR VAE count alike: num_layers encoder and decoder layers, each
+    decoder layer self- and cross-attention, but the all_encoder arch's
+    (self-attention only)."""
     m = cfg.model
     want = {"skip_encoder": 0, "skip_decoder": 0, "skip_decoder_kernels": 0,
             "flash_causal": 0, "flash_attention": 0}
-    text = 2 * m.clip_layers if m.condition == "text" else 0
+    text = 2 * m.clip_layers if m.condition != "action" else 0
+    dec = 1 if m.vae_arch == "all_encoder" and m.vae_type == "mld" else 2
     if m.dropout == 0.0 and stage in ("vae", "vae_diffusion"):
-        want["flash_attention"] = 3 * m.num_layers
+        want["flash_attention"] = (1 + dec) * m.num_layers
     if stage == "vae":
         return want
     want["flash_causal"] = text
@@ -2716,8 +2774,335 @@ def phase_train_modes(torch, smi, train_runs):
     return runs
 
 
+# ------------------------------------------------ the text-family options
+# phase 10: the model options of the text family at full width, each arm a
+# configuration the JAX package builds and serves: (label, preset, model
+# overrides, MLD keywords). The widths and depths are the preset's; only the
+# option named changes
+OPTIONS_ABLATION = {"vae_arch": "all_encoder", "mlp_dist": True,
+                    "position_embedding": "sine", "normalize_before": True,
+                    "skip_connect": False}
+OPTION_ARMS = (
+    ("hidden", "mld_humanml3d", {"clip_last_hidden": True}, {}),
+    ("uncond", "mld_humanml3d", {"condition": "text_uncond"}, {}),
+    ("ablation", "mld_humanml3d", OPTIONS_ABLATION, {}),
+    ("vposert", "mld_humanml3d", {"vae_type": "vposert"}, {}),
+    ("mld7_fused", "mld_humanml3d", {"latent_size": 7},
+     {"fused_decode": True}),
+    ("kit", "mld_kit", {}, {}),
+    ("latent_dec", "mld_humanml3d", {"denoiser_arch": "trans_dec"}, {}),
+    ("raw_enc", "novae_humanml3d", {
+        "denoiser_arch": "trans_enc",
+        "scheduler": {"kind": "ddim", "num_inference_timesteps": 50}}, {}),
+)
+# training arms of phase 10 at full width, B = TRAIN_B, dropout 0.1, on
+# phase 6's corpus: (label, stage, model overrides); 3 steps each, the first
+# a warm-up, the third traced, so the median is step 2's
+OPTION_TRAIN_ARMS = (("hidden diffusion", "diffusion",
+                      {"clip_last_hidden": True}),
+                     ("ablation vae", "vae", OPTIONS_ABLATION))
+OPTION_TRAIN_STEPS = 3
+OPTION_TRAIN_TRACED = (2, 3)
+# model overrides of the generation arms (none: the presets' full width)
+OPTIONS_MODEL = {}
+
+
+def _options_cfg(preset, model):
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.config.core import merge_dicts
+
+    return load_config(preset=preset, overrides={
+        "model": merge_dicts(OPTIONS_MODEL, model)})
+
+
+def _options_want(mld):
+    """Kernel launches of one generate call of an option arm, from the
+    model: K4 a CLIP layer for the prompts (none under text_uncond with
+    CFG, where only the uncond row is encoded) and for the uncond row; K1 a
+    DDIM step where K1 serves the denoiser, else K3 in each denoiser layer
+    (self-attention, and trans_dec's cross-attention too) every step; the
+    VAE decode's K3 (the plain MLD VAE: self- and cross-attention a layer,
+    all_encoder self-attention only; VPosert and raw motion none) or K5's
+    one call with its kernels."""
+    from mld_tpu_torch.models.vae import MldVae
+    from mld_tpu_torch.ops.fused_seq_decoder import launch_count
+
+    m = mld.cfg.model
+    n_steps = len(mld.scheduler.timesteps())
+    prompts = not (m.condition == "text_uncond" and mld.do_cfg)
+    fused = mld.use_fused_denoiser()
+    per_step = (2 if m.denoiser_arch == "trans_dec" else 1) \
+        * m.denoiser_num_layers
+    decode = 0
+    if isinstance(mld.vae, MldVae) and not mld.fused_decode:
+        decode = (1 if m.vae_arch == "all_encoder" else 2) * m.num_layers
+    n_block = (m.num_layers - 1) // 2
+    return {"skip_encoder": n_steps if fused else 0,
+            "skip_decoder": int(mld.fused_decode),
+            "skip_decoder_kernels": int(mld.fused_decode) * launch_count(
+                n_block, m.latent_size),
+            "flash_causal": m.clip_layers * (int(prompts) + int(mld.do_cfg)),
+            "flash_attention": (0 if fused else per_step * n_steps) + decode}
+
+
+# MLD-7 with random weights: after 50 CFG-7.5 steps its 7 latent tokens
+# reach ~69, where the card's latents, 2.1e-6 of their scale from the CPU's,
+# and the decoder's f32 roundoff at that scale move the joints by 2.4e-2 at
+# a scale of 11.4, past the bar (H100, 700 W), while K5 at M=7 holds 5.4e-6
+# against its plain version: on the CPU alone a random 1.45e-4 change of
+# those latents moves the joints by 5e-3. Its arm is held stage by stage
+# (the latents, and the decode of the CPU's latents), each at the bar, and
+# its end-to-end error is printed
+STAGED_REFERENCE = ("mld7_fused",)
+
+
+def _options_reference(torch, label, cfg, mld, text, length, kw):
+    """One prompt on the card (the arm's model with its text tower in f32)
+    and on the CPU (plain versions, f32 text tower, the same seeded
+    weights), from the same ids and initial latents; K1's plain version on
+    the CPU where the card runs K1 (its LayerNorm eps 1e-5). Three errors,
+    each against the bar E2E_RTOL x max(scale, 1): the latents after the
+    reverse process, the joints the card decodes from the CPU's latents,
+    and the joints end to end (not held for STAGED_REFERENCE)."""
+    from mld_tpu_torch.config.core import (config_from_dict, config_to_dict,
+                                           merge_dicts)
+    from mld_tpu_torch.models.mld import MLD, lengths_to_mask
+
+    cfg32 = config_from_dict(merge_dicts(config_to_dict(cfg), {
+        "model": {"clip_compute_dtype": "float32"}}))
+    fused = True if mld.use_fused_denoiser() else None
+    shape = ((1, mld.max_frames, mld.nfeats) if mld.raw_motion else
+             (1, mld.latent_size, mld.latent_dim))
+    init = torch.randn(shape, generator=torch.Generator().manual_seed(
+        SEED + 3))
+    ids = mld.tokenize([text]).cpu()
+
+    def latents(model):
+        mask = lengths_to_mask([length], model.max_frames, model.device)
+        return model.diffusion_reverse(model.condition_embedding(
+            ids.to(model.device)), init_latents=init, mask=mask), mask
+
+    def joints(model, z, mask):
+        z = z.to(model.device)
+        feats = (z * mask[..., None] if model.raw_motion
+                 else model.decode_latent(z, mask))
+        return model.masked_joints(feats, mask).cpu()
+
+    tower = mld.clip.compute_dtype
+    mld.clip.compute_dtype = torch.float32
+    try:
+        z_card, mask = latents(mld)
+        j_card = joints(mld, z_card, mask)
+        cpu = MLD(cfg32, device="cpu", fused_denoiser=fused,
+                  generator=torch.Generator().manual_seed(SEED), **kw)
+        _reset_counts()
+        z_cpu, cpu_mask = latents(cpu)
+        j_cpu = joints(cpu, z_cpu, cpu_mask)
+        if any(_read_counts().values()):
+            raise RuntimeError(f"the CPU run launched kernels: "
+                               f"{_read_counts()}")
+        j_decode = joints(mld, z_cpu, mask)
+    finally:
+        mld.clip.compute_dtype = tower
+
+    def err(a, b):
+        scale = b.abs().max().item()
+        return (a.cpu() - b).abs().max().item(), scale
+
+    errs = {"latents": err(z_card, z_cpu), "decode": err(j_decode, j_cpu),
+            "joints": err(j_card, j_cpu)}
+    held = [k for k in errs
+            if not (k == "joints" and label in STAGED_REFERENCE)]
+    bad = [k for k in held
+           if not errs[k][0] <= E2E_RTOL * max(errs[k][1], 1.0)]
+    return errs, held, bad
+
+
+def drive_options(torch, label, cfg, mld, texts, lengths, kw):
+    """One option arm: the demo prompts through MLD.generate, then
+    generate_joints at B = 128 (first call, the median of 3 warm calls, one
+    traced call), the launches of every call checked, and the card's
+    joints for one prompt against the CPU's."""
+    import numpy as np
+
+    from mld_tpu_torch.models.mld import lengths_to_mask
+
+    want = _options_want(mld)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    _reset_counts()
+    t0 = time.perf_counter()
+    motions = mld.generate(texts, lengths, generator=gen)
+    _sync(torch)
+    first = time.perf_counter() - t0
+    _check_counts(_read_counts(), want, f"options {label} generate")
+    for motion, n in zip(motions, lengths):
+        if motion.shape != (n, mld.njoints, 3) or not np.isfinite(
+                motion).all():
+            raise RuntimeError(f"options {label}: bad motion {motion.shape} "
+                               f"for length {n}")
+    reps = -(-B_LARGE // len(texts))
+    ids = mld.tokenize((texts * reps)[:B_LARGE])
+    blengths = (lengths * reps)[:B_LARGE]
+    mask = lengths_to_mask(blengths, mld.max_frames, mld.device)
+
+    def call():
+        _reset_counts()
+        joints = mld.generate_joints(ids, mask, generator=gen)
+        _sync(torch)
+        _check_counts(_read_counts(), want,
+                      f"options {label} generate_joints B={B_LARGE}")
+        return joints
+
+    _check_joints(torch, call(), mask,
+                  (B_LARGE, mld.max_frames, mld.njoints, 3))
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t0)
+    med = sorted(times)[1]
+    wall, busy, kinds = _traced_busy(torch, call)
+    errs, held, bad = _options_reference(torch, label, cfg, mld, texts[0],
+                                         lengths[0], kw)
+    log(f"[options:{label}] generate {len(texts)} prompts {first:.3f} s "
+        f"(first call); generate_joints B={B_LARGE} (ids "
+        f"{tuple(ids.shape)}): {', '.join(f'{t:.4f}' for t in times)} s "
+        f"(median {med:.4f} s, {B_LARGE / med:.1f} motions/s); one traced "
+        f"call: device busy {busy:.2f} ms, {100 * busy / (1e3 * med):.1f}% "
+        f"of the median call ({wall:.2f} ms under the profiler); by layer: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in Counter(kinds).most_common())
+        + f"; launches every call {want}; card vs CPU, one prompt, "
+        f"max_abs_err (scale): " + ", ".join(
+            f"{k} {e:.3e} ({sc:.3e})" + ("" if k in held else " not held")
+            for k, (e, sc) in errs.items())
+        + f"; bar {E2E_RTOL:g} x max(scale, 1)")
+    if bad:
+        raise RuntimeError(f"options {label}: the card disagrees with the "
+                           f"CPU reference ({', '.join(bad)})")
+    return {"launches": want, "median_s": med,
+            "busy_share": busy / (1e3 * med), "busy_ms": busy,
+            "by_layer_ms": kinds, "ref_errs": errs,
+            "prompt_len": ids.shape[1]}
+
+
+def _options_train_cfg(label, stage, model, dropout=None):
+    from mld_tpu_torch.config.core import (config_from_dict, config_to_dict,
+                                           merge_dicts)
+
+    cfg = _train_cfg(stage, dropout=dropout)
+    return config_from_dict(merge_dicts(config_to_dict(cfg), {
+        "name": f"smoke_options_{label.replace(' ', '_')}",
+        "model": model}))
+
+
+def check_options_train_reference(torch, label, stage, model):
+    """One full-width step of an option arm at B=REF_TRAIN_B, dropout 0,
+    f32 text tower: the card (kernels; K3 under autograd in the trainable
+    attention) against the CPU (plain versions), the same params, batch
+    and draws."""
+    from mld_tpu_torch.config.core import (config_from_dict, config_to_dict,
+                                           merge_dicts)
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.train import steps
+
+    cfg = config_from_dict(merge_dicts(config_to_dict(
+        _options_train_cfg(label, stage, model, dropout=0.0)),
+        {"model": {"clip_compute_dtype": "float32"}}))
+    batch, dm = _batch(torch, cfg, REF_TRAIN_B, "cpu")
+    if stage == "diffusion":
+        draws = _diffusion_draws(torch, cfg, REF_TRAIN_B, SEED + 21)
+    else:
+        m = cfg.model
+        draws = {"eps": torch.randn(
+            REF_TRAIN_B, m.latent_size, m.latent_dim,
+            generator=torch.Generator().manual_seed(SEED + 21))}
+    want = _train_want(cfg, stage)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        mld = MLD(cfg, mean=dm.mean, std=dm.std, device=dev,
+                  generator=torch.Generator().manual_seed(SEED))
+        state = steps.create_train_state(mld, stage)
+        dbatch = {k: v.to(dev) for k, v in batch.items()}
+        _reset_counts()
+        logs, grads = steps.compute_grads(state, dbatch, None, draws)
+        _sync(torch)
+        counts = _read_counts()
+        if dev == "cpu":
+            if any(counts.values()):
+                raise RuntimeError(f"the CPU step launched kernels: {counts}")
+        else:
+            _check_counts(counts, want, f"options {label} reference step")
+        out[dev] = ({k: v.cpu() for k, v in logs.items()},
+                    {k: g.cpu() for k, g in grads.items()})
+        del mld, state
+    loss_err, grad_err = _grad_err(*out[DEVICE], *out["cpu"])
+    log(f"[options-train:{label}:reference] full-width step B="
+        f"{REF_TRAIN_B} dropout 0, card vs CPU: launches on the card {want}; "
+        f"loss {float(out[DEVICE][0]['total']):.6f} vs "
+        f"{float(out['cpu'][0]['total']):.6f} (rel err {loss_err:.2e}), "
+        f"worst gradient leaf {grad_err:.2e} of its scale (bar "
+        f"{TRAIN_REF_RTOL:g})")
+    if not (loss_err <= TRAIN_REF_RTOL and grad_err <= TRAIN_REF_RTOL):
+        raise RuntimeError(f"options {label}: the card's training step "
+                           f"disagrees with the CPU")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "launches": want}
+
+
+def phase_options(torch, smi, texts, lengths):
+    """The text family's model options on the card: each arm of
+    OPTION_ARMS through MLD.generate and generate_joints with its launches
+    and a card-vs-CPU check, then OPTION_TRAIN_ARMS through train() with a
+    card-vs-CPU step each."""
+    from mld_tpu_torch.data.synthetic import build_synthetic_dataset
+    from mld_tpu_torch.models.mld import MLD
+
+    runs = {}
+    for label, preset, model, kw in OPTION_ARMS:
+        t0 = time.perf_counter()
+        cfg = _options_cfg(preset, model)
+        m = cfg.model
+        mld = MLD(cfg, device=DEVICE,
+                  generator=torch.Generator().manual_seed(SEED), **kw)
+        log(f"[options:{label}] {preset} with {model} {kw}: CLIP "
+            f"{m.clip_layers}x{m.text_encoded_dim} {m.clip_compute_dtype} "
+            f"({mld.clip_mode} mode, {m.condition}), denoiser "
+            f"{m.denoiser_arch} {m.denoiser_num_layers}x{m.latent_dim} "
+            f"(skip {m.skip_connect}, pre-norm {m.normalize_before}, PE "
+            f"{m.position_embedding}, latent_size {m.latent_size}, K1 "
+            f"{mld.use_fused_denoiser()}), VAE {type(mld.vae).__name__} "
+            f"({m.vae_arch if m.vae_type == 'mld' else m.vae_type}, mlp_dist "
+            f"{m.mlp_dist}, fused decode {mld.fused_decode}), "
+            f"{cfg.dataset.nfeats} features, {cfg.dataset.njoints} joints, "
+            f"{type(mld.scheduler).__name__}-"
+            f"{len(mld.scheduler.timesteps())}, CFG {m.guidance_scale}")
+        runs[label] = drive_options(torch, label, cfg, mld, texts, lengths,
+                                    kw)
+        del mld
+        torch.cuda.empty_cache()
+        log(f"[time] options {label}: {time.perf_counter() - t0:.1f} s")
+
+    if not os.path.exists(os.path.join(TRAIN_ROOT, "humanml3d", "Std.npy")):
+        build_synthetic_dataset(os.path.join(TRAIN_ROOT, "humanml3d"),
+                                n_samples=TRAIN_CLIPS, seed=SEED)
+    for label, stage, model in OPTION_TRAIN_ARMS:
+        t0 = time.perf_counter()
+        mld, _, runs[f"train {label}"] = run_stage(
+            torch, _options_train_cfg(label, stage, model), stage, smi,
+            steps=OPTION_TRAIN_STEPS, traced=OPTION_TRAIN_TRACED,
+            label=f"options {label}")
+        del mld
+        torch.cuda.empty_cache()
+        runs[f"train {label} reference"] = check_options_train_reference(
+            torch, label, stage, model)
+        torch.cuda.empty_cache()
+        log(f"[time] options training {label}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
-                 a2m_runs, mode_runs):
+                 a2m_runs, mode_runs, option_runs):
     counts = runs["kernels"]["counts"]
     layer_res, layer_rounding = kr["encoder_layer"]
     dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
@@ -2757,6 +3142,11 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
             a2m_evals = {f"{p} {stage}": e["launches_a_batch"][name]
                          for p, r in a2m_runs.items()
                          for stage, e in r["eval"].items()}
+        # phase 10: a generate call of each option arm, a training step of
+        # each option training arm
+        options = ({k: r["launches"][name] for k, r in option_runs.items()
+                    if "launches" in r and "reference" not in k}
+                   if name != "encoder_layer" else None)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst(results, key[0]), **arm(results[key]),
@@ -2767,6 +3157,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                 "a2m_launches_a_call": a2m,
                 "a2m_eval_launches_a_batch": a2m_evals,
                 "a2m_train_launches_a_step": a2m_train,
+                "options_launches": options,
                 **extra}
 
     return {"kernels": [
@@ -2838,9 +3229,13 @@ def main():
     t0 = time.perf_counter()
     mode_runs = phase_train_modes(torch, smi, train_runs)
     log(f"[time] training presets and modes: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    option_runs = phase_options(torch, smi, texts, lengths)
+    log(f"[time] text-family options: {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
                                 runs["kernels"]["prompt_len"], train_runs,
-                                eval_runs, a2m_runs, mode_runs)))
+                                eval_runs, a2m_runs, mode_runs,
+                                option_runs)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -280,8 +280,11 @@ class Evaluator:
         motion = (torch.as_tensor(batch["motion"], device=dev)
                   if stage == "vae" or not mm else None)
         if stage == "diffusion":
-            ids = crop_to_bucket(torch.as_tensor(batch["text_ids"],
-                                                 dtype=torch.long))
+            ids = torch.as_tensor(batch["text_ids"], dtype=torch.long)
+            # the EOT crop is exact in features mode only; hidden mode
+            # conditions on all 77 positions (mld.py:272-274)
+            if mld.clip_mode == "features":
+                ids = crop_to_bucket(ids)
             feats_rst = mld.generate_feats(ids.to(dev), mask,
                                            init_latents=draws["init_latents"])
         else:  # vae reconstruction (stage-1 eval)

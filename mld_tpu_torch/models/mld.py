@@ -1,5 +1,5 @@
 """MLD motion generation (port of ``mld_tpu/models/mld.py``), in three
-families:
+families, as the presets configure them:
 
   latent (mld_humanml3d): texts -> tokens (host, EOT buckets) -> CLIP -> 50
       DDIM steps of the trans_enc denoiser with classifier-free guidance over
@@ -13,10 +13,25 @@ families:
       of the trans_enc denoiser over [z; t; action] -> ACTOR VAE decode ->
       SMPL-topology joints of the rot6d features (no de-normalisation)
 
+The model is built from the config as the JAX package builds it, with
+every option ``mld_tpu.models.mld.MLD`` takes: ``condition`` text,
+text_uncond (under CFG both halves are the empty prompt's row, and the
+prompt is not encoded) or action; ``clip_last_hidden`` (the denoiser
+conditions on all 77 CLIP hidden states: full-context ids, a full-context
+uncond row, no EOT buckets); ``vae_type`` mld (``vae_arch``, ``mlp_dist``),
+actor, vposert or no; the denoiser's ``denoiser_arch`` trans_enc or
+trans_dec, ``skip_connect``, ``normalize_before``, ``position_embedding``
+and ``latent_size``; and the sampler ``scheduler.kind`` (DDIM, or ancestral
+DDPM, whose step noise is drawn, or replayed through ``step_noise``) with
+or without a VAE. ``_check_supported`` rejects what the JAX package cannot
+build either: an action without a VAE, and a ``dtype`` other than float32
+and bfloat16.
+
 The latent denoiser's encoder stack runs as one CUDA kernel per step on the
-card (ops/fused_layer.py) when ``fused_denoiser`` is on, the text tower's
+card (ops/fused_layer.py) when ``fused_denoiser`` is on and K1 can serve it
+(``ops.fused_denoiser.can_fuse``), the text tower's
 causal attention as another (ops/attention.py:sdpa_flash_causal), and every
-bidirectional attention (the raw-motion denoiser's, the plain VAE's, the
+bidirectional attention (every module-path denoiser's, the plain VAE's, the
 ACTOR VAE's) as a third (ops/attention.py:sdpa). ``fused_decode``, the JAX
 package's switch of the same name, runs the VAE decoder stack through
 ops/fused_seq_decoder.py; it changes the result (LayerNorm eps 1e-5 against
@@ -49,11 +64,14 @@ from mld_tpu_torch.data.humanml.motion_process import recover_from_ric
 from mld_tpu_torch.diffusion.schedulers import (DDIMScheduler, DDPMScheduler,
                                                 DiffusionSchedule)
 from mld_tpu_torch.models.actor_vae import ActorVae
-from mld_tpu_torch.models.clip_text import ClipTextModel, ClipTokenizer
+from mld_tpu_torch.models.clip_text import (CLIP_CONTEXT, ClipTextModel,
+                                            ClipTokenizer)
 from mld_tpu_torch.models.denoiser import MldDenoiser, RawMotionDenoiser
 from mld_tpu_torch.models.smpl import Rotation2Joints
 from mld_tpu_torch.models.vae import MldVae
-from mld_tpu_torch.ops.fused_denoiser import precompute_cond
+from mld_tpu_torch.models.vposert_vae import VPosert
+from mld_tpu_torch.ops.fused_denoiser import can_fuse, precompute_cond
+from mld_tpu_torch.ops.fused_layer import MAX_S
 from mld_tpu_torch.ops.fused_seq_decoder import (can_fuse_decode,
                                                  fused_vae_decode)
 from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
@@ -63,10 +81,10 @@ TEXT_BUCKETS = (16, 24, 32, 48, 64)
 
 
 def _fused_denoiser_from_env(device: torch.device) -> bool:
-    """MLD_TPU_FUSED_DENOISER as the JAX package reads it (mld.py:398-429):
-    "0" off, "1" on, anything else ("auto") on where the JAX package has its
-    single TPU, which for the port is a CUDA device, and off elsewhere (the
-    JAX package's default off a TPU)."""
+    """MLD_TPU_FUSED_DENOISER as the JAX package reads it (mld.py:398-429),
+    for a denoiser K1 can serve: "0" off, "1" on, anything else ("auto") on
+    where the JAX package has its single TPU, which for the port is a CUDA
+    device, and off elsewhere (the JAX package's default off a TPU)."""
     flag = os.environ.get("MLD_TPU_FUSED_DENOISER", "auto")
     if flag in ("0", "1"):
         return flag == "1"
@@ -136,41 +154,30 @@ def is_raw_motion(model_cfg) -> bool:
 
 
 def _check_supported(cfg: Config):
+    """Reject what the JAX package cannot build or run either: an action
+    without a VAE (its raw-motion features have no joints transform, and
+    ``init_params`` conditions the raw denoiser on text), and a compute
+    dtype other than f32 and bf16. Every other option the JAX MLD takes is
+    built as it builds it; an unknown option value raises where the module
+    reads it, as in JAX."""
     m = cfg.model
-    raw = is_raw_motion(m)
-    action = m.condition == "action"
-    # the families: text with the MLD VAE, or an action with the ACTOR VAE,
-    # each with the skip trans_enc denoiser and DDIM; or text on raw motion
-    # with the trans_dec denoiser and DDPM
-    arch, sched = ("trans_dec", "ddpm") if raw else ("trans_enc", "ddim")
-    vae_type = "actor" if action else "mld"
     unsupported = [
-        (m.condition not in ("text", "action"), f"condition={m.condition}"),
-        (action and raw, "condition=action without a VAE"),
-        (not raw and m.vae_type != vae_type,
-         f"vae_type={m.vae_type} with condition={m.condition}"),
-        (not raw and not action and m.vae_arch != "encoder_decoder",
-         f"vae_arch={m.vae_arch}"),
-        (not raw and not action and m.mlp_dist, "mlp_dist"),
-        (m.denoiser_arch != arch, f"denoiser_arch={m.denoiser_arch}"
-         + (" with diffusion_only" if raw else " in latent mode")),
-        (not raw and not m.skip_connect, "skip_connect=False"),
-        (m.normalize_before, "normalize_before"),
-        (m.position_embedding not in ("v3", "learned"),
-         f"position_embedding={m.position_embedding}"),
-        (m.clip_last_hidden, "clip_last_hidden"),
-        (m.scheduler.kind != sched, f"scheduler={m.scheduler.kind}"
-         + (" without a VAE" if raw else " with a VAE")),
+        (m.condition == "action" and is_raw_motion(m),
+         "condition=action without a VAE"),
         (m.dtype not in ("float32", "bfloat16"), f"dtype={m.dtype}"),
     ]
     bad = [msg for cond, msg in unsupported if cond]
     if bad:
         raise NotImplementedError(
-            f"the PyTorch port covers text-to-motion with the MLD VAE, the "
-            f"skip trans_enc denoiser and DDIM, or on raw motion with the "
-            f"trans_dec denoiser and DDPM, and action-to-motion with the "
-            f"ACTOR VAE, the skip trans_enc denoiser and DDIM; unsupported: "
-            f"{', '.join(bad)}")
+            f"the PyTorch port builds what the JAX package builds; "
+            f"unsupported: {', '.join(bad)}")
+
+
+def cond_token_count(model_cfg) -> int:
+    """Condition tokens of the denoiser's sequence: the 77 CLIP hidden states
+    in hidden mode (``clip_last_hidden``), else one (the pooled features or
+    the action's embedding)."""
+    return CLIP_CONTEXT if model_cfg.clip_last_hidden else 1
 
 
 @torch.no_grad()
@@ -181,6 +188,11 @@ def init_params(module: nn.Module, generator: torch.Generator):
     PE, normal(0.02 / 0.01) CLIP embeddings and projection, normal(1) ACTOR
     mu / logvar tokens. CPU parameters."""
     g = generator
+    for name, b in module.named_buffers():
+        if name.endswith("running_mean"):     # VPosert's BatchNorm
+            b.zero_()
+        elif name.endswith("running_var"):
+            b.fill_(1.0)
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "pe":
@@ -215,21 +227,23 @@ class MLD(nn.Module):
     `fused_decode` chooses the serving decode path; None reads the JAX
     package's switch MLD_TPU_FUSED_DECODE, whose default is off.
 
-    `fused_denoiser` chooses the serving denoiser of the latent family:
-    True is K1's forward (``MldDenoiser.fused_forward``, LayerNorm eps
-    1e-5), False the module path (eps 1e-6). None reads the JAX package's
-    switch MLD_TPU_FUSED_DENOISER when a call is made, as JAX reads it when
-    it traces: "1" K1, "0" the module path, and "auto" (the default) K1 on
-    a CUDA device, where the JAX package has its single TPU, and the module
-    path on the CPU, JAX's default off a TPU. Training and any dropout
-    always take the module path (``mld.py:375-376``).
+    `fused_denoiser` chooses the serving denoiser where K1 can serve it
+    (``can_fuse``: latent mode, the skip trans_enc, post-norm, learned PE,
+    at most 8 tokens): True is K1's forward (``MldDenoiser.fused_forward``,
+    LayerNorm eps 1e-5), and raises for a denoiser K1 cannot serve; False
+    the module path (eps 1e-6). None reads the JAX package's switch
+    MLD_TPU_FUSED_DENOISER when a call is made, as JAX reads it when it
+    traces: "1" K1, "0" the module path, and "auto" (the default) K1 on a
+    CUDA device, where the JAX package has its single TPU, and the module
+    path on the CPU, JAX's default off a TPU; for a denoiser K1 cannot
+    serve, every value takes the module path, as in JAX. Training and any
+    dropout always take the module path (``mld.py:375-376``).
 
     Neither switch is a fallback: with it on, the kernel launches on the
     card or the call raises. The raw-motion family has no VAE (``vae`` is
-    None) and no latent denoiser, so neither switch applies to it. The
-    action family has no text tower (``clip`` and ``tokenizer`` are None)
-    and the ACTOR VAE, whose decode is never fused; K1 serves its denoiser
-    as the text family's."""
+    None) and its denoiser works on the frames, so neither switch applies
+    to it. The action family has no text tower (``clip`` and ``tokenizer``
+    are None); K1 serves its denoiser as the text family's."""
 
     def __init__(self, cfg: Config, mean: Optional[np.ndarray] = None,
                  std: Optional[np.ndarray] = None,
@@ -251,7 +265,7 @@ class MLD(nn.Module):
         self.latent_dim = m.latent_dim
         self.guidance_scale = m.guidance_scale
         self.do_cfg = m.guidance_scale > 1.0
-        self.clip_mode = "features"
+        self.clip_mode = "hidden" if m.clip_last_hidden else "features"
         self.raw_motion = is_raw_motion(m)
         self.condition = m.condition
         # the training forwards' compute dtype (mld.py:65)
@@ -263,44 +277,62 @@ class MLD(nn.Module):
                              "encoder_decoder arch, post-norm, learned PE "
                              "and latent_size <= 8")
         self.fused_decode = bool(fused_decode)
+        n_tokens = m.latent_size + 1 + cond_token_count(m)
+        if fused_denoiser and not can_fuse(m, cond_token_count(m)):
+            raise ValueError(
+                "fused_denoiser needs latent mode, the trans_enc denoiser "
+                "with skip connections, post-norm, learned PE, gelu and at "
+                f"most {MAX_S} tokens"
+                + (f" ({n_tokens} tokens exceeds the fused stack's {MAX_S})"
+                   if n_tokens > MAX_S else ""))
         self.fused_denoiser = fused_denoiser
 
         pe_max_len = max(500, self.max_frames + 8)
+        den_kw = dict(
+            pe_max_len=pe_max_len, activation=m.activation, dropout=m.dropout,
+            condition=m.condition, arch=m.denoiser_arch,
+            skip_connect=m.skip_connect,
+            position_embedding=m.position_embedding,
+            normalize_before=m.normalize_before)
         with torch.device("meta"):
             if self.raw_motion:
                 self.vae = None
                 self.denoiser = RawMotionDenoiser(
                     self.nfeats, m.latent_dim, m.ff_size,
                     m.denoiser_num_layers, m.num_heads, m.text_encoded_dim,
-                    pe_max_len=pe_max_len, activation=m.activation,
-                    dropout=m.dropout)
+                    **den_kw)
             else:
-                if self.condition == "action":
+                if m.vae_type == "actor":
                     self.vae = ActorVae(self.nfeats, m.latent_size,
                                         m.latent_dim, m.ff_size, m.num_layers,
                                         m.num_heads, m.activation,
                                         dropout=m.dropout)
+                elif m.vae_type == "vposert":
+                    self.vae = VPosert(self.nfeats, self.max_frames,
+                                       m.latent_size, m.latent_dim)
                 else:
                     self.vae = MldVae(self.nfeats, m.latent_size,
                                       m.latent_dim, m.ff_size, m.num_layers,
                                       m.num_heads, m.activation,
                                       weight_dtype=weight_dtype,
-                                      dropout=m.dropout)
+                                      dropout=m.dropout, arch=m.vae_arch,
+                                      normalize_before=m.normalize_before,
+                                      position_embedding=m.position_embedding,
+                                      mlp_dist=m.mlp_dist)
                 self.denoiser = MldDenoiser(
                     m.latent_size, m.latent_dim, m.ff_size,
                     m.denoiser_num_layers, m.num_heads, m.text_encoded_dim,
-                    pe_max_len=pe_max_len, activation=m.activation,
-                    weight_dtype=weight_dtype, dropout=m.dropout,
-                    condition=m.condition, nclasses=m.nclasses,
+                    weight_dtype=weight_dtype, nclasses=m.nclasses,
                     guidance_scale=m.guidance_scale,
-                    guidance_uncondp=m.guidance_uncondp)
+                    guidance_uncondp=m.guidance_uncondp,
+                    cond_tokens=cond_token_count(m), **den_kw)
             # the text tower serves the text conditions only (mld.py:134)
             self.clip = (ClipTextModel(width=m.text_encoded_dim,
                                        layers=m.clip_layers,
                                        heads=m.clip_heads,
                                        projection_dim=m.text_encoded_dim,
                                        compute_dtype=m.clip_compute_dtype)
-                         if self.condition == "text" else None)
+                         if self.condition != "action" else None)
         self.to_empty(device="cpu")
         init_params(self, generator if generator is not None
                     else torch.Generator().manual_seed(cfg.seed))
@@ -321,10 +353,13 @@ class MLD(nn.Module):
             sc.beta_schedule,
             "epsilon" if cfg.train.predict_epsilon else "sample",
             sc.clip_sample)
+        # the sampler scheduler.kind names, with or without a VAE
+        # (mld.py:124-131)
         self.scheduler = (
-            DDPMScheduler(schedule, sc.variance_type) if self.raw_motion
-            else DDIMScheduler(schedule, sc.num_inference_timesteps, sc.eta,
-                               sc.steps_offset, sc.set_alpha_to_one))
+            DDIMScheduler(schedule, sc.num_inference_timesteps, sc.eta,
+                          sc.steps_offset, sc.set_alpha_to_one)
+            if sc.kind == "ddim" else DDPMScheduler(schedule,
+                                                    sc.variance_type))
         # the forward process of the training steps (mld.py:132-133)
         self.noise_scheduler = DDPMScheduler(schedule, sc.variance_type)
 
@@ -336,16 +371,19 @@ class MLD(nn.Module):
             self.tokenizer = ClipTokenizer(m.clip_path)
             # features mode: the empty prompt is [BOS, EOS, pad...]; under
             # causal attention + EOT pooling only the first 2 positions
-            # matter, so the uncond row is encoded at context 8 (exact)
-            self.uncond_ids = self.tokenizer([""])[:, :8]
-        if not self.raw_motion:
-            self.denoiser.restack()
+            # matter, so the uncond row is encoded at context 8 (exact);
+            # hidden mode conditions on every position: full context
+            # (mld.py:142-150)
+            full = self.tokenizer([""])
+            self.uncond_ids = (full[:, :8] if self.clip_mode == "features"
+                               else full)
+        self.denoiser.restack()
         if self.fused_decode:
             self.vae.restack()
 
     def use_fused_denoiser(self) -> bool:
         """Whether serving denoises through K1 (see the class docstring)."""
-        if self.raw_motion:
+        if not self.denoiser.fusable:
             return False
         if self.fused_denoiser is not None:
             return bool(self.fused_denoiser)
@@ -354,22 +392,29 @@ class MLD(nn.Module):
     def drop_stacks(self):
         """After the parameters changed in place (an optimizer step): drop
         the kernels' stacked copies so that K1 and K5 restack at their next
-        use instead of running the old weights."""
-        if not self.raw_motion:
-            self.denoiser.drop_stack()
-            if isinstance(self.vae, MldVae):
-                self.vae.drop_stack()
+        use instead of running the old weights (modules with no stack have
+        nothing to drop)."""
+        self.denoiser.drop_stack()
+        if isinstance(self.vae, MldVae):
+            self.vae.drop_stack()
 
     def load_flax_params(self, tree: Mapping):
         """Load a JAX-package param tree {vae, denoiser, clip} of numpy (or
         jax) arrays; the raw-motion family's tree has no vae, the action
-        family's no clip. The kernels' stacked weights are rebuilt on
+        family's no clip. A VPosert's running statistics are flax's initial
+        ones, mean 0 and var 1: JAX's ``init_params`` keeps no batch_stats
+        (``mld.py:162``). The kernels' stacked weights are rebuilt on
         load."""
         sd = {}
         for top in ("vae", "denoiser"):
             if top in tree:
                 sd.update({f"{top}.{k}": v for k, v in
                            flax_to_state_dict(tree[top]).items()})
+        for name, b in self.named_buffers():
+            if name.endswith(("running_mean", "running_var")) \
+                    and name not in sd:
+                sd[name] = (torch.zeros_like(b) if name.endswith("mean")
+                            else torch.ones_like(b))
         if self.clip is not None:
             sd.update({f"clip.{k}": v for k, v in
                        flax_clip_to_state_dict(tree["clip"]).items()})
@@ -377,17 +422,23 @@ class MLD(nn.Module):
 
     # --------------------------------------------------------------- text
     def tokenize(self, texts: Sequence[str]) -> torch.Tensor:
-        """Serving-path ids [B, L] on the device, cropped to the smallest
-        EOT bucket (exact under causal attention + EOT pooling); the
-        buckets follow MLD_TPU_TEXT_BUCKETS, as the JAX package's do."""
-        ids = self.tokenizer(list(texts), buckets=_text_buckets())
+        """Serving-path ids [B, L] on the device. In features mode cropped
+        to the smallest EOT bucket (exact under causal attention + EOT
+        pooling; the buckets follow MLD_TPU_TEXT_BUCKETS, as the JAX
+        package's do); in hidden mode full context, L = 77, since the
+        denoiser conditions on every position (``mld.py:272-274``)."""
+        buckets = _text_buckets() if self.clip_mode == "features" else None
+        ids = self.tokenizer(list(texts), buckets=buckets)
         return torch.as_tensor(ids, dtype=torch.long, device=self.device)
 
     @torch.no_grad()
     def encode_text_tokens(self, token_ids: torch.Tensor) -> torch.Tensor:
-        """[B, L] ids -> [B, 1, text_dim] CLIP text features (f32)."""
-        return self.clip(token_ids.to(self.device, torch.long),
-                         mode=self.clip_mode)[:, None, :]
+        """[B, L] ids -> the denoiser's text condition (f32): [B, 1,
+        text_dim] CLIP features, or in hidden mode the [B, L, text_dim]
+        hidden states after the final LayerNorm."""
+        out = self.clip(token_ids.to(self.device, torch.long),
+                        mode=self.clip_mode)
+        return out[:, None, :] if self.clip_mode == "features" else out
 
     # ----------------------------------------------------------- sampling
     @torch.no_grad()
@@ -398,18 +449,21 @@ class MLD(nn.Module):
                           step_noise=None) -> torch.Tensor:
         """cond_emb [2B, S, D] under CFG (uncond half first) else [B, S, D]
         -> latents [B, latent_size, latent_dim], or for raw motion [B, T,
-        nfeats] with T from `mask` [B, T] (required there).
+        nfeats] with T from `mask` [B, T] (required there; the denoiser
+        gets the doubled mask under CFG, ``mld.py:455-457``).
 
         `init_latents` replaces the drawn initial noise (already scaled by
-        init_noise_sigma). Raw motion samples by ancestral DDPM, which draws
-        one noise tensor a step from `generator`; `step_noise` replaces
-        those draws (step_noise[i] is step i's, of the latents' shape)."""
+        init_noise_sigma). Ancestral DDPM draws one noise tensor a step, of
+        the latents' shape, from `generator`; `step_noise` replaces those
+        draws (step_noise[i] is step i's). DDIM draws none."""
         B = cond_emb.shape[0] // 2 if self.do_cfg else cond_emb.shape[0]
         dev = generator.device if generator is not None else self.device
+        mask2 = None
         if self.raw_motion:
             if mask is None:
                 raise ValueError("raw-motion sampling needs the frame mask")
             mask = mask.to(self.device)
+            mask2 = torch.cat([mask, mask]) if self.do_cfg else mask
             shape = (B, mask.shape[1], self.nfeats)
         else:
             shape = (B, self.latent_size, self.latent_dim)
@@ -417,10 +471,8 @@ class MLD(nn.Module):
             init_latents = (torch.randn(shape, generator=generator, device=dev)
                             * self.scheduler.init_noise_sigma)
         latents = init_latents.to(self.device, torch.float32)
-        if self.raw_motion:
-            return self._ddpm_reverse(latents, cond_emb, mask, generator,
-                                      dev, step_noise)
         timesteps = self.scheduler.timesteps()
+        ancestral = isinstance(self.scheduler, DDPMScheduler)
         fused = self.use_fused_denoiser()
         if fused:
             # K1's step-invariant preamble hoisted out of the loop: the
@@ -435,32 +487,17 @@ class MLD(nn.Module):
                     model_in, int(t), cond_emb, time_emb=time_tab[i],
                     cond_lat=cond_lat)
             else:
-                out = self.denoiser(model_in, int(t), cond_emb)
+                out = self.denoiser(model_in, int(t), cond_emb, mask2)
             if self.do_cfg:
                 out_uncond, out_text = out.chunk(2)
                 out = out_uncond + self.guidance_scale * (out_text - out_uncond)
-            latents = self.scheduler.step(out, int(t), latents)
-        return latents
-
-    def _ddpm_reverse(self, latents, cond_emb, mask, generator, dev,
-                      step_noise):
-        """The raw-motion loop (``mld.py:475-488``): the denoiser on the
-        doubled batch with the doubled mask, CFG, one ancestral step whose
-        noise is drawn on `dev` from `generator`, or is step_noise[i]."""
-        mask2 = torch.cat([mask, mask]) if self.do_cfg else mask
-        for i, t in enumerate(self.scheduler.timesteps()):
-            model_in = torch.cat([latents, latents]) if self.do_cfg else latents
-            out = self.denoiser(model_in, int(t), cond_emb, mask2)
-            if self.do_cfg:
-                out_uncond, out_text = out.chunk(2)
-                out = out_uncond + self.guidance_scale * (out_text - out_uncond)
-            if step_noise is None:
-                noise = torch.randn(latents.shape, generator=generator,
-                                    device=dev)
-            else:
-                noise = torch.as_tensor(step_noise[i])
-            latents = self.scheduler.step(
-                out, int(t), latents, noise.to(self.device, torch.float32))
+            noise = None
+            if ancestral:
+                noise = (torch.randn(latents.shape, generator=generator,
+                                     device=dev) if step_noise is None
+                         else torch.as_tensor(step_noise[i]))
+                noise = noise.to(self.device, torch.float32)
+            latents = self.scheduler.step(out, int(t), latents, noise)
         return latents
 
     # ----------------------------------------------------------- training
@@ -486,15 +523,12 @@ class MLD(nn.Module):
         `mask` [B, T] zeroes the raw-motion output outside the frames; in
         training `cond_keep` [B] bool is EmbedAction's drop of an action's
         rows (``denoiser.py:57-60``)."""
-        if self.raw_motion:
-            return self.denoiser(sample, t, cond_emb, mask,
-                                 generator=dropout_generator)
         if (not training and dropout_generator is None
                 and self.use_fused_denoiser()):
             with torch.no_grad():
                 return self.denoiser.fused_forward(sample, t, cond_emb)
         # training: an action's CFG zeroing is off (EmbedAction)
-        return self.denoiser(sample, t, cond_emb,
+        return self.denoiser(sample, t, cond_emb, mask,
                              generator=dropout_generator, training=training,
                              cond_keep=cond_keep)
 
@@ -577,25 +611,30 @@ class MLD(nn.Module):
                 self.masked_joints(feats_ref, mask))
 
     def encode_uncond(self) -> torch.Tensor:
-        """The empty prompt's embedding, one row [1, 1, text_dim]."""
+        """The empty prompt's embedding, one row: [1, 1, text_dim], or in
+        hidden mode [1, 77, text_dim]."""
         return self.encode_text_tokens(
             torch.as_tensor(self.uncond_ids, device=self.device))
 
     def condition_embedding(self, cond: torch.Tensor) -> torch.Tensor:
         """The denoiser's condition over the CFG batch (uncond half first):
-        text ids [B, L] -> CLIP features, the uncond row encoded once and
-        broadcast; action ids [B] -> [zeros; ids], the ids themselves, which
-        the denoiser embeds (``mld.py:515-535``)."""
+        text ids [B, L] -> the text tower's condition, the uncond row
+        encoded once and broadcast; under ``text_uncond`` both halves are
+        that row and the prompts are not encoded (without CFG they are);
+        action ids [B] -> [zeros; ids], the ids themselves, which the
+        denoiser embeds (``mld.py:511-535``)."""
         if self.condition == "action":
             actions = torch.as_tensor(cond).to(self.device,
                                                torch.long).reshape(-1)
             return (torch.cat([torch.zeros_like(actions), actions])
                     if self.do_cfg else actions)
-        cond_emb = self.encode_text_tokens(cond)
-        if self.do_cfg:
-            cond_emb = torch.cat([self.encode_uncond().expand_as(cond_emb),
-                                  cond_emb])
-        return cond_emb
+        if not self.do_cfg:
+            return self.encode_text_tokens(cond)
+        uncond = self.encode_uncond()
+        uncond = uncond.expand(cond.shape[0], *uncond.shape[1:])
+        cond_half = (uncond if self.condition == "text_uncond"
+                     else self.encode_text_tokens(cond))
+        return torch.cat([uncond, cond_half])
 
     @torch.no_grad()
     def generate_feats(self, cond: torch.Tensor, mask: torch.Tensor, *,

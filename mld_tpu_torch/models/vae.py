@@ -1,16 +1,26 @@
-"""MldVae — transformer motion VAE, ``encoder_decoder`` arch (port of
-``mld_tpu/models/vae.py``), batch-first and mask-driven.
+"""MldVae — transformer motion VAE (port of ``mld_tpu/models/vae.py``),
+batch-first and mask-driven, with the JAX module's options
+(``vae.py:41-120``): ``arch`` encoder_decoder (a skip decoder whose frame
+queries cross-attend the latent) or all_encoder (a skip encoder over
+``[z; zero queries]`` under the key mask ``[ones(latent_size); mask]``,
+whose latent rows are dropped), ``mlp_dist`` (``latent_size`` motion tokens
+and a ``dist_layer`` Linear(d, 2d) split into mu | logvar, instead of
+2 x latent_size tokens), ``normalize_before`` (pre-norm layers) and the PE
+kind (``position_embedding``, tables of the default length 500).
 
 Parameter names follow the reference torch module
 (mld/models/architectures/mld_vae.py:33-248): ``query_pos_encoder.pe``,
-``query_pos_decoder.pe``, ``encoder.*``, ``decoder.*``,
-``global_motion_token``, ``skel_embedding``, ``final_layer``.
+``query_pos_decoder.pe`` (a learned PE), ``encoder.*``, ``decoder.*``,
+``global_motion_token``, ``dist_layer``, ``skel_embedding``,
+``final_layer``.
 
 ``encode`` and ``decode`` are the plain module path (flax's LayerNorm eps
 1e-6), differentiable, with dropout when given a generator; the serving
 callers run them under ``torch.no_grad()`` (``models/mld.py``). The fused
-decode (``ops.fused_seq_decoder.fused_vae_decode``, eps 1e-5, serving only)
-reads the decoder's weights stacked for its kernel; they are built by
+decode (``ops.fused_seq_decoder.fused_vae_decode``, eps 1e-5, serving only,
+where ``can_fuse_decode`` holds: the post-norm encoder_decoder arch with a
+learned PE) reads the decoder's weights stacked for its kernel; they are
+built by
 ``restack`` and rebuilt whenever parameters are loaded or moved, once a
 stack exists, and dropped (``drop_stack``) when an optimizer step changes
 the parameters in place.
@@ -22,10 +32,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from mld_tpu_torch.ops.embeddings import PositionEmbeddingLearned1D
+from mld_tpu_torch.ops.embeddings import build_position_encoding
 from mld_tpu_torch.ops.fused_seq_decoder import (StackedSkipDecoder,
                                                  stack_skip_decoder)
-from mld_tpu_torch.ops.transformer import (SkipTransformerDecoder,
+from mld_tpu_torch.ops.transformer import (Linear, SkipTransformerDecoder,
                                            SkipTransformerEncoder)
 
 
@@ -35,22 +45,34 @@ class MldVae(nn.Module):
                  num_layers: int = 9, num_heads: int = 4,
                  activation: str = "gelu",
                  weight_dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, arch: str = "encoder_decoder",
+                 normalize_before: bool = False,
+                 position_embedding: str = "learned",
+                 mlp_dist: bool = False):
         super().__init__()
+        if arch not in ("encoder_decoder", "all_encoder"):
+            raise ValueError(f"arch {arch} not supported")
         d = latent_dim
         self.latent_size = latent_size
         self.latent_dim = latent_dim
-        self.query_pos_encoder = PositionEmbeddingLearned1D(d)
-        self.query_pos_decoder = PositionEmbeddingLearned1D(d)
+        self.arch = arch
+        self.mlp_dist = mlp_dist
+        self.query_pos_encoder = build_position_encoding(d,
+                                                         position_embedding)
+        self.query_pos_decoder = build_position_encoding(d,
+                                                         position_embedding)
+        layer_kw = dict(ff_size=ff_size, activation=activation,
+                        dropout=dropout, normalize_before=normalize_before)
         self.encoder = SkipTransformerEncoder(d, num_heads, num_layers,
-                                              ff_size, activation,
-                                              dropout=dropout)
-        self.decoder = SkipTransformerDecoder(d, num_heads, num_layers,
-                                              ff_size, activation,
-                                              dropout=dropout)
-        self.global_motion_token = nn.Parameter(torch.empty(2 * latent_size, d))
-        self.skel_embedding = nn.Linear(nfeats, d)
-        self.final_layer = nn.Linear(d, nfeats)
+                                              **layer_kw)
+        self.decoder = (SkipTransformerEncoder if arch == "all_encoder"
+                        else SkipTransformerDecoder)(d, num_heads, num_layers,
+                                                     **layer_kw)
+        self.global_motion_token = nn.Parameter(torch.empty(
+            latent_size if mlp_dist else 2 * latent_size, d))
+        self.dist_layer = Linear(d, 2 * d) if mlp_dist else None
+        self.skel_embedding = Linear(nfeats, d)
+        self.final_layer = Linear(d, nfeats)
         self.weight_dtype = weight_dtype
         self._stacked: Optional[StackedSkipDecoder] = None
         self.register_load_state_dict_post_hook(
@@ -105,7 +127,11 @@ class MldVae(nn.Module):
         valid = torch.cat([mask.new_ones(B, dist.shape[1]), mask], dim=1)
         out = self.encoder(xseq, valid,
                            generator=dropout_generator)[:, : dist.shape[1]]
-        mu, logvar = out[:, : self.latent_size], out[:, self.latent_size:]
+        if self.mlp_dist:
+            out = self.dist_layer(out)
+            mu, logvar = out[..., : self.latent_dim], out[..., self.latent_dim:]
+        else:
+            mu, logvar = out[:, : self.latent_size], out[:, self.latent_size:]
         if eps is None and generator is not None and not sample_mean:
             eps = torch.randn(mu.shape, generator=generator,
                               device=generator.device)
@@ -121,8 +147,14 @@ class MldVae(nn.Module):
         zero outside the mask. Dropout is on when dropout_generator is
         given."""
         B, T = mask.shape
-        queries = self.query_pos_decoder(
-            z.new_zeros(B, T, self.latent_dim))
-        output = self.decoder(queries, z, tgt_valid=mask,
-                              generator=dropout_generator)
+        queries = z.new_zeros(B, T, self.latent_dim)
+        if self.arch == "all_encoder":
+            xseq = self.query_pos_decoder(torch.cat([z, queries], dim=1))
+            valid = torch.cat([mask.new_ones(B, self.latent_size), mask],
+                              dim=1)
+            output = self.decoder(xseq, valid, generator=dropout_generator)
+            output = output[:, self.latent_size:]
+        else:
+            output = self.decoder(self.query_pos_decoder(queries), z,
+                                  tgt_valid=mask, generator=dropout_generator)
         return self.final_layer(output) * mask[..., None]

@@ -98,6 +98,22 @@ class PositionEmbeddingSine1D(nn.Module):
         return _dropout(x, self.dropout, generator)
 
 
+LEARNED_PE = ("v3", "learned")
+SINE_PE = ("v2", "sine", "actor")
+
+
+def build_position_encoding(d_model: int, kind: str = "learned",
+                            max_len: int = 500) -> nn.Module:
+    """The additive PE a config's ``position_embedding`` names
+    (``embeddings.py:55-61``): the learned table for v3 / learned, the fixed
+    sinusoid for v2 / sine / actor; any other kind raises."""
+    if kind in LEARNED_PE:
+        return PositionEmbeddingLearned1D(d_model, max_len)
+    if kind in SINE_PE:
+        return PositionEmbeddingSine1D(d_model, max_len)
+    raise ValueError(f"not supported {kind}")
+
+
 class TimestepEmbedding(nn.Module):
     """2-layer SiLU MLP over the sinusoid (embeddings.py:288-305)."""
 

@@ -1,10 +1,12 @@
 """Inference forward of the latent denoiser over the fused encoder stack
-(port of ``mld_tpu/ops/fused_denoiser.py``, text and action conditions).
+(port of ``mld_tpu/ops/fused_denoiser.py``, the text conditions and an
+action).
 
 Everything around the stack (timestep sinusoid + MLP, the text projection
 or the action table, learned PE, the final norm) is plain PyTorch; the
 stack itself is ``ops.fused_layer.skip_encoder_stack`` (the CUDA kernel on
-the card).
+the card). ``can_fuse`` says which denoisers it serves; ``text_uncond``
+is served as ``text``, as in JAX (``fused_denoiser.py:55``, ``64``).
 """
 from __future__ import annotations
 
@@ -13,8 +15,31 @@ from typing import Optional, Tuple
 import torch
 
 from .embeddings import (DENOISER_FLIP_SIN_TO_COS, DENOISER_FREQ_SHIFT,
-                         get_timestep_embedding)
-from .fused_layer import LN_EPS, skip_encoder_stack
+                         LEARNED_PE, get_timestep_embedding)
+from .fused_layer import LN_EPS, MAX_S, skip_encoder_stack
+
+
+def fusable(diffusion_only: bool, arch: str, skip_connect: bool,
+            normalize_before: bool, position_embedding: str,
+            activation: str, n_tokens: int) -> bool:
+    """Whether K1 can serve a denoiser of this structure over `n_tokens`
+    tokens: latent mode, trans_enc with skip connections, post-norm,
+    learned PE and at most MAX_S tokens (``fused_denoiser.py:25-35``). K1
+    computes gelu only (as the Pallas kernel does, which JAX's check does
+    not ask), so a relu denoiser takes the module path."""
+    return (not diffusion_only and arch == "trans_enc" and skip_connect
+            and not normalize_before and position_embedding in LEARNED_PE
+            and activation == "gelu" and n_tokens <= MAX_S)
+
+
+def can_fuse(model_cfg, cond_tokens: int) -> bool:
+    """``can_fuse`` of the JAX package read from the config's model section:
+    `cond_tokens` is 77 when the denoiser conditions on every CLIP hidden
+    state (``clip_last_hidden``), else 1."""
+    m = model_cfg
+    return fusable(not m.vae or m.vae_type == "no", m.denoiser_arch,
+                   m.skip_connect, m.normalize_before, m.position_embedding,
+                   m.activation, m.latent_size + 1 + cond_tokens)
 
 
 def time_embedding(denoiser, timesteps: torch.Tensor,

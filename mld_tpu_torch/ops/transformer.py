@@ -1,5 +1,6 @@
-"""DETR-style post-norm transformer stack (port of
-``mld_tpu/ops/transformer.py``), batch-first and mask-driven.
+"""DETR-style transformer stack (port of ``mld_tpu/ops/transformer.py``),
+batch-first and mask-driven, post-norm or, with ``normalize_before``,
+pre-norm.
 
 Module and parameter names follow the reference torch modules
 (mld/models/operator/cross_attention.py:18-382): ``input_blocks.N``,
@@ -18,6 +19,11 @@ parameters, as flax's ``Dense`` and ``LayerNorm`` (``dtype=None``) do, with
 LayerNorm's statistics in f32: under bf16 mixed-precision training
 (``train/steps.py``) an f32 activation meeting bf16 weights computes in f32,
 as in the JAX package (the ACTOR VAE after its f32 sine PE).
+
+Pre-norm layers (``normalize_before``, ``transformer.py:85-160``) normalise
+each sublayer's input, ``x + drop(attn(norm1(x)))`` and so on, and end
+without a norm; the skip stacks keep their final ``norm`` either way, the
+plain stacks theirs where they have one. Parameter names do not change.
 
 Dropout (rate ``dropout``, the config's ``model.dropout``) is applied where
 the JAX layers apply it (``transformer.py:72-79``, ``103-117``, ``145-160``):
@@ -116,13 +122,14 @@ class MultiheadAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm encoder layer (cross_attention.py:236-294)."""
+    """Post- or pre-norm encoder layer (cross_attention.py:236-294)."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
                  activation: str = "gelu", eps: float = FLAX_LN_EPS,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, normalize_before: bool = False):
         super().__init__()
         self.dropout = dropout
+        self.normalize_before = normalize_before
         self.self_attn = MultiheadAttention(d_model, num_heads, dropout)
         self.linear1 = Linear(d_model, ff_size)
         self.linear2 = Linear(ff_size, d_model)
@@ -134,21 +141,28 @@ class TransformerEncoderLayer(nn.Module):
         def drop(x):
             return _dropout(x, self.dropout, generator)
 
+        def ffn(x):
+            return drop(self.linear2(drop(self.activation(self.linear1(x)))))
+
+        if self.normalize_before:
+            x = self.norm1(src)
+            src = src + drop(self.self_attn(x, x, x, key_valid, generator))
+            return src + ffn(self.norm2(src))
         src = self.norm1(src + drop(self.self_attn(src, src, src, key_valid,
                                                    generator)))
-        return self.norm2(src + drop(self.linear2(drop(self.activation(
-            self.linear1(src))))))
+        return self.norm2(src + ffn(src))
 
 
 class TransformerDecoderLayer(nn.Module):
-    """Post-norm decoder layer: self-attn over tgt, cross-attn to memory,
-    FFN (cross_attention.py:297-382)."""
+    """Post- or pre-norm decoder layer: self-attn over tgt, cross-attn to
+    memory, FFN (cross_attention.py:297-382)."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
                  activation: str = "gelu", eps: float = FLAX_LN_EPS,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, normalize_before: bool = False):
         super().__init__()
         self.dropout = dropout
+        self.normalize_before = normalize_before
         self.self_attn = MultiheadAttention(d_model, num_heads, dropout)
         self.multihead_attn = MultiheadAttention(d_model, num_heads, dropout)
         self.linear1 = Linear(d_model, ff_size)
@@ -163,12 +177,21 @@ class TransformerDecoderLayer(nn.Module):
         def drop(x):
             return _dropout(x, self.dropout, generator)
 
+        def ffn(x):
+            return drop(self.linear2(drop(self.activation(self.linear1(x)))))
+
+        if self.normalize_before:
+            x = self.norm1(tgt)
+            tgt = tgt + drop(self.self_attn(x, x, x, tgt_valid, generator))
+            x = self.norm2(tgt)
+            tgt = tgt + drop(self.multihead_attn(x, memory, memory,
+                                                 memory_valid, generator))
+            return tgt + ffn(self.norm3(tgt))
         tgt = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt, tgt_valid,
                                                    generator)))
         tgt = self.norm2(tgt + drop(self.multihead_attn(
             tgt, memory, memory, memory_valid, generator)))
-        return self.norm3(tgt + drop(self.linear2(drop(self.activation(
-            self.linear1(tgt))))))
+        return self.norm3(tgt + ffn(tgt))
 
 
 class TransformerEncoder(nn.Module):
@@ -181,11 +204,12 @@ class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
                  eps: float = FLAX_LN_EPS, final_norm: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, normalize_before: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, num_heads, ff_size, activation,
-                                    eps, dropout) for _ in range(num_layers))
+                                    eps, dropout, normalize_before)
+            for _ in range(num_layers))
         self.norm = LayerNorm(d_model, eps=eps) if final_norm else None
 
     def forward(self, src, key_valid=None, generator=None):
@@ -204,11 +228,12 @@ class TransformerDecoder(nn.Module):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
                  eps: float = FLAX_LN_EPS, final_norm: bool = True,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, normalize_before: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(d_model, num_heads, ff_size, activation,
-                                    eps, dropout) for _ in range(num_layers))
+                                    eps, dropout, normalize_before)
+            for _ in range(num_layers))
         self.norm = LayerNorm(d_model, eps=eps) if final_norm else None
 
     def forward(self, tgt, memory, tgt_valid=None, memory_valid=None,
@@ -251,10 +276,12 @@ class _SkipStack(nn.Module):
 class SkipTransformerEncoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
-                 eps: float = FLAX_LN_EPS, dropout: float = 0.0):
+                 eps: float = FLAX_LN_EPS, dropout: float = 0.0,
+                 normalize_before: bool = False):
         super().__init__(
             lambda: TransformerEncoderLayer(d_model, num_heads, ff_size,
-                                            activation, eps, dropout),
+                                            activation, eps, dropout,
+                                            normalize_before),
             d_model, num_layers, eps)
         self.num_heads = num_heads
 
@@ -267,10 +294,12 @@ class SkipTransformerEncoder(_SkipStack):
 class SkipTransformerDecoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
-                 eps: float = FLAX_LN_EPS, dropout: float = 0.0):
+                 eps: float = FLAX_LN_EPS, dropout: float = 0.0,
+                 normalize_before: bool = False):
         super().__init__(
             lambda: TransformerDecoderLayer(d_model, num_heads, ff_size,
-                                            activation, eps, dropout),
+                                            activation, eps, dropout,
+                                            normalize_before),
             d_model, num_layers, eps)
         self.num_heads = num_heads
 

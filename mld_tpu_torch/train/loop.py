@@ -35,8 +35,9 @@ from mld_tpu_torch.data.datamodule import get_datamodule
 from mld_tpu_torch.eval.pipeline import Evaluator
 from mld_tpu_torch.models.clip_text import ClipTokenizer
 from mld_tpu_torch.models.mld import MLD, resolve_device
-from mld_tpu_torch.train.steps import (batch_to_device, create_train_state,
-                                       eval_step, train_step)
+from mld_tpu_torch.train.steps import (batch_to_device, check_trainable,
+                                       create_train_state, eval_step,
+                                       train_step)
 from mld_tpu_torch.utils.checkpoint import (CheckpointManager,
                                             load_pretrained, restore_model)
 
@@ -97,10 +98,11 @@ def train(cfg, max_steps: Optional[int] = None, resume: bool = False,
     log = ExperimentLog(exp_dir, cfg)
     try:
         log.info(f"stage={stage} device={device}")
+        check_trainable(cfg.model)
         # the action presets' data module takes no tokenizer (its "val"
         # split is the test split)
         dm = get_datamodule(cfg, tokenizer=ClipTokenizer(cfg.model.clip_path)
-                            if cfg.model.condition == "text" else None)
+                            if cfg.model.condition != "action" else None)
         mld = MLD(cfg, mean=dm.mean, std=dm.std, mean_eval=dm.mean_eval,
                   std_eval=dm.std_eval, device=device,
                   generator=torch.Generator().manual_seed(cfg.train.seed))

@@ -16,7 +16,11 @@ optimizer holds the trainable parameters only. CLIP is always frozen.
 
 The action presets (``condition="action"``: the ACTOR VAE, the batch's
 ``action`` ids as the condition, the SMPL-topology joints) train through
-the same three losses.
+the same three losses, as does every text-family option of the model
+(``text_uncond``, trained exactly as ``text``; hidden mode, whose condition
+is the [B, 77, 768] hidden states of the collator's full-context ids with
+the full-context uncond row broadcast, nothing cropped; the generic
+denoiser and VAE). A VPosert VAE is refused (``check_trainable``).
 
 Random draws come from one explicit ``torch.Generator`` in a fixed order,
 never from the global RNG: the VAE's reparameterisation eps, the CFG drop
@@ -142,9 +146,24 @@ class TrainState:
                 if k not in self.params}
 
 
+def check_trainable(model_cfg):
+    """Raise for a configuration the JAX trainer cannot train: a VPosert
+    VAE. ``MLD.init_params`` keeps only the VAE's params (``mld.py:162``),
+    so VPosert's BatchNorm finds no ``batch_stats`` and every encode
+    raises, and each stage encodes (the vae stage, and the diffusion
+    loss's latent)."""
+    if model_cfg.vae and model_cfg.vae_type == "vposert":
+        raise NotImplementedError(
+            "vae_type=vposert cannot be trained: the JAX trainer cannot "
+            "encode motion through VPosert (its params hold no BatchNorm "
+            "batch_stats), so no stage of it runs; the port serves VPosert "
+            "(generation decodes only) and trains none of it")
+
+
 def create_train_state(mld, stage: str, optimizer=None) -> TrainState:
     """Freeze what the stage does not train and build the optimizer over
     the rest (lr from the config)."""
+    check_trainable(mld.cfg.model)
     tops = trainable_modules(mld, stage)
     params = {}
     for name, p in mld.named_parameters():

@@ -17,7 +17,13 @@ Rules for the denoiser and VAE subtrees:
   ``pe``, ``global_motion_token``, the ACTOR VAE's ``mu_token`` and
   ``logvar_token``, ``action_embedding`` and every other leaf pass
   unchanged; the ACTOR VAE's ``seqTransEncoder`` / ``seqTransDecoder`` and
-  ``skel_embedding`` / ``final_layer`` follow the rules above.
+  ``skel_embedding`` / ``final_layer`` follow the rules above, as do the
+  options' modules: ``dist_layer`` (mlp_dist), the plain encoder's and the
+  latent ``trans_dec``'s ``layers_N`` / ``norm`` / ``mem_pos``, raw
+  motion's ``pose_embd`` / ``pose_proj``, and VPosert's Dense layers and
+  BatchNorm ``scale`` / ``bias``. A VPosert's ``batch_stats`` collection
+  (``mean`` / ``var``), when given, becomes its BatchNorms'
+  ``running_mean`` / ``running_var``.
 
 The t2m evaluator networks' trees (``flax_t2m_to_state_dict`` and its
 inverse ``state_dict_to_flax_t2m``): ``kernel`` -> ``weight`` with its axes
@@ -35,7 +41,7 @@ as tensors).
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -59,9 +65,15 @@ def _module_name(part: str) -> str:
     return part
 
 
-def flax_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """A denoiser or VAE flax param tree -> torch state_dict."""
+def flax_to_state_dict(tree: Mapping, batch_stats: Optional[Mapping] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """A denoiser or VAE flax param tree -> torch state_dict; with
+    `batch_stats`, a flax batch_stats collection, its BatchNorm statistics
+    too."""
     out: Dict[str, torch.Tensor] = {}
+    for module, stats in (batch_stats or {}).items():
+        out[f"{module}.running_mean"] = _tensor(stats["mean"])
+        out[f"{module}.running_var"] = _tensor(stats["var"])
 
     def walk(node, path):
         for key, val in node.items():

@@ -213,10 +213,13 @@ def test_fused_decode_env_needs_a_fusable_config(monkeypatch):
     over = {**SMALL, "model": {**SMALL["model"], "latent_size": 9}}
     jmld = JaxMLD(jax_load_config(preset="mld_humanml3d", overrides=over))
     assert not jmld._use_fused_decode()
-    # latent_size 9 also exceeds the denoiser kernel's 8 tokens
+    # the port builds it too, on the plain decode
+    cfg = load_config(preset="mld_humanml3d", overrides=over)
+    assert not MLD(cfg, device="cpu").fused_decode
+    # latent_size 9 also exceeds the denoiser kernel's 8 tokens: the module
+    # path serves it, and asking for K1 raises
     with pytest.raises(ValueError, match="exceeds the fused"):
-        MLD(load_config(preset="mld_humanml3d", overrides=over),
-            device="cpu")
+        MLD(cfg, device="cpu", fused_denoiser=True)
 
 
 def test_encoder_stack_follows_loads_and_moves():
