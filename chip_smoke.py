@@ -151,7 +151,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      K3 9) and the ablation's vae stage (K3 0), each with its launches,
      finite logs, frozen params unchanged, ms a step and peak memory, and
      one B=8 dropout-0 step against the CPU;
- 11. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+ 11. the synthetic end-to-end protocol: K4, K1 and K3 against their plain
+     versions at its shapes (K4 [64, 12, S, 64] of the full-width
+     pretraining and [16, 2, S, 32] of the small tower; K1 at the small
+     denoiser's D = 64, 3 layers, F = 128 over 64 sequences; K3 at the
+     small VAE's 4 heads of 16: decode self- and cross-attention at 32
+     clips of up to 96 frames, the frozen encode at 16), then CLIP
+     pretraining (train/pretrain.py) of mld_humanml3d's 12x768 bf16 tower
+     at B = 64 on phase 6's corpus for 60 steps (K4 12 launches every step
+     under autograd, ms a step, peak memory, a falling style-MSE, the
+     device busy share of one traced step), two f32 steps at B = 8 card vs
+     CPU (losses and the first step's gradients), and a drill of
+     python -m mld_tpu_torch.scripts.train_synthetic_e2e at the small
+     scale with its budgets cut (150 steps a stage, 60 CLIP steps, 150
+     evaluator steps, train() at 2 epochs): every stage's loss falls,
+     every metric is finite, each section launches what its config
+     derives, and trained_params.npz loads back through load_pretrained
+     with its tower;
+ 12. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
@@ -561,19 +578,20 @@ def _weight_bytes(st, packed):
                for f, t in st._asdict().items() if f not in packed)
 
 
-def _encoder_work(n_seq, n_block, st):
-    """(flops, bytes, peak) of K1 (K2 at n_block = 0) on n_seq sequences:
-    per layer the QKV and out projections (4 D^2) and the FFN (2 D F) a
-    row, and S x S attention a sequence; a skip linear (2D -> D) a row for
-    each of the n_block output blocks. Bytes: the stacked weights, x in and
-    out (f32)."""
-    L, rows = 2 * n_block + 1, n_seq * S
-    flops = (2 * rows * (L * (4 * D * D + 2 * D * FF) + n_block * 2 * D * D)
-             + 4 * n_seq * S * S * D * L)
+def _encoder_work(n_seq, n_block, st, s=S, d=D, ff=FF):
+    """(flops, bytes, peak) of K1 (K2 at n_block = 0) on n_seq sequences of
+    s tokens (width d, FFN ff; the flagship's by default): per layer the
+    QKV and out projections (4 d^2) and the FFN (2 d ff) a row, and s x s
+    attention a sequence; a skip linear (2d -> d) a row for each of the
+    n_block output blocks. Bytes: the stacked weights, x in and out
+    (f32)."""
+    L, rows = 2 * n_block + 1, n_seq * s
+    flops = (2 * rows * (L * (4 * d * d + 2 * d * ff) + n_block * 2 * d * d)
+             + 4 * n_seq * s * s * d * L)
     from mld_tpu_torch.ops.fused_layer import _PACKED
     # products on the tensor cores: 3xTF32 for f32 weights, bf16 mma
     peak = BF16_MMA if st.wqkv.element_size() == 2 else TF32X3
-    return flops, _weight_bytes(st, _PACKED) + 2 * rows * D * 4, peak
+    return flops, _weight_bytes(st, _PACKED) + 2 * rows * d * 4, peak
 
 
 def _decoder_work(tgt, mem, valid, st):
@@ -891,23 +909,27 @@ def profile_decoder(torch, vae, lengths, g):
     return res
 
 
-def check_flash_causal(torch, g):
-    """K4 vs its plain version at [128, 12, S, 64]."""
+def check_flash_causal(torch, g, cases=None):
+    """K4 vs its plain version at `cases` (B, heads, S, Dh, key); by
+    default [128, 12, S, 64] at every bucket and the MultiModality
+    batch's prompts."""
     import torch.nn.functional as F
 
     from mld_tpu_torch.ops import attention
     from mld_tpu_torch.ops.attention import (flash_causal_plain,
                                              sdpa_flash_causal)
     res = {}
-    scale = CLIP_DH ** -0.5
     # B=128 at each bucket, keyed by S; the MultiModality batch's prompts at
     # the demo bucket, keyed by (B, S)
-    cases = [(B_LARGE, s, s) for s in CLIP_SEQS] + [
-        (EVAL_MM_ROWS, CLIP_KEY_S, (EVAL_MM_ROWS, CLIP_KEY_S))]
+    if cases is None:
+        cases = [(B_LARGE, CLIP_HEADS, s, CLIP_DH, s) for s in CLIP_SEQS] + [
+            (EVAL_MM_ROWS, CLIP_HEADS, CLIP_KEY_S, CLIP_DH,
+             (EVAL_MM_ROWS, CLIP_KEY_S))]
     for dname, dt, atol in (("f32", torch.float32, ATTN_F32_ATOL),
                             ("bf16", torch.bfloat16, ATTN_BF16_ATOL)):
-        for B, s, key in cases:
-            shape = (B, CLIP_HEADS, s, CLIP_DH)
+        for B, heads, s, dh, key in cases:
+            scale = dh ** -0.5
+            shape = (B, heads, s, dh)
             q, k = (torch.randn(shape, device=DEVICE, generator=g).to(dt)
                     for _ in range(2))
             v = (0.5 * torch.randn(shape, device=DEVICE, generator=g)).to(dt)
@@ -915,11 +937,11 @@ def check_flash_causal(torch, g):
                 torch, "flash_causal",
                 lambda: sdpa_flash_causal(q, k, v, scale),
                 lambda: flash_causal_plain(q, k, v, scale),
-                atol, f"{dname} [{B}, {CLIP_HEADS}, {s}, {CLIP_DH}]",
+                atol, f"{dname} [{B}, {heads}, {s}, {dh}]",
                 lambda: attention.LAUNCHES,
                 library=lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, scale=scale),
-                work=(2 * B * CLIP_HEADS * CLIP_DH * s * (s + 1),
+                work=(2 * B * heads * dh * s * (s + 1),
                       4 * q.numel() * q.element_size(), FLASH_PEAK[dname]))
             if key == CLIP_KEY_S:
                 names = _library_kernels(
@@ -952,8 +974,8 @@ def _flash_inputs(torch, B, H, Sq, Sk, Dh, g):
     return (q, k, v), lambda t: [heads(x) for x in t]
 
 
-def check_flash(torch, lengths, g):
-    """K3 vs flash_plain at the shapes of FLASH_CASES, f32 and bf16, on the
+def check_flash(torch, lengths, g, cases=FLASH_CASES):
+    """K3 vs flash_plain at the shapes of `cases`, f32 and bf16, on the
     same strided views. Every row is compared, fully masked ones too. The
     library call is SDPA with the key mask as an additive 0 / -1e9 bias,
     K3's function on every row with a valid key, so it is timed where no
@@ -965,7 +987,7 @@ def check_flash(torch, lengths, g):
     from mld_tpu_torch.ops.attention import NEG_INF, flash_plain, sdpa
 
     res = {}
-    for label, B, H, Sq, Sk, Dh, mask in FLASH_CASES:
+    for label, B, H, Sq, Sk, Dh, mask in cases:
         raw, split = _flash_inputs(torch, B, H, Sq, Sk, Dh, g)
         valid = None
         if mask == "ragged":
@@ -983,6 +1005,13 @@ def check_flash(torch, lengths, g):
             n_tok = Sk - T_FRAMES
             frames = (lengths * -(-B // len(lengths)))[:B]
             valid = lengths_to_mask([n_tok + n for n in frames], Sk, DEVICE)
+        elif mask in ("e2e frames", "e2e tokens"):
+            # the end-to-end protocol's clips (16-96 frames), behind the
+            # VAE encoder's distribution tokens
+            n_tok = Sk - E2E_FRAMES
+            frames = list(E2E_LENGTHS) * -(-B // len(E2E_LENGTHS))
+            valid = lengths_to_mask([n_tok + n for n in frames[:B]], Sk,
+                                    DEVICE)
         for dname, dt, atol in (("f32", torch.float32, ATTN_F32_ATOL),
                                 ("bf16", torch.bfloat16, ATTN_BF16_ATOL)):
             q, k, v = split(raw.to(dt) if torch.is_tensor(raw)
@@ -3101,9 +3130,510 @@ def phase_options(torch, smi, texts, lengths):
     return runs
 
 
+# ------------------------------------------------------ end-to-end protocol
+# CLIP pretraining at full width: mld_humanml3d's tower (12x768, bf16
+# compute) on phase 6's 128-clip corpus, B=64 (its train split holds one
+# batch, so each step is also an epoch of the loader), PRETRAIN_STEPS steps;
+# the median of steps 2-N leaves out the traced step
+PRETRAIN_B = 64
+PRETRAIN_STEPS = 60
+PRETRAIN_TRACED = 30
+PRETRAIN_REF_B = 8
+PRETRAIN_REF_STEPS = 2
+# card (K4, cuBLAS) vs CPU (plain versions) over two pretraining steps of
+# the f32 12x768 tower: f32 summation order through the 12 layers and
+# their backward, as in phase 6's reference step (TRAIN_REF_RTOL): each
+# step's loss, and the first step's gradients by leaf against the leaf's
+# largest |g| (the key projections' biases, whose gradient is zero in exact
+# arithmetic, against the tower's). The second step's gradients follow
+# parameters that Adam moved by about lr x sign(g), and the sign of a
+# gradient at rounding level differs between the devices, so only its loss
+# is held
+PRETRAIN_REF_RTOL = TRAIN_REF_RTOL
+# the e2e drill: the port's script at its small scale with its budgets cut
+# (--steps 150 a stage, 60 CLIP steps, 150 evaluator steps; the corpus,
+# the protocol's constants and the evaluation stand) and the train()
+# section at 2 of its 3 epochs
+E2E_ROOT = os.path.join(REPO, "build", "e2e_smoke")
+E2E_ARGV = ("--model-scale", "small", "--steps", "150", "--clip-steps", "60",
+            "--eval-steps", "150")
+E2E_LOOP_EPOCHS = 2
+# the protocol's clip lengths for K3's masks (16-96 frames), cycled
+E2E_FRAMES = 96
+E2E_LENGTHS = (96, 81, 64, 47, 30, 16)
+
+
+def _pretrain_cfg(B, **model):
+    from mld_tpu_torch.config import load_config
+
+    return load_config(preset="mld_humanml3d", overrides={
+        "name": "smoke_pretrain", "debug": True,
+        "model": {**TRAIN_MODEL, **model},
+        "dataset": {"root": os.path.join(TRAIN_ROOT, "humanml3d")},
+        "train": {"batch_size": B}})
+
+
+def _e2e_cfg():
+    """The drill's config, as the script resolves it."""
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.scripts import train_synthetic_e2e as e2e
+
+    args = e2e.parse_args(list(E2E_ARGV) + ["--workdir", E2E_ROOT])
+    return load_config(None, e2e.protocol_config(args), preset=args.preset)
+
+
+def _bucket_of(torch, dm, B):
+    """The EOT bucket of the first training batch: K4's S in pretraining."""
+    from mld_tpu_torch.models.mld import crop_to_bucket
+
+    batch = next(iter(dm.loader("train", batch_size=B, prefetch=0,
+                                drop_last=True)))
+    return crop_to_bucket(torch.as_tensor(batch["text_ids"])).shape[1]
+
+
+def check_e2e_kernels(torch, s_full, s_small):
+    """K1, K3 and K4 at the shapes the protocol gives them, each against its
+    plain version: K4 in the full-width pretraining ([64, 12, S, 64]) and in
+    the small tower ([16, 2, S, 32]); K1 at the small denoiser's widths
+    (D = 64, 4 heads, F = 128, 3 layers, 3 tokens) over the evaluation's 32
+    prompts under CFG; K3 at the small VAE's (4 heads of 16): the decode's
+    self-attention over 96 frames and its cross-attention to the latent at
+    the evaluation's batch, and the frozen encode's self-attention over
+    [2 tokens; 96 frames] at the training batch."""
+    from mld_tpu_torch.models.mld import init_params
+    from mld_tpu_torch.ops import fused_layer
+    from mld_tpu_torch.ops.fused_layer import (skip_encoder_stack,
+                                               skip_encoder_stack_plain,
+                                               stack_skip_encoder)
+    from mld_tpu_torch.ops.transformer import SkipTransformerEncoder
+
+    cfg = _e2e_cfg()
+    m = cfg.model
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    big = _pretrain_cfg(PRETRAIN_B).model
+    eval_b, train_b = cfg.eval.batch_size, cfg.train.batch_size
+    res = {"flash_causal": check_flash_causal(torch, g, [
+        (PRETRAIN_B, big.clip_heads, s_full,
+         big.text_encoded_dim // big.clip_heads, "pretrain"),
+        (train_b, m.clip_heads, s_small, m.text_encoded_dim // m.clip_heads,
+         "small tower")])}
+    s, n_block = m.latent_size + 2, (m.denoiser_num_layers - 1) // 2
+    encoder = SkipTransformerEncoder(m.latent_dim, m.num_heads,
+                                     m.denoiser_num_layers, m.ff_size)
+    init_params(encoder, torch.Generator().manual_seed(SEED + 12))
+    encoder.to(DEVICE)
+    res["skip_encoder"] = {}
+    for wname, wdt, atol in WEIGHT_ARMS:
+        st = stack_skip_encoder(encoder, getattr(torch, wdt))
+        x = torch.randn(2 * eval_b, s, m.latent_dim, device=DEVICE,
+                        generator=g)
+        res["skip_encoder"][wname] = _hold(
+            torch, "skip_encoder",
+            lambda: skip_encoder_stack(x, st, n_block, m.num_heads),
+            lambda: skip_encoder_stack_plain(x, st, n_block, m.num_heads),
+            atol, f"{wname} e2e small D={m.latent_dim} L="
+            f"{m.denoiser_num_layers} F={m.ff_size} seqs={2 * eval_b}",
+            lambda: fused_layer.LAUNCHES,
+            work=_encoder_work(2 * eval_b, n_block, st, s, m.latent_dim,
+                               m.ff_size))
+    dh, T, n_tok = m.latent_dim // m.num_heads, E2E_FRAMES, 2 * m.latent_size
+    res["flash_attention"] = check_flash(torch, None, g, (
+        ("e2e decode self", eval_b, m.num_heads, T, T, dh, "e2e frames"),
+        ("e2e decode cross", eval_b, m.num_heads, T, m.latent_size, dh,
+         None),
+        ("e2e encode self", train_b, m.num_heads, T + n_tok, T + n_tok, dh,
+         "e2e tokens")))
+    return res
+
+
+class _PretrainWatch:
+    """pretrain_clip_text's on_step: each step's wall ms from the previous
+    step's end (both ends synchronized; the loader's batch included), its
+    launches (checked), its peak allocated memory, its loss, and a
+    torch.profiler trace of step `traced`."""
+
+    def __init__(self, torch, want, traced):
+        self.torch, self.want, self.traced = torch, want, traced
+        self.ms, self.peak, self.losses = {}, {}, []
+        self.counts = self.busy = self.prof = None
+
+    def start(self):
+        _sync(self.torch)
+        _reset_counts()
+        _reset_peak(self.torch)
+        self.t = time.perf_counter()
+
+    def __call__(self, n, loss):
+        torch = self.torch
+        _sync(torch)
+        self.ms[n] = (time.perf_counter() - self.t) * 1e3
+        self.peak[n] = _peak_mib(torch)
+        self.counts = _read_counts()
+        _check_counts(self.counts, self.want, f"pretraining step {n}")
+        self.losses.append(float(loss))
+        if n == self.traced:
+            self.prof.__exit__(None, None, None)
+            busy = sum(e.time_range.elapsed_us() for e in self.prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+            self.busy = {"wall_ms": self.ms[n], "busy_ms": busy / 1e3,
+                         "busy_share": busy / 1e3 / self.ms[n]}
+        if n == self.traced - 1:
+            from torch.profiler import ProfilerActivity, profile
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        _reset_counts()
+        _reset_peak(torch)
+        self.t = time.perf_counter()
+
+
+def pretrain_full_width(torch, smi):
+    """pretrain_clip_text on mld_humanml3d's tower at B = PRETRAIN_B: K4's
+    launches every step (clip_layers), ms a step, peak memory, a falling
+    finite style-MSE, every tower leaf moved, the tower's flags restored,
+    the device busy share of one traced step."""
+    from mld_tpu_torch.data.datamodule import get_datamodule
+    from mld_tpu_torch.models.clip_text import ClipTokenizer
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.train.pretrain import pretrain_clip_text
+
+    cfg = _pretrain_cfg(PRETRAIN_B)
+    m = cfg.model
+    dm = get_datamodule(cfg, tokenizer=ClipTokenizer(m.clip_path))
+    mld = MLD(cfg, mean=dm.mean, std=dm.std, device=DEVICE,
+              generator=torch.Generator().manual_seed(SEED))
+    mld.requires_grad_(False)       # as the training stages leave it
+    before = {k: p.detach().clone() for k, p in mld.clip.named_parameters()}
+    want = dict.fromkeys(_read_counts(), 0)
+    want["flash_causal"] = m.clip_layers
+    watch = _PretrainWatch(torch, want, PRETRAIN_TRACED)
+    t0 = time.perf_counter()
+    watch.start()
+    report = pretrain_clip_text(cfg, dm, mld, steps=PRETRAIN_STEPS,
+                                log_every=0, on_step=watch)
+    wall = time.perf_counter() - t0
+    moved = sum(not torch.equal(p, before[k])
+                for k, p in mld.clip.named_parameters())
+    if (moved != len(before) or any(p.requires_grad
+                                    for p in mld.clip.parameters())):
+        raise RuntimeError(f"pretraining: {moved} of {len(before)} tower "
+                           f"leaves moved, or the tower's flags were not "
+                           f"restored")
+    first, last = report["style_mse_first"], report["style_mse_last"]
+    if not (math.isfinite(first) and math.isfinite(last) and last < first
+            and all(map(math.isfinite, watch.losses))):
+        raise RuntimeError(f"pretraining's style-MSE did not fall: "
+                           f"{first} -> {last}")
+    kept = [ms for n, ms in watch.ms.items() if n > 1 and n != watch.traced]
+    peak = max(mib for n, mib in watch.peak.items()
+               if n > 1 and n != watch.traced)
+    s = _bucket_of(torch, dm, PRETRAIN_B)
+    b = watch.busy
+    log(f"[e2e:pretrain] CLIP {m.clip_layers}x{m.text_encoded_dim} "
+        f"{m.clip_compute_dtype} compute, B={PRETRAIN_B}, ids cropped to "
+        f"S={s}, {report['steps']} steps (lr 1e-3, warmup "
+        f"{max(20, PRETRAIN_STEPS // 10)}, end 0.05 lr): step median "
+        f"{statistics.median(kept):.2f} ms (n={len(kept)}, steps 2-"
+        f"{PRETRAIN_STEPS} but the traced one; the loader's batch "
+        f"included; all: {', '.join(f'{v:.1f}' for v in watch.ms.values())}"
+        f"); K4 {watch.counts['flash_causal']} launches a step under "
+        f"autograd (every step checked: {want}); style-MSE first 10 "
+        f"{first:.5f} -> last 10 {last:.5f}; every one of {moved} tower "
+        f"leaves moved; peak allocated {peak:.1f} MiB a step; device busy "
+        f"{100 * b['busy_share']:.1f}% of {b['wall_ms']:.1f} ms (step "
+        f"{watch.traced} traced); {wall:.1f} s; {smi}")
+    del mld
+    torch.cuda.empty_cache()
+    return {"step_median_ms": statistics.median(kept), "step_n": len(kept),
+            "peak_mib": peak, "busy": b, "launches": watch.counts,
+            "style_mse_first": first, "style_mse_last": last, "S": s,
+            "seconds": wall}
+
+
+def _pretrain_grad_err(a, b):
+    """Worst leaf error of gradients `a` against `b` over the leaf's largest
+    |g|; the key projections' biases over the tower's largest |g|."""
+    top = max(float(g.abs().max()) for g in b.values())
+    worst, name = 0.0, None
+    for k, g in b.items():
+        scale = top if k.endswith("k_proj.bias") else float(g.abs().max())
+        err = float((a[k] - g).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, name = err, k
+    return worst, name
+
+
+def check_pretrain_reference(torch):
+    """PRETRAIN_REF_STEPS pretraining steps of the f32 12x768 tower at
+    B = PRETRAIN_REF_B, card (K4) vs CPU (plain versions), from the same
+    init on the same batches: each step's loss and the first step's
+    gradients."""
+    from mld_tpu_torch.data.datamodule import get_datamodule
+    from mld_tpu_torch.models.clip_text import ClipTokenizer
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.train.pretrain import pretrain_clip_text
+
+    cfg = _pretrain_cfg(PRETRAIN_REF_B, clip_compute_dtype="float32")
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        dm = get_datamodule(cfg, tokenizer=ClipTokenizer(cfg.model.clip_path))
+        mld = MLD(cfg, device=dev,
+                  generator=torch.Generator().manual_seed(SEED))
+        rec = {"losses": []}
+
+        def on_step(n, loss, mld=mld, rec=rec):
+            rec["losses"].append(float(loss))
+            if n == 1:
+                rec["grads"] = {k: p.grad.detach().cpu().clone()
+                                for k, p in mld.clip.named_parameters()}
+
+        _reset_counts()
+        pretrain_clip_text(cfg, dm, mld, steps=PRETRAIN_REF_STEPS,
+                           log_every=0, on_step=on_step)
+        rec["counts"] = _read_counts()
+        out[dev] = rec
+        del mld
+    want = PRETRAIN_REF_STEPS * cfg.model.clip_layers
+    if (out[DEVICE]["counts"]["flash_causal"] != want
+            or any(out["cpu"]["counts"].values())):
+        raise RuntimeError(f"reference pretraining launches: card "
+                           f"{out[DEVICE]['counts']}, CPU "
+                           f"{out['cpu']['counts']}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(out[DEVICE]["losses"], out["cpu"]["losses"]))
+    grad_err, leaf = _pretrain_grad_err(out[DEVICE]["grads"],
+                                        out["cpu"]["grads"])
+    log(f"[e2e:pretrain-reference] f32 tower {cfg.model.clip_layers}x"
+        f"{cfg.model.text_encoded_dim}, B={PRETRAIN_REF_B}, "
+        f"{PRETRAIN_REF_STEPS} steps, card (K4 {want} launches) vs CPU: "
+        f"losses {out[DEVICE]['losses']} vs {out['cpu']['losses']} (worst "
+        f"rel err {loss_err:.2e}); first step's worst gradient leaf "
+        f"{grad_err:.2e} of its scale ({leaf}) (bar {PRETRAIN_REF_RTOL:g})")
+    if not (loss_err <= PRETRAIN_REF_RTOL and grad_err <= PRETRAIN_REF_RTOL):
+        raise RuntimeError("the card's pretraining disagrees with the CPU")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+
+
+def _finite_metrics(what, metrics):
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad:
+        raise RuntimeError(f"e2e drill: non-finite {what}: {bad}")
+
+
+def e2e_drill(torch, smi):
+    """python -m mld_tpu_torch.scripts.train_synthetic_e2e in-process at
+    E2E_ARGV on the card, each section's seconds and launches read through
+    wrappers (the train() section holds its own evaluation passes); every
+    stage's loss must fall, every metric be finite, each training and
+    evaluation call launch what its config derives, and the trained
+    bundle load back through load_pretrained with its tower."""
+    import shutil
+
+    import numpy as np
+
+    from mld_tpu_torch.config.core import config_from_dict
+    from mld_tpu_torch.eval import pipeline, t2m_train
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.scripts import train_synthetic_e2e as e2e
+    from mld_tpu_torch.train import loop, pretrain
+    from mld_tpu_torch.utils.checkpoint import (load_params_npz,
+                                                load_pretrained)
+
+    shutil.rmtree(E2E_ROOT, ignore_errors=True)
+    os.makedirs(E2E_ROOT)
+    sections = []
+    patched = []
+
+    def wrap(owner, attr, label):
+        inner = getattr(owner, attr)
+
+        def run(*args, **kwargs):
+            _sync(torch)
+            before, t = _read_counts(), time.perf_counter()
+            out = inner(*args, **kwargs)
+            _sync(torch)
+            after = _read_counts()
+            name = label(args) if callable(label) else label
+            sections.append((name, time.perf_counter() - t,
+                             {k: after[k] - before[k] for k in after}))
+            return out
+
+        patched.append((owner, attr, inner))
+        setattr(owner, attr, run)
+
+    wrap(t2m_train, "train_t2m_evaluator", "t2m evaluator")
+    wrap(pretrain, "pretrain_clip_text", "clip pretrain")
+    wrap(e2e, "run_stage", lambda a: f"{a[0].stage} stage")
+    wrap(pipeline.Evaluator, "run_gt", "run_gt")
+    wrap(pipeline.Evaluator, "run_split", "run_split")
+    wrap(loop, "train", "train() section")
+    report_path = os.path.join(E2E_ROOT, "report.json")
+    argv = list(E2E_ARGV) + ["--workdir", E2E_ROOT, "--out", report_path,
+                             "--device", DEVICE]
+    epochs = e2e.LOOP_EPOCHS
+    e2e.LOOP_EPOCHS = E2E_LOOP_EPOCHS
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = e2e.main(argv)
+    finally:
+        e2e.LOOP_EPOCHS = epochs
+        for owner, attr, inner in reversed(patched):
+            setattr(owner, attr, inner)
+    wall = time.perf_counter() - t0
+    total = _read_counts()
+    with open(report_path) as f:
+        report = json.load(f)
+    with open(os.path.join(E2E_ROOT, "cfg.json")) as f:
+        cfg = config_from_dict(json.load(f))
+    m = cfg.model
+    steps = report["steps"]
+
+    for name, first, last in (
+            ("t2m evaluator", "loss_first", "loss_last"),
+            ("clip_pretrain", "style_mse_first", "style_mse_last"),
+            ("vae", "loss_first", "loss_last"),
+            ("diffusion", "loss_first", "loss_last")):
+        sec = report["t2m_evaluator" if name == "t2m evaluator" else name]
+        if not (math.isfinite(sec[first]) and math.isfinite(sec[last])
+                and sec[last] < sec[first]):
+            raise RuntimeError(f"e2e drill: the {name} loss did not fall: "
+                               f"{sec[first]} -> {sec[last]}")
+    for key in ("eval_gt", "eval_random_init", "eval_trained"):
+        _finite_metrics(key, report[key])
+    curve = report["val_fid_curve"]
+    if len(curve) != E2E_LOOP_EPOCHS:
+        raise RuntimeError(f"e2e drill: {len(curve)} val metric points")
+    for point in curve:
+        _finite_metrics("val curve", {"FID": point["FID"],
+                                      "R@1": point["R@1"]})
+
+    # launches by section, from the config: the stages' steps, the tower's
+    # layers a pretraining step, and a DDIM generation pass an evaluated
+    # batch (K1 a step; K4 the prompts and the uncond row; K3 the plain
+    # decode's self- and cross-attention a layer)
+    per_batch = dict.fromkeys(total, 0)
+    per_batch.update(skip_encoder=m.scheduler.num_inference_timesteps,
+                     flash_causal=2 * m.clip_layers,
+                     flash_attention=2 * m.num_layers)
+    for name, _, counts in sections:
+        if name in ("vae stage", "diffusion stage"):
+            want = {k: steps * v for k, v in _train_want(
+                cfg, name.split()[0]).items()}
+        elif name == "clip pretrain":
+            want = dict.fromkeys(total, 0)
+            want["flash_causal"] = (report["clip_pretrain"]["steps"]
+                                    * m.clip_layers)
+        elif name in ("t2m evaluator", "run_gt"):
+            want = dict.fromkeys(total, 0)
+        elif name == "run_split":
+            n = counts["skip_encoder"] // per_batch["skip_encoder"]
+            want = {k: n * v for k, v in per_batch.items()}
+            if n == 0:
+                raise RuntimeError("e2e drill: an evaluation pass launched "
+                                   "no K1")
+        else:
+            continue
+        _check_counts(counts, want, f"e2e drill {name}")
+    if not (total["skip_encoder"] and total["flash_causal"]
+            and total["flash_attention"]) or total["skip_decoder"]:
+        raise RuntimeError(f"e2e drill launches {total}")
+
+    # the trained bundle in the JAX package's form: every module, the tower
+    # included, loads back bit for bit, and the tower is the trained one
+    mld = MLD(cfg, device=DEVICE, generator=torch.Generator().manual_seed(0))
+    fresh = {k: p.detach().clone() for k, p in mld.clip.named_parameters()}
+    tops = load_pretrained(mld, report["params_path"])
+    saved = load_params_npz(report["params_path"])
+    tree = mld.params_tree()
+
+    def leaves(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    mine, theirs = dict(leaves(tree)), dict(leaves(saved))
+    if (sorted(tops) != ["clip", "denoiser", "vae"] or set(mine) != set(theirs)
+            or any(not np.array_equal(mine[k], theirs[k]) for k in mine)):
+        raise RuntimeError(f"e2e drill: {report['params_path']} did not load "
+                           f"back whole: {tops}")
+    moved = sum(not torch.equal(p, fresh[k])
+                for k, p in mld.clip.named_parameters())
+    if moved == 0:
+        raise RuntimeError("e2e drill: the bundle's tower is the init's")
+    del mld
+
+    by = {}
+    for name, secs, counts in sections:
+        s_, c_ = by.setdefault(name, [0.0, Counter()])
+        by[name][0] += secs
+        c_.update(counts)
+    for name, (secs, counts) in by.items():
+        log(f"[e2e:drill] {name}: {secs:.1f} s, launches "
+            f"{dict(counts)}")
+    ev, rnd = report["eval_trained"], report["eval_random_init"]
+    log(f"[e2e:drill] {' '.join(E2E_ARGV)}, train() "
+        f"{E2E_LOOP_EPOCHS} epochs: {wall:.1f} s; evaluator nce "
+        f"{report['t2m_evaluator']['loss_first']:.3f} -> "
+        f"{report['t2m_evaluator']['loss_last']:.3f}; style-MSE "
+        f"{report['clip_pretrain']['style_mse_first']:.4f} -> "
+        f"{report['clip_pretrain']['style_mse_last']:.4f}; vae "
+        f"{report['vae']['loss_first']:.4f} -> "
+        f"{report['vae']['loss_last']:.4f}; diffusion "
+        f"{report['diffusion']['loss_first']:.4f} -> "
+        f"{report['diffusion']['loss_last']:.4f}; GT R@1 "
+        f"{report['eval_gt']['R_precision_top_1']:.3f}; random vs trained "
+        f"R@1 {rnd['R_precision_top_1']:.3f} / {ev['R_precision_top_1']:.3f}"
+        f", FID {rnd['FID']:.2f} / {ev['FID']:.2f}; val FID curve "
+        f"{[round(p['FID'], 2) for p in curve]}; the script's learning "
+        f"rule at this cut budget: {'PASS' if rc == 0 else 'FAIL'} (the "
+        f"learning run's, not held here); launches {total}; bundle "
+        f"{tops} loaded back bit for bit, its tower trained ({moved} "
+        f"leaves off the init); {smi}")
+    return {"seconds": wall, "launches": total, "rc": rc,
+            "sections": {name: {"seconds": secs, "launches": dict(c)}
+                         for name, (secs, c) in by.items()}}
+
+
+def phase_e2e(torch, smi):
+    """The synthetic end-to-end protocol on the card: the kernels at its
+    shapes, CLIP pretraining at full width with a card-vs-CPU check, and a
+    drill of the port's e2e script."""
+    from mld_tpu_torch.data.datamodule import get_datamodule
+    from mld_tpu_torch.data.synthetic import build_synthetic_dataset
+    from mld_tpu_torch.models.clip_text import ClipTokenizer
+
+    if not os.path.exists(os.path.join(TRAIN_ROOT, "humanml3d", "Std.npy")):
+        build_synthetic_dataset(os.path.join(TRAIN_ROOT, "humanml3d"),
+                                n_samples=TRAIN_CLIPS, seed=SEED)
+    cfg = _pretrain_cfg(PRETRAIN_B)
+    s_full = _bucket_of(torch, get_datamodule(
+        cfg, tokenizer=ClipTokenizer(cfg.model.clip_path)), PRETRAIN_B)
+    runs = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        # the small tower's prompts are the same captions' ids
+        runs["kernels"] = check_e2e_kernels(torch, s_full, s_full)
+    log(f"[time] e2e kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runs["pretrain"] = pretrain_full_width(torch, smi)
+    runs["pretrain_reference"] = check_pretrain_reference(torch)
+    torch.cuda.empty_cache()
+    log(f"[time] e2e pretraining: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runs["drill"] = e2e_drill(torch, smi)
+    torch.cuda.empty_cache()
+    log(f"[time] e2e drill: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
-                 a2m_runs, mode_runs, option_runs):
+                 a2m_runs, mode_runs, option_runs, e2e_runs):
     counts = runs["kernels"]["counts"]
+    e2e_k = e2e_runs["kernels"]
+    e2e_eval_b = _e2e_cfg().eval.batch_size
     layer_res, layer_rounding = kr["encoder_layer"]
     dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
 
@@ -3147,6 +3677,12 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
         options = ({k: r["launches"][name] for k, r in option_runs.items()
                     if "launches" in r and "reference" not in k}
                    if name != "encoder_layer" else None)
+        # phase 11: a full-width pretraining step, each section of the e2e
+        # drill
+        e2e = ({"pretrain_step": e2e_runs["pretrain"]["launches"][name],
+                "drill": {k: r["launches"][name] for k, r in
+                          e2e_runs["drill"]["sections"].items()}}
+               if name != "encoder_layer" else None)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst(results, key[0]), **arm(results[key]),
@@ -3158,6 +3694,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                 "a2m_eval_launches_a_batch": a2m_evals,
                 "a2m_train_launches_a_step": a2m_train,
                 "options_launches": options,
+                "e2e_launches": e2e,
                 **extra}
 
     return {"kernels": [
@@ -3170,7 +3707,10 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
               a2m_l15_bf16_max_abs_err=worst(kr["skip_encoder_a2m"], "bf16"),
               **arm(kr["skip_encoder_a2m"][("f32", 2 * B_LARGE)], "a2m_l15_"),
               **arm(kr["skip_encoder_a2m"][("bf16", 2 * B_LARGE)],
-                    "a2m_l15_bf16_")),
+                    "a2m_l15_bf16_"),
+              # the e2e protocol's small denoiser (D = 64, L = 3)
+              **arm(e2e_k["skip_encoder"]["f32"], "e2e_small_"),
+              **arm(e2e_k["skip_encoder"]["bf16"], "e2e_small_bf16_")),
         # no caller on the main path: launches of one compared call
         entry("encoder_layer", "mld_tpu_torch/csrc/skip_encoder.cu",
               "mld_tpu/ops/fused_layer.py:137",
@@ -3189,7 +3729,11 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
         # times at the main path's shape: bf16 tower, the prompts' bucket
         entry("flash_causal", "mld_tpu_torch/csrc/flash_causal.cu",
               "mld_tpu/ops/attention.py:188", counts["flash_causal"],
-              kr["flash_causal"], ("f32", prompt_len), ("bf16", prompt_len)),
+              kr["flash_causal"], ("f32", prompt_len), ("bf16", prompt_len),
+              # the full-width pretraining's [64, 12, S, 64]
+              **arm(e2e_k["flash_causal"][("f32", "pretrain")], "pretrain_"),
+              **arm(e2e_k["flash_causal"][("bf16", "pretrain")],
+                    "pretrain_bf16_")),
         # launches of the novae_stress_s512 call; times of one of its
         # self-attentions at the demo batch
         entry("flash_attention", "mld_tpu_torch/csrc/flash_attention.cu",
@@ -3200,7 +3744,14 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
               **arm(kr["flash_attention"][("f32", ("actor decode self",
                                                    B_LARGE))], "a2m_"),
               **arm(kr["flash_attention"][("bf16", ("actor decode self",
-                                                    B_LARGE))], "a2m_bf16_")),
+                                                    B_LARGE))], "a2m_bf16_"),
+              # the e2e protocol's small VAE decode (4 heads of 16)
+              **arm(e2e_k["flash_attention"][("f32", ("e2e decode self",
+                                                      e2e_eval_b))],
+                    "e2e_dh16_"),
+              **arm(e2e_k["flash_attention"][("bf16", ("e2e decode self",
+                                                       e2e_eval_b))],
+                    "e2e_dh16_bf16_")),
     ]}
 
 
@@ -3232,10 +3783,13 @@ def main():
     t0 = time.perf_counter()
     option_runs = phase_options(torch, smi, texts, lengths)
     log(f"[time] text-family options: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    e2e_runs = phase_e2e(torch, smi)
+    log(f"[time] end-to-end protocol: {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
                                 runs["kernels"]["prompt_len"], train_runs,
                                 eval_runs, a2m_runs, mode_runs,
-                                option_runs)))
+                                option_runs, e2e_runs)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ feeds them):
     vector (``data/synthetic.py:style_vector_from_caption``).
 The optimizer is optax's ``clip_by_global_norm(1.0)`` + Adam over a warmup
 + cosine schedule (peak lr, warmup max(20, steps // 10) from 0.05 lr, down
-to 0.1 lr at `steps`), written out here in optax's f32 arithmetic. ``save_t2m_params`` writes the
+to 0.1 lr at `steps`), written out here in optax's f32 arithmetic
+(``warmup_cosine``, whose warmup and end the CLIP pretraining and the
+end-to-end protocol set to their own). ``save_t2m_params`` writes the
 weights as the JAX bundle's npz, which ``cfg.eval.t2m_params_path`` reads in
 either package.
 """
@@ -36,13 +38,21 @@ BATCH_KEYS = ("motion", "mask", "length", "word_embs", "pos_ohot",
               "text_len")
 
 
-def warmup_cosine(step: int, steps: int, lr: float) -> float:
-    """optax.warmup_cosine_decay_schedule(0.05 lr, lr, max(20, steps // 10),
-    steps, 0.1 lr) at `step`, in its f32 arithmetic: a linear warmup, then
-    a cosine from lr down to 0.1 lr."""
+def warmup_cosine(step: int, steps: int, lr: float,
+                  warmup: Optional[int] = None, end: float = 0.1) -> float:
+    """optax.warmup_cosine_decay_schedule(0.05 lr, lr, warmup, steps,
+    end x lr) at `step`, in its f32 arithmetic: a linear warmup over
+    `warmup` steps (default max(20, steps // 10), the evaluator's), then a
+    cosine from lr down to `end` x lr at `steps`. The three users: the
+    evaluator (end 0.1), the CLIP pretraining (warmup max(20, steps // 10),
+    end 0.05, ``mld_tpu/train/pretrain.py:56-59``) and the end-to-end
+    protocol's AdamW (warmup max(50, steps // 20), end 0.02,
+    ``scripts/train_synthetic_e2e.py:209-213``). optax refuses a run no
+    longer than its warmup; here such a run stays in the warmup."""
     f32 = np.float32
-    warmup = max(20, steps // 10)
-    init, peak, end = lr * 0.05, lr, lr * 0.1
+    if warmup is None:
+        warmup = max(20, steps // 10)
+    init, peak, end = lr * 0.05, lr, lr * end
     if step < warmup:
         frac = f32(1) - f32(step) / f32(warmup)
         return float(f32(init - peak) * frac + f32(peak))
@@ -58,14 +68,17 @@ class ClippedAdam:
     arithmetic: the gradients scaled by 1 / their global norm when it is
     above 1, then Adam (b1 0.9, b2 0.999, eps 1e-8) whose bias corrections
     1 - b**t are f32 (1 - 0.999 is 1.00005e-3 there, against torch.optim's
-    float64 1e-3: 2.3e-5 of the first update), at the schedule's lr for the
-    step count before this step."""
+    float64 1e-3: 2.3e-5 of the first update), at the lr that
+    ``warmup_cosine(count, steps, lr, warmup, end)`` gives for the step
+    count before this step."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, params: List[torch.Tensor], steps: int, lr: float):
+    def __init__(self, params: List[torch.Tensor], steps: int, lr: float,
+                 warmup: Optional[int] = None, end: float = 0.1):
         self.params = params
         self.steps, self.lr = steps, lr
+        self.warmup, self.end = warmup, end
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
@@ -78,7 +91,8 @@ class ClippedAdam:
         norm = torch.linalg.vector_norm(torch.stack([
             torch.linalg.vector_norm(g, dtype=torch.float64)
             for g in grads])).float()
-        lr = warmup_cosine(self.count, self.steps, self.lr)
+        lr = warmup_cosine(self.count, self.steps, self.lr,
+                           self.warmup, self.end)
         self.count += 1
         f32 = torch.float32
         bc1 = 1 - torch.tensor(self.b1, dtype=f32) ** self.count

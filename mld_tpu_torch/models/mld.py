@@ -53,7 +53,7 @@ batch-first; latents [B, latent_size, latent_dim] or [B, T, nfeats]; masks
 from __future__ import annotations
 
 import os
-from typing import List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,7 +75,8 @@ from mld_tpu_torch.ops.fused_layer import MAX_S
 from mld_tpu_torch.ops.fused_seq_decoder import (can_fuse_decode,
                                                  fused_vae_decode)
 from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
-                                         flax_to_state_dict)
+                                         flax_to_state_dict,
+                                         state_dict_to_flax)
 
 TEXT_BUCKETS = (16, 24, 32, 48, 64)
 
@@ -419,6 +420,14 @@ class MLD(nn.Module):
             sd.update({f"clip.{k}": v for k, v in
                        flax_clip_to_state_dict(tree["clip"]).items()})
         self.load_state_dict(sd, strict=True)
+
+    def params_tree(self) -> Dict:
+        """The model's JAX-package param tree {vae, denoiser, clip} (the
+        modules it has) as numpy arrays, as ``MLD.init_params`` lays it out
+        (``utils/convert.py:state_dict_to_flax``): the inverse of
+        ``load_flax_params``. Running statistics are left out, as JAX's
+        tree holds none."""
+        return state_dict_to_flax(self.state_dict())
 
     # --------------------------------------------------------------- text
     def tokenize(self, texts: Sequence[str]) -> torch.Tensor:

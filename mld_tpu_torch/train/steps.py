@@ -61,14 +61,21 @@ class SkipNonFinite:
     """``optax.apply_if_finite``: a step whose gradients hold a NaN or an
     Inf leaves the parameters and the optimizer's moments as they were,
     unless more than `max_consecutive_errors` such steps came in a row, when
-    it is applied anyway (``steps.py:44-57``)."""
+    it is applied anyway (``steps.py:44-57``). With `schedule` (the count of
+    applied steps -> lr), each applied step runs at ``schedule(applied)``,
+    as optax's ``scale_by_learning_rate(schedule)`` inside
+    ``apply_if_finite`` does: a skipped step leaves the count where it
+    was."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
-                 max_consecutive_errors: int = 100):
+                 max_consecutive_errors: int = 100,
+                 schedule: Optional[Callable[[int], float]] = None):
         self.optimizer = optimizer
         self.max_consecutive_errors = max_consecutive_errors
+        self.schedule = schedule
         self.notfinite_count = 0
         self.total_notfinite = 0
+        self.applied = 0
 
     @property
     def param_groups(self):
@@ -97,27 +104,36 @@ class SkipNonFinite:
             self.notfinite_count += 1
             self.total_notfinite += 1
         if finite or self.notfinite_count > self.max_consecutive_errors:
+            if self.schedule is not None:
+                for group in self.param_groups:
+                    group["lr"] = self.schedule(self.applied)
             self.optimizer.step()
+            self.applied += 1
             return True
         return False
 
     def state_dict(self) -> dict:
         return {"optimizer": self.optimizer.state_dict(),
                 "notfinite_count": self.notfinite_count,
-                "total_notfinite": self.total_notfinite}
+                "total_notfinite": self.total_notfinite,
+                "applied": self.applied}
 
     def load_state_dict(self, state: Mapping):
         self.optimizer.load_state_dict(state["optimizer"])
         self.notfinite_count = int(state["notfinite_count"])
         self.total_notfinite = int(state["total_notfinite"])
+        self.applied = int(state.get("applied", 0))
 
 
-def make_optimizer(params, lr: float = 1e-4,
-                   weight_decay: float = 1e-2) -> SkipNonFinite:
+def make_optimizer(params, lr: float = 1e-4, weight_decay: float = 1e-2,
+                   schedule: Optional[Callable[[int], float]] = None
+                   ) -> SkipNonFinite:
     """AdamW with torch's defaults (the reference's, ``mld.py:88-90``),
-    skipping non-finite steps as the JAX package does."""
+    skipping non-finite steps as the JAX package does; at a constant `lr`,
+    or at `schedule`'s lr for each applied step."""
     return SkipNonFinite(torch.optim.AdamW(
-        params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay))
+        params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay),
+        schedule=schedule)
 
 
 # ---------------------------------------------------------------------- state
@@ -160,9 +176,11 @@ def check_trainable(model_cfg):
             "(generation decodes only) and trains none of it")
 
 
-def create_train_state(mld, stage: str, optimizer=None) -> TrainState:
+def create_train_state(mld, stage: str, optimizer=None,
+                       schedule: Optional[Callable[[int], float]] = None
+                       ) -> TrainState:
     """Freeze what the stage does not train and build the optimizer over
-    the rest (lr from the config)."""
+    the rest (lr from the config, or `schedule`'s: ``make_optimizer``)."""
     check_trainable(mld.cfg.model)
     tops = trainable_modules(mld, stage)
     params = {}
@@ -172,7 +190,8 @@ def create_train_state(mld, stage: str, optimizer=None) -> TrainState:
         if train:
             params[name] = p
     if optimizer is None:
-        optimizer = make_optimizer(list(params.values()), mld.cfg.train.lr)
+        optimizer = make_optimizer(list(params.values()), mld.cfg.train.lr,
+                                   schedule=schedule)
     return TrainState(mld, stage, params, optimizer)
 
 

@@ -17,7 +17,13 @@ Every checkpoint is kept, as the reference keeps every one
 here too) with numpy alone, into the flax tree
 that ``utils/convert.py`` bridges to torch names; ``load_pretrained`` loads
 the vae and / or denoiser of either package's checkpoint into a model, so a
-VAE trained by either package hands off to the other's diffusion stage.
+VAE trained by either package hands off to the other's diffusion stage, and
+the CLIP text tower of an npz that holds one (the JAX loader,
+``mld_tpu/train/loop.py:_load_pretrained``, copies every subtree of such a
+file, ``clip`` included: a tower trained by ``train/pretrain.py``).
+``save_params_npz(path, mld.params_tree())`` writes a model as such a
+file, which the JAX package's ``test.py --checkpoint`` and
+``train.pretrained`` read.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ from typing import Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
-from mld_tpu_torch.utils.convert import flax_to_state_dict
+from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
+                                         flax_to_state_dict)
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
@@ -103,14 +110,18 @@ def load_params_npz(path: str) -> Dict:
 
 
 def _state_from(path: str) -> Dict[str, torch.Tensor]:
-    """Torch-named state of the vae / denoiser in a checkpoint: a JAX npz
-    export, a port checkpoint file, or a port checkpoints directory (its
-    latest step)."""
+    """Torch-named state of the modules in a checkpoint: a JAX npz export
+    (its vae, denoiser and clip), a port checkpoint file or a port
+    checkpoints directory (its latest step; vae and denoiser)."""
     if path.endswith(".npz"):
         tree = load_params_npz(path)
         tree = tree.get("params", tree)
-        return {f"{top}.{k}": v for top in ("vae", "denoiser") if top in tree
-                for k, v in flax_to_state_dict(tree[top]).items()}
+        state = {f"{top}.{k}": v for top in ("vae", "denoiser") if top in tree
+                 for k, v in flax_to_state_dict(tree[top]).items()}
+        if "clip" in tree:
+            state.update({f"clip.{k}": v for k, v in
+                          flax_clip_to_state_dict(tree["clip"]).items()})
+        return state
     if os.path.isdir(path):
         return CheckpointManager(path).restore()["state_dict"]
     return torch.load(path, map_location="cpu",
@@ -120,11 +131,13 @@ def _state_from(path: str) -> Dict[str, torch.Tensor]:
 def load_pretrained(model: torch.nn.Module, path: str,
                     only: Optional[Iterable[str]] = None) -> Iterable[str]:
     """Load the top-level modules `only` (default: every one the checkpoint
-    has among vae / denoiser) from `path` into `model`. Every parameter of
-    a loaded module must be in the checkpoint. Returns the modules loaded."""
+    has among vae / denoiser / clip that the model has) from `path` into
+    `model`, as ``_load_pretrained`` does. Every parameter of a loaded
+    module must be in the checkpoint. Returns the modules loaded."""
     state = _state_from(path)
     tops = sorted({k.split(".", 1)[0] for k in state}
-                  & {"vae", "denoiser"})
+                  & {t for t in ("vae", "denoiser", "clip")
+                     if getattr(model, t, None) is not None})
     if only is not None:
         tops = [t for t in tops if t in set(only)]
         missing_tops = set(only) - set(tops)

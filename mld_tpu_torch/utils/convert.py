@@ -25,6 +25,18 @@ Rules for the denoiser and VAE subtrees:
   (``mean`` / ``var``), when given, becomes its BatchNorms'
   ``running_mean`` / ``running_var``.
 
+The inverse for a whole model, ``state_dict_to_flax``: an ``MLD``'s
+state_dict -> ``{vae, denoiser, clip}`` as ``MLD.init_params`` lays the tree
+out (the modules the model has), through ``module_state_to_flax`` (the
+inverse of ``flax_to_state_dict``: ``weight`` of two or more axes ->
+``kernel`` with its axes reversed, of one axis -> ``scale``; ``X.N`` ->
+``X_N``; ``emb_proj.1`` -> ``emb_proj``, a bare ``emb_proj`` ->
+``emb_proj_action``; running statistics -> a ``batch_stats`` collection)
+and ``state_dict_to_flax_clip`` (the inverse of
+``flax_clip_to_state_dict``). JAX's ``init_params`` keeps no
+``batch_stats`` (``mld_tpu/models/mld.py:162``), so the model's tree holds
+none either.
+
 The t2m evaluator networks' trees (``flax_t2m_to_state_dict`` and its
 inverse ``state_dict_to_flax_t2m``): ``kernel`` -> ``weight`` with its axes
 reversed (Dense [in, out] -> [out, in]; Conv [k, in, out] -> Conv1d's
@@ -41,7 +53,7 @@ as tensors).
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -124,6 +136,110 @@ def flax_clip_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
                 out[f"{pre}.mlp.{sub}.weight"] = _tensor(np.asarray(p["kernel"]).T)
                 out[f"{pre}.mlp.{sub}.bias"] = _tensor(p["bias"])
     return out
+
+
+def _numpy(val) -> np.ndarray:
+    arr = val.detach().cpu().numpy() if torch.is_tensor(val) else val
+    return np.array(arr, order="C")
+
+
+def _insert(tree: Dict, path, value):
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def _flax_path(mods) -> list:
+    """Torch module names -> flax scopes (``_module_name`` inverted)."""
+    out, i = [], 0
+    while i < len(mods):
+        name = mods[i]
+        nxt = mods[i + 1] if i + 1 < len(mods) else None
+        if name == "emb_proj" and nxt == "1":
+            out.append("emb_proj")
+            i += 2
+            continue
+        if name == "emb_proj":
+            out.append("emb_proj_action")
+        elif (nxt is not None and nxt.isdigit()
+              and _INDEXED.match(f"{name}_{nxt}")):
+            out.append(f"{name}_{nxt}")
+            i += 1
+        else:
+            out.append(name)
+        i += 1
+    return out
+
+
+def module_state_to_flax(state: Mapping) -> Tuple[Dict, Dict]:
+    """A denoiser's or VAE's state_dict (names relative to the module) ->
+    (its flax param tree, its batch_stats collection): the inverse of
+    ``flax_to_state_dict``."""
+    params: Dict = {}
+    stats: Dict = {}
+    for name, val in state.items():
+        arr = _numpy(val)
+        *mods, leaf = name.split(".")
+        if leaf in ("running_mean", "running_var"):
+            stats.setdefault(".".join(mods), {})[
+                "mean" if leaf == "running_mean" else "var"] = arr
+            continue
+        if leaf == "weight":
+            leaf, arr = (("kernel", np.array(arr.T, order="C"))
+                         if arr.ndim >= 2 else ("scale", arr))
+        elif leaf == "in_proj_weight":
+            leaf, arr = "in_proj_kernel", np.array(arr.T, order="C")
+        _insert(params, _flax_path(mods) + [leaf], arr)
+    return params, stats
+
+
+def state_dict_to_flax_clip(state: Mapping) -> Dict:
+    """The CLIP text tower's state_dict (HF names) -> its flax tree: the
+    inverse of ``flax_clip_to_state_dict``."""
+    tree: Dict = {}
+    for name, val in state.items():
+        arr = _numpy(val)
+        if name == "text_projection.weight":
+            tree["text_projection"] = np.array(arr.T, order="C")
+            continue
+        parts = name.split(".")
+        if parts[:2] == ["text_model", "embeddings"]:
+            tree[parts[2]] = arr
+            continue
+        if parts[:2] == ["text_model", "final_layer_norm"]:
+            _insert(tree, ["final_layer_norm", "scale" if parts[2] == "weight"
+                           else "bias"], arr)
+            continue
+        if parts[:3] != ["text_model", "encoder", "layers"]:
+            raise KeyError(f"not a CLIP text tower name: {name}")
+        layer, sub, leaf = f"layers_{parts[3]}", parts[4:-1], parts[-1]
+        if sub[0] == "mlp":          # mlp.fc1 -> fc1
+            sub = sub[1:]
+        if sub[0].startswith("layer_norm"):
+            leaf = "scale" if leaf == "weight" else leaf
+        elif leaf == "weight":
+            leaf, arr = "kernel", np.array(arr.T, order="C")
+        _insert(tree, [layer] + sub + [leaf], arr)
+    return tree
+
+
+def state_dict_to_flax(state: Mapping) -> Dict:
+    """An ``MLD`` state_dict -> the JAX package's param tree ``{vae,
+    denoiser, clip}`` of numpy arrays (the modules present), as
+    ``MLD.init_params`` lays it out; running statistics are left out, as
+    JAX's tree holds none."""
+    by_top: Dict[str, Dict] = {}
+    for name, val in state.items():
+        top, rest = name.split(".", 1)
+        if top not in ("vae", "denoiser", "clip"):
+            raise KeyError(f"not an MLD module: {name}")
+        by_top.setdefault(top, {})[rest] = val
+    tree = {}
+    for top, sub in by_top.items():
+        tree[top] = (state_dict_to_flax_clip(sub) if top == "clip"
+                     else module_state_to_flax(sub)[0])
+    return tree
 
 
 _T2M_SEQ = re.compile(r"^(main|output_net)_(\d+)$")
