@@ -168,7 +168,32 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      every metric is finite, each section launches what its config
      derives, and trained_params.npz loads back through load_pretrained
      with its tower;
- 12. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+ 12. the output path (the demo CLI, SMPL fitting, meshes and FBX): writes a
+     seeded full-size SMPL-schema pickle (6,890 vertices, 13,776 faces)
+     and a gmm_08.pkl into build/output_smoke/; python -m
+     mld_tpu_torch.demo at mld_humanml3d's full width from seeded random
+     weights on demo/example.txt at --replication 2 --allinone (K1 50, K4
+     24, K3 18 a replication; 6 npys [len, 22, 3] each), --task action
+     (mld_humanact12, two ids: K1 50, K3 18), random_sampling (K3 18) and
+     reconstruction of a seeded feature npy (K3 27); python -m
+     mld_tpu_torch.fit --mesh on the six motions of the first replication
+     (300 Adam steps, the 25-step polish, the GMM prior; MPJPE, Adam and
+     polish seconds, ms a frame), --ply on the shortest; the 196-frame
+     motion's Adam phase and polish traced (device busy against the
+     untraced phase, device events a step) and fitted again on the CPU,
+     and once more on the CPU with the target moved by 1e-7 of its scale
+     (a random-weight motion is ill-conditioned: Adam's first loss 1e-6
+     relative, MPJPE 10%, and the loss curve, the Adam iterate and the
+     polished joints within 10x the CPU's own divergence from that
+     nudge), and a 196-frame pose walk the body can reach fitted the same
+     three ways (Adam's first loss 1e-6 relative, every loss 2e-4, the
+     last 1e-4, the Adam iterate 1e-3, the polished joints 2e-3 m, MPJPE
+     10%, the mesh 1e-5 of its scale; the nudge printed); python -m
+     mld_tpu_torch.scripts.fbx_export on a
+     npy, its npz and its pkl tree, each file read back (bones, a key a
+     frame). Nothing is rendered (matplotlib host work, which the CPU tests
+     hold, and which this script does not require);
+ 13. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
@@ -2259,21 +2284,29 @@ def _a2m_want(cfg, stage="diffusion"):
             "flash_attention": (2 if diffusion else 3) * m.num_layers}
 
 
-def _traced_busy(torch, fn):
-    """One fn() call under torch.profiler: (wall ms of the traced call,
-    device busy ms in it, device ms by layer)."""
+def _traced(torch, fn):
+    """One fn() under torch.profiler: (its result, wall ms of the traced
+    call, the device events as (name, ms))."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        out = fn()
         _sync(torch)
     wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, [(e.name, e.time_range.elapsed_us() / 1e3)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _traced_busy(torch, fn):
+    """One fn() call under torch.profiler: (wall ms of the traced call,
+    device busy ms in it, device ms by layer)."""
+    _, wall, events = _traced(torch, fn)
     kinds = Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kinds[_eval_kind(e.name)] += e.time_range.elapsed_us() / 1e3
+    for name, ms in events:
+        kinds[_eval_kind(name)] += ms
     return wall, sum(kinds.values()), dict(kinds)
 
 
@@ -3629,8 +3662,475 @@ def phase_e2e(torch, smi):
     return runs
 
 
+# ------------------------------------------------------------ 12. output path
+OUTPUT_ROOT = os.path.join(REPO, "build", "output_smoke")
+# the SMPL pickle's schema at full size: 6,890 vertices, 24 joints, 10
+# betas, 207 pose blend shapes, 13,776 faces
+OUTPUT_SMPL_V = 6890
+OUTPUT_SMPL_F = 13776
+OUTPUT_GMM_K = 8
+OUTPUT_REPS = 2
+OUTPUT_ACTIONS = (3, 7)
+OUTPUT_SAMPLE_LENGTHS = (196, 120, 60)
+OUTPUT_RECON_FRAMES = 120
+# empty: the presets' full widths; the CPU rehearsal makes the model tiny
+OUTPUT_MODEL = {}
+# the fitter's defaults (fit.py): 300 Adam steps, a 25-step polish
+OUTPUT_FIT_STEPS = 300
+OUTPUT_POLISH_STEPS = 25
+# card vs CPU on a motion the fabricated body can reach (the FK of a smooth
+# seeded pose walk, 196 frames): Adam's loss at its first step (the same
+# parameters: the objective itself), at every step (Adam's early transient
+# amplifies rounding: the card parts from the CPU by 1.07e-4 at step 12)
+# and at its last; Adam's iterate; after the polish the worst joint (a
+# frame's accept or reject can flip at f32 rounding) and MPJPE; the mesh of
+# one set of parameters against its scale. The demo's random-weight
+# 196-frame motion is no human motion (the fits stay ~0.3 m off it) and
+# ill-conditioned: the polish drives some rot6d pairs to within 1e-7 of
+# parallel, where Gram-Schmidt amplifies rounding. It is held at Adam's
+# first loss and MPJPE, and its trajectory against the CPU's own: each
+# motion is fitted on the CPU a second time with its target moved by 1e-7
+# of its scale (about one f32 ulp), and the card may part from the CPU by
+# no more than OUTPUT_NUDGE_FACTOR times that nudge's divergence in the
+# loss curve, the Adam iterate and the polished joints
+OUTPUT_LOSS0_RTOL = 1e-6
+OUTPUT_LOSS_RTOL = 2e-4
+OUTPUT_LOSS_LAST_RTOL = 1e-4
+OUTPUT_PARAM_ATOL = 1e-3
+OUTPUT_JOINT_ATOL = 2e-3
+OUTPUT_MPJPE_RTOL = 0.1
+OUTPUT_VERT_RTOL = 1e-5
+OUTPUT_NUDGE = 1e-7
+OUTPUT_NUDGE_FACTOR = 10.0
+# the loss curves' first steps past these relative gaps are printed
+OUTPUT_GAPS = (1e-6, 1e-5, 1e-4, 1e-3)
+OUTPUT_WALK_FRAMES = 196
+# steps of each phase under torch.profiler (300 traced Adam steps are 260k
+# device events, whose processing takes minutes)
+OUTPUT_TRACE_STEPS = 20
+OUTPUT_TRACE_POLISH = 4
+
+
+def write_smpl_assets(root, V=None, F=None, seed=SEED):
+    """A seeded SMPL-schema pickle (V vertices, 24 joints, 10 betas, 207
+    pose blend shapes, F faces) and a gmm_08.pkl beside it (8 components
+    over the 69 body-pose dims, covariances A A^T + I). The body is built
+    around the offline skeleton's rest joints, so that the regressed joints
+    make a human skeleton: each vertex belongs to a joint (skinning weights
+    mostly its own), and J_regressor averages each joint's vertices."""
+    import pickle
+
+    import numpy as np
+
+    from mld_tpu_torch.models.smpl import SMPL_PARENTS, _APPROX_OFFSETS_ABS
+
+    V = V or OUTPUT_SMPL_V
+    F = F or OUTPUT_SMPL_F
+    rng = np.random.RandomState(seed)
+    J = len(SMPL_PARENTS)
+    owner = np.arange(V) % J
+    v_template = (_APPROX_OFFSETS_ABS()[owner]
+                  + 0.04 * rng.randn(V, 3)).astype(np.float32)
+    reg = (owner[None] == np.arange(J)[:, None]).astype(np.float64)
+    weights = 0.1 * rng.dirichlet(np.ones(J), V)
+    weights[np.arange(V), owner] += 0.9
+    data = {"v_template": v_template,
+            "shapedirs": 0.01 * rng.randn(V, 3, 10),
+            "J_regressor": reg / reg.sum(1, keepdims=True),
+            "weights": weights,
+            "posedirs": 0.01 * rng.randn(V, 3, 207),
+            "kintree_table": np.stack([[4294967295] + SMPL_PARENTS[1:],
+                                       list(range(J))]),
+            "f": rng.randint(0, V, (F, 3))}
+    os.makedirs(root, exist_ok=True)
+    smpl_path = os.path.join(root, "SMPL_NEUTRAL.pkl")
+    with open(smpl_path, "wb") as f:
+        pickle.dump(data, f)
+    A = 0.1 * rng.randn(OUTPUT_GMM_K, 69, 69)
+    w = rng.rand(OUTPUT_GMM_K) + 0.5
+    with open(os.path.join(root, "gmm_08.pkl"), "wb") as f:
+        pickle.dump({"means": 0.2 * rng.randn(OUTPUT_GMM_K, 69),
+                     "covars": A @ A.transpose(0, 2, 1) + np.eye(69),
+                     "weights": w / w.sum()}, f)
+    return smpl_path
+
+
+def _output_cfgs(root):
+    """The demo's config files (JSON, which YAML reads): the text model on
+    phase 6's corpus, the action model in a root of its own."""
+    paths = {}
+    for name, dataset in (("t2m", os.path.join(TRAIN_ROOT, "humanml3d")),
+                          ("a2m", os.path.join(root, "humanact12"))):
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump({"model": dict(OUTPUT_MODEL),
+                       "dataset": {"root": dataset}}, f)
+    return paths
+
+
+def _output_want(cfg, task):
+    """Kernel launches of one demo generation: text K1 a DDIM step, K4 a
+    tower layer for the prompts and the uncond row, K3 in each decoder
+    layer's self- and cross-attention; action K1 and the ACTOR decode;
+    random sampling the decode alone; reconstruction the encode (K3 a
+    layer) and the decode."""
+    m = cfg.model
+    k1 = m.scheduler.num_inference_timesteps
+    want = {"skip_encoder": 0, "skip_decoder": 0, "skip_decoder_kernels": 0,
+            "flash_causal": 0, "flash_attention": 2 * m.num_layers}
+    if task in ("text_motion", "action"):
+        want["skip_encoder"] = k1
+    if task == "text_motion":
+        want["flash_causal"] = 2 * m.clip_layers
+    if task == "reconstruction":
+        want["flash_attention"] = 3 * m.num_layers
+    return want
+
+
+def output_demo(torch, cfgs, out_dir):
+    """python -m mld_tpu_torch.demo in each task, launches read around each
+    call: the demo prompts at --replication 2 --allinone, two action ids,
+    three latent draws, one reconstruction."""
+    import numpy as np
+
+    from mld_tpu_torch import demo
+    from mld_tpu_torch.config import load_config
+
+    t2m = load_config(cfgs["t2m"], preset="mld_humanml3d")
+    a2m = load_config(cfgs["a2m"], preset="mld_humanact12")
+    texts, lengths = _demo_prompts()
+    feats = np.random.RandomState(SEED + 12).randn(
+        OUTPUT_RECON_FRAMES, t2m.dataset.nfeats).astype(np.float32)
+    feats_path = os.path.join(OUTPUT_ROOT, "recon_feats.npy")
+    np.save(feats_path, feats)
+    runs = {}
+    calls = (
+        ("text_motion", t2m, OUTPUT_REPS,
+         ["--cfg", cfgs["t2m"], "--example",
+          os.path.join(REPO, "demo", "example.txt"), "--replication",
+          str(OUTPUT_REPS), "--allinone"]),
+        ("action", a2m, 1,
+         ["--cfg", cfgs["a2m"], "--task", "action", "--action"]
+         + [str(a) for a in OUTPUT_ACTIONS]),
+        ("random_sampling", t2m, 1,
+         ["--cfg", cfgs["t2m"], "--task", "random_sampling", "--length"]
+         + [str(n) for n in OUTPUT_SAMPLE_LENGTHS]),
+        ("reconstruction", t2m, 1,
+         ["--cfg", cfgs["t2m"], "--task", "reconstruction", "--motion",
+          feats_path]))
+    for task, cfg, reps, argv in calls:
+        want = _output_want(cfg, task)
+        _reset_counts()
+        t0 = time.perf_counter()
+        result = demo.main(argv + ["--out", os.path.join(out_dir, task),
+                                   "--device", DEVICE])
+        _sync(torch)
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        _check_counts(counts, {k: reps * v for k, v in want.items()},
+                      f"demo {task} ({reps} replication(s))")
+        if task == "text_motion":
+            shapes = [(n, 22, 3) for n in lengths] * reps
+        elif task == "action":
+            shapes = [(cfg.dataset.num_frames, 24, 3)] * len(OUTPUT_ACTIONS)
+        elif task == "random_sampling":
+            shapes = [(n, 22, 3) for n in OUTPUT_SAMPLE_LENGTHS]
+        else:
+            shapes = [(OUTPUT_RECON_FRAMES, 22, 3)] * 2
+        got = [np.load(f) for f in result["files"]]
+        if [g.shape for g in got] != shapes:
+            raise RuntimeError(f"demo {task}: shapes {[g.shape for g in got]}"
+                               f", expected {shapes}")
+        if not all(np.isfinite(g).all() for g in got):
+            raise RuntimeError(f"demo {task}: non-finite joints")
+        log(f"[output:demo] {task}: {len(got)} npys in {wall:.2f} s "
+            f"(model build included), launches {counts} = {reps} x {want}"
+            + (f"; generate seconds a replication "
+               f"{[round(t, 4) for t in result['times']]}"
+               if result["times"] else ""))
+        runs[task] = {"launches": want, "seconds": wall,
+                      "times": result["times"], "files": result["files"]}
+    allinone = np.load(os.path.join(out_dir, "text_motion",
+                                    "text_motion_allinone.npy"))
+    if allinone.shape != (len(texts), OUTPUT_REPS, max(lengths), 22, 3):
+        raise RuntimeError(f"allinone {allinone.shape}")
+    return runs
+
+
+def _fit_gaps(a, b):
+    """How far fit `a` parts from fit `b`: the loss curve (relative; at the
+    first step, the worst, the last, and the first step past each of
+    OUTPUT_GAPS), Adam's iterate, the polished joints and MPJPE."""
+    import numpy as np
+
+    rel = np.abs(a["losses"] / b["losses"] - 1)
+    return {"loss_first": float(rel[0]), "loss": float(rel.max()),
+            "loss_worst_step": int(rel.argmax()), "loss_last": float(rel[-1]),
+            "loss_first_step_past": {
+                str(g): (int(np.argmax(rel > g)) if (rel > g).any() else None)
+                for g in OUTPUT_GAPS},
+            "adam_iterate": max(float(np.abs(a["adam"][k]
+                                             - b["adam"][k]).max())
+                                for k in ("rot6d", "trans")),
+            "polished_joints": float(np.abs(a["joints_fit"]
+                                            - b["joints_fit"]).max()),
+            "mpjpe": abs(a["mpjpe"] / b["mpjpe"] - 1)}
+
+
+def output_fit_reference(torch, smpl_path, joints, label, bars, trace):
+    """One motion fitted on the card, Adam and polish apart (each traced
+    once after the untraced run when `trace`), then the same fit on the
+    CPU, and on the CPU again with the target nudged by OUTPUT_NUDGE of its
+    scale: the card against the CPU (the loss curve, Adam's iterate, the
+    polished joints, MPJPE and the mesh) beside the CPU against its nudged
+    self. The card-vs-CPU gaps `bars` names are held to their limits;
+    "nudge" holds the loss curve, the iterate and the polished joints to
+    OUTPUT_NUDGE_FACTOR times the nudge's."""
+    import numpy as np
+
+    from mld_tpu_torch.transforms.fitting import BatchedSMPLFitter
+    from mld_tpu_torch.utils.precision import strict_f32
+
+    kw = dict(num_steps=OUTPUT_FIT_STEPS, polish_steps=OUTPUT_POLISH_STEPS)
+    scale = float(np.abs(joints[:, :22]).max())
+    nudge = (OUTPUT_NUDGE * scale * np.random.RandomState(SEED + 13).randn(
+        *joints[:, :22].shape)).astype(np.float32)
+    sides = {}
+    for name, device, shift in (("card", DEVICE, None), ("cpu", "cpu", None),
+                                ("nudged", "cpu", nudge)):
+        fitter = BatchedSMPLFitter(smpl_path, device=device, **kw)
+        if not fitter.prior.available:
+            raise RuntimeError("the GMM prior did not load")
+        goal = joints[:, :22] if shift is None else joints[:, :22] + shift
+        target = torch.as_tensor(goal, device=fitter.device)
+        with strict_f32(), torch.no_grad():
+            t0 = time.perf_counter()
+            params, losses = fitter.adam(target)
+            _sync(torch)
+            t1 = time.perf_counter()
+            polished = fitter.polish(params, target)
+            fit_joints = fitter.smpl.joints(polished["rot6d"],
+                                            polished["trans"])
+            _sync(torch)
+            t2 = time.perf_counter()
+            side = {"adam": {k: v.cpu().numpy() for k, v in params.items()},
+                    "losses": losses.cpu().numpy(),
+                    "polished": {k: v.cpu().numpy()
+                                 for k, v in polished.items()},
+                    "joints_fit": fit_joints.cpu().numpy(),
+                    "adam_s": t1 - t0, "polish_s": t2 - t1}
+            if trace and name == "card":
+                # a few steps of each phase traced (a step's launches do
+                # not depend on the step), against the untraced run's time
+                # a step
+                short = BatchedSMPLFitter(
+                    smpl_path, device=device, num_steps=OUTPUT_TRACE_STEPS,
+                    polish_steps=OUTPUT_TRACE_POLISH)
+                _, aw, aev = _traced(torch, lambda: short.adam(target))
+                _, pw, pev = _traced(
+                    torch, lambda: short.polish(params, target))
+                ab, an = sum(ms for _, ms in aev), len(aev)
+                pb, pn = sum(ms for _, ms in pev), len(pev)
+                adam_ms = 1e3 * side["adam_s"] / OUTPUT_FIT_STEPS
+                polish_ms = 1e3 * side["polish_s"] / OUTPUT_POLISH_STEPS
+                side["trace"] = {
+                    "adam_busy_ms_a_step": ab / OUTPUT_TRACE_STEPS,
+                    "adam_busy_share": ab / OUTPUT_TRACE_STEPS / adam_ms,
+                    "adam_events_a_step": an / OUTPUT_TRACE_STEPS,
+                    "adam_traced_ms_a_step": aw / OUTPUT_TRACE_STEPS,
+                    "polish_busy_ms_a_step": pb / OUTPUT_TRACE_POLISH,
+                    "polish_busy_share": pb / OUTPUT_TRACE_POLISH
+                    / polish_ms,
+                    "polish_events_a_step": pn / OUTPUT_TRACE_POLISH,
+                    "polish_traced_ms_a_step": pw / OUTPUT_TRACE_POLISH}
+        # MPJPE against the motion itself, for the nudged fit too
+        side["mpjpe"] = float(np.linalg.norm(
+            side["joints_fit"][:, :22] - joints[:, :22], axis=-1).mean())
+        side["fitter"] = fitter
+        sides[name] = side
+    card, cpu = sides["card"], sides["cpu"]
+    T = len(joints)
+    t = card.get("trace")
+    log(f"[output:fit] {label} ({T} frames) on the card: adam "
+        f"{card['adam_s']:.3f} s ({1e3 * card['adam_s'] / OUTPUT_FIT_STEPS:.2f}"
+        f" ms a step), polish {card['polish_s']:.3f} s "
+        f"({1e3 * card['polish_s'] / OUTPUT_POLISH_STEPS:.2f} ms a step), "
+        f"{1e3 * (card['adam_s'] + card['polish_s']) / T:.2f} ms a frame, "
+        f"MPJPE {card['mpjpe']:.5f} m; the CPU: adam {cpu['adam_s']:.3f} s, "
+        f"polish {cpu['polish_s']:.3f} s")
+    if t:
+        log(f"[output:fit] {label} traced ({OUTPUT_TRACE_STEPS} Adam steps, "
+            f"{OUTPUT_TRACE_POLISH} LM steps): adam device busy "
+            f"{t['adam_busy_ms_a_step']:.3f} ms a step = "
+            f"{100 * t['adam_busy_share']:.1f}% of the untraced step, "
+            f"{t['adam_events_a_step']:.1f} device events a step "
+            f"({t['adam_traced_ms_a_step']:.1f} ms a step under the "
+            f"profiler); polish busy {t['polish_busy_ms_a_step']:.3f} ms a "
+            f"step = {100 * t['polish_busy_share']:.1f}%, "
+            f"{t['polish_events_a_step']:.1f} events a step "
+            f"({t['polish_traced_ms_a_step']:.1f} ms under the profiler)")
+
+    # the mesh of the card's fitted parameters, on each device
+    verts = {n: sides[n]["fitter"].vertices(card["polished"]["rot6d"],
+                                            card["polished"]["trans"])
+             for n in ("card", "cpu")}
+    errs = _fit_gaps(card, cpu)
+    errs["vertices"] = (float(np.abs(verts["card"] - verts["cpu"]).max())
+                        / float(np.abs(verts["cpu"]).max()))
+    nudged = _fit_gaps(cpu, sides["nudged"])
+    limits = {"loss_first": OUTPUT_LOSS0_RTOL, "loss": OUTPUT_LOSS_RTOL,
+              "loss_last": OUTPUT_LOSS_LAST_RTOL,
+              "adam_iterate": OUTPUT_PARAM_ATOL,
+              "polished_joints": OUTPUT_JOINT_ATOL,
+              "mpjpe": OUTPUT_MPJPE_RTOL, "vertices": OUTPUT_VERT_RTOL}
+    held = [k for k in bars if k != "nudge"]
+    if "nudge" in bars:
+        for k in ("loss", "adam_iterate", "polished_joints"):
+            limits[k] = OUTPUT_NUDGE_FACTOR * nudged[k]
+            held.append(k)
+
+    def fmt(v):
+        return str(v) if isinstance(v, (dict, int)) else f"{v:.3g}"
+
+    log(f"[output:fit] {label} card vs CPU (MPJPE {card['mpjpe']:.5f} / "
+        f"{cpu['mpjpe']:.5f} m): "
+        + ", ".join(f"{k} {fmt(v)}" + (f" (bar {limits[k]:.3g})"
+                                       if k in held else "")
+                    for k, v in errs.items()))
+    log(f"[output:fit] {label} CPU vs the CPU with the target moved by "
+        f"{OUTPUT_NUDGE:g} of its scale {scale:.3f} (MPJPE "
+        f"{sides['nudged']['mpjpe']:.5f} m): "
+        + ", ".join(f"{k} {fmt(v)}" for k, v in nudged.items()))
+    for k in held:
+        if not errs[k] <= limits[k]:
+            raise RuntimeError(f"fit {label} card vs CPU: {k} {errs[k]} > "
+                               f"{limits[k]}")
+    return {"frames": T, "adam_s": card["adam_s"],
+            "polish_s": card["polish_s"], "mpjpe": card["mpjpe"],
+            "trace": t, "cpu_adam_s": cpu["adam_s"],
+            "cpu_polish_s": cpu["polish_s"], "errors": errs,
+            "nudged_errors": nudged,
+            "bars": {k: limits[k] for k in held}}
+
+
+def _walk_joints(torch, smpl_path, T):
+    """The fabricated body's joints for a smooth seeded pose walk (the
+    recovery study's generator): a motion the body can reach."""
+    import numpy as np
+
+    from mld_tpu_torch.models.smpl import SMPLLayer
+    from mld_tpu_torch.scripts.fit_quality_study import synth_pose_sequence
+
+    rot6d, trans = synth_pose_sequence(np.random.RandomState(SEED + 12), T)
+    return SMPLLayer(smpl_path).joints(torch.from_numpy(rot6d),
+                                       torch.from_numpy(trans)).numpy()
+
+
+def output_fbx(npy, npz, ply_dir):
+    """python -m mld_tpu_torch.scripts.fbx_export on a demo npy, its fit
+    npz and its pkl tree; each file read back: bones and one key a frame."""
+    import numpy as np
+
+    from mld_tpu_torch.export import read_fbx
+    from mld_tpu_torch.scripts import fbx_export
+
+    written = fbx_export.main(["--npy", npy, "--npz", npz, "--pkl-dir",
+                               ply_dir])
+    frames = len(np.load(npy))
+    out = []
+    for path, bones in zip(written, (22, 24, 24)):
+        _, roots = read_fbx(path)
+
+        def find(nodes, name):
+            return [m for n in nodes for m in
+                    ([n] if n.name == name else []) + find(n.children, name)]
+
+        models = len(find(roots, "Model"))
+        keys = {len(n.props[0]) for n in find(roots, "KeyTime")}
+        if models != bones or keys != {frames}:
+            raise RuntimeError(f"{path}: {models} bones (expected {bones}), "
+                               f"key counts {keys} (expected {frames})")
+        out.append({"path": os.path.relpath(path, REPO),
+                    "bytes": os.path.getsize(path), "bones": models})
+        log(f"[output:fbx] {os.path.relpath(path, REPO)}: {models} bones, "
+            f"{frames} keys a curve, {os.path.getsize(path)} bytes")
+    return out
+
+
+def phase_output(torch, smi):
+    """The output path: the demo at full width in each task, the fit of
+    every demo motion (mesh; ply and pkl on the shortest), one fit traced
+    and held against the CPU, and FBX export read back."""
+    import numpy as np
+
+    from mld_tpu_torch import fit
+
+    t0 = time.perf_counter()
+    smpl_path = write_smpl_assets(OUTPUT_ROOT)
+    cfgs = _output_cfgs(OUTPUT_ROOT)
+    log(f"[output] fabricated assets in {time.perf_counter() - t0:.1f} s: "
+        f"{os.path.relpath(smpl_path, REPO)} (V {OUTPUT_SMPL_V}, faces "
+        f"{OUTPUT_SMPL_F}, seed {SEED}) and gmm_08.pkl ({OUTPUT_GMM_K} x 69)")
+    out_dir = os.path.join(OUTPUT_ROOT, "demo")
+    runs = {"demo": output_demo(torch, cfgs, out_dir)}
+
+    # the first replication's six motions
+    demo_dir = os.path.join(out_dir, "text_motion")
+    files = runs["demo"]["text_motion"]["files"]
+    files = files[: len(files) // OUTPUT_REPS]
+    t0 = time.perf_counter()
+    rows = fit.main(["--files", *files, "--smpl", smpl_path, "--mesh",
+                     "--steps", str(OUTPUT_FIT_STEPS), "--device", DEVICE])
+    fit_s = time.perf_counter() - t0
+    if len(rows) != len(files):
+        raise RuntimeError(f"fitted {len(rows)} of {len(files)} motions")
+    for r in rows:
+        stem = r["file"][: -len(".npy")]
+        res = np.load(stem + "_fit.npz")
+        mesh = np.load(stem + "_mesh.npy", mmap_mode="r")
+        if (mesh.shape != (r["frames"], OUTPUT_SMPL_V, 3)
+                or not all(np.isfinite(res[k]).all() for k in res.files)
+                or not np.isfinite(r["mpjpe"])):
+            raise RuntimeError(f"bad fit of {r['file']}: mesh {mesh.shape}")
+        log(f"[output:fit] {os.path.basename(r['file'])}: {r['frames']} "
+            f"frames, MPJPE {r['mpjpe']:.5f} m, adam {r['adam_s']:.3f} s, "
+            f"polish {r['polish_s']:.3f} s, {r['ms_per_frame']:.2f} ms a "
+            f"frame")
+    log(f"[output:fit] {len(rows)} motions in {fit_s:.1f} s (mesh npys "
+        f"written; the first fit includes the warm-up)")
+    runs["fit_rows"] = rows
+
+    shortest = min(rows, key=lambda r: r["frames"])["file"]
+    t0 = time.perf_counter()
+    fit.main(["--files", shortest, "--smpl", smpl_path, "--ply",
+              "--steps", str(OUTPUT_FIT_STEPS), "--device", DEVICE])
+    stem = os.path.basename(shortest)[: -len(".npy")]
+    ply_dir = os.path.join(demo_dir, "results_smplfitting", "SMPLFit_" + stem)
+    n_ply = len([f for f in os.listdir(ply_dir) if f.endswith(".ply")])
+    if n_ply != len(np.load(shortest)):
+        raise RuntimeError(f"{n_ply} plys for {shortest}")
+    log(f"[output:fit] --ply {stem}: {n_ply} ply + pkl in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    longest = max(rows, key=lambda r: r["frames"])["file"]
+    t0 = time.perf_counter()
+    runs["reference_demo"] = output_fit_reference(
+        torch, smpl_path, np.load(longest), os.path.basename(longest),
+        bars=("loss_first", "mpjpe", "nudge"), trace=True)
+    runs["reference_walk"] = output_fit_reference(
+        torch, smpl_path, _walk_joints(torch, smpl_path, OUTPUT_WALK_FRAMES),
+        f"pose walk {OUTPUT_WALK_FRAMES}",
+        bars=("loss_first", "loss", "loss_last", "adam_iterate",
+              "polished_joints", "mpjpe", "vertices"), trace=False)
+    log(f"[output:fit] traced fit and CPU references in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs["fbx"] = output_fbx(shortest, shortest[: -len(".npy")] + "_fit.npz",
+                             ply_dir)
+    return runs
+
+
 def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
-                 a2m_runs, mode_runs, option_runs, e2e_runs):
+                 a2m_runs, mode_runs, option_runs, e2e_runs, output_runs):
     counts = runs["kernels"]["counts"]
     e2e_k = e2e_runs["kernels"]
     e2e_eval_b = _e2e_cfg().eval.batch_size
@@ -3683,6 +4183,11 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                 "drill": {k: r["launches"][name] for k, r in
                           e2e_runs["drill"]["sections"].items()}}
                if name != "encoder_layer" else None)
+        # phase 12: a demo generation of each task (the text task a
+        # replication)
+        output = ({task: r["launches"][name]
+                   for task, r in output_runs["demo"].items()}
+                  if name != "encoder_layer" else None)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst(results, key[0]), **arm(results[key]),
@@ -3695,6 +4200,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                 "a2m_train_launches_a_step": a2m_train,
                 "options_launches": options,
                 "e2e_launches": e2e,
+                "output_demo_launches": output,
                 **extra}
 
     return {"kernels": [
@@ -3786,10 +4292,13 @@ def main():
     t0 = time.perf_counter()
     e2e_runs = phase_e2e(torch, smi)
     log(f"[time] end-to-end protocol: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    output_runs = phase_output(torch, smi)
+    log(f"[time] output path: {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
                                 runs["kernels"]["prompt_len"], train_runs,
                                 eval_runs, a2m_runs, mode_runs,
-                                option_runs, e2e_runs)))
+                                option_runs, e2e_runs, output_runs)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,19 +47,23 @@ def _APPROX_OFFSETS_ABS() -> np.ndarray:
     return joints
 
 
-def _fk_from_matrices(rot_mats: torch.Tensor, joints_rest, parents):
-    """Forward kinematics over the tree, one joint a step: rot_mats
-    [B, J, 3, 3], joints_rest [J, 3] -> (positions [B, J, 3], global
-    rotations [B, J, 3, 3])."""
-    B = rot_mats.shape[0]
-    J = len(parents)
+def _rest_offsets(joints_rest, parents) -> np.ndarray:
+    """Rest-pose joints [J, 3] -> each joint's offset from its parent (the
+    root's own position first)."""
     joints_rest = np.asarray(joints_rest)
-    rel = np.stack([joints_rest[0]] + [
-        joints_rest[j] - joints_rest[parents[j]] for j in range(1, J)])
-    rel = torch.as_tensor(rel, dtype=rot_mats.dtype, device=rot_mats.device)
+    return np.stack([joints_rest[0]] + [
+        joints_rest[j] - joints_rest[parents[j]]
+        for j in range(1, len(parents))])
+
+
+def _fk_from_matrices(rot_mats: torch.Tensor, rel: torch.Tensor, parents):
+    """Forward kinematics over the tree, one joint a step: rot_mats
+    [B, J, 3, 3], rel [J, 3] (``_rest_offsets``) -> (positions [B, J, 3],
+    global rotations [B, J, 3, 3])."""
+    B = rot_mats.shape[0]
     glob_rot = [rot_mats[:, 0]]
     glob_pos = [rel[0].expand(B, 3)]
-    for j in range(1, J):
+    for j in range(1, len(parents)):
         p = parents[j]
         glob_rot.append(glob_rot[p] @ rot_mats[:, j])
         glob_pos.append(torch.einsum("bij,j->bi", glob_rot[p], rel[j])
@@ -81,6 +85,11 @@ class SMPLLayer:
             self._load(model_path)
         else:
             self.joints_rest = _APPROX_OFFSETS_ABS()
+        # the tree's offsets live on the device once: the fitter runs FK
+        # hundreds of times a fit, and each copy from the host would wait
+        self.rest_offsets = torch.as_tensor(
+            _rest_offsets(self.joints_rest, self.parents),
+            device=self.device)
 
     def _load(self, path: str):
         with open(path, "rb") as f:
@@ -110,8 +119,9 @@ class SMPLLayer:
     def joints(self, rot6d: torch.Tensor,
                translation: Optional[torch.Tensor] = None) -> torch.Tensor:
         """rot6d [B, 24, 6] (+ translation [B, 3]) -> joints [B, 24, 3]."""
-        pos, _ = _fk_from_matrices(rotation_6d_to_matrix(rot6d),
-                                   self.joints_rest, self.parents)
+        rot_mats = rotation_6d_to_matrix(rot6d)
+        rel = self.rest_offsets.to(rot_mats.device, rot_mats.dtype)
+        pos, _ = _fk_from_matrices(rot_mats, rel, self.parents)
         if translation is not None:
             pos = pos + translation[:, None, :]
         return pos
@@ -123,7 +133,10 @@ class SMPLLayer:
         if not self.has_asset:
             raise RuntimeError("SMPL asset required for vertices")
         B = rot6d.shape[0]
-        v = self.v_template[None]
+        # the template for every pose: without betas, JAX's layer keeps a
+        # batch of 1 here and its root row then fails to stack with the
+        # others for B > 1 (mld_tpu/models/smpl.py:106-137)
+        v = self.v_template[None].expand(B, -1, -1)
         if betas is not None:
             v = v + torch.einsum("bl,vcl->bvc", betas, self.shapedirs)
         joints_rest = torch.einsum("jv,bvc->bjc", self.J_regressor, v)

@@ -23,11 +23,16 @@ the CLIP text tower of an npz that holds one (the JAX loader,
 file, ``clip`` included: a tower trained by ``train/pretrain.py``).
 ``save_params_npz(path, mld.params_tree())`` writes a model as such a
 file, which the JAX package's ``test.py --checkpoint`` and
-``train.pretrained`` read.
+``train.pretrained`` read. ``load_pretrained`` also reads a released
+reference Lightning checkpoint (``reference_state``), as the JAX demo's
+``--checkpoint`` does; every file is loaded weights-only unless the caller
+passes ``trust`` (``_load_file``).
 """
 from __future__ import annotations
 
+import argparse
 import os
+import pickle
 import re
 from typing import Dict, Iterable, Mapping, Optional
 
@@ -109,10 +114,54 @@ def load_params_npz(path: str) -> Dict:
     return tree
 
 
-def _state_from(path: str) -> Dict[str, torch.Tensor]:
+def reference_state(payload) -> Dict[str, torch.Tensor]:
+    """The vae and denoiser of a released reference checkpoint (a Lightning
+    ``{"state_dict": ...}`` or a bare state dict), as the JAX package's
+    ``load_reference_checkpoint`` takes them (``mld_tpu/utils/
+    checkpoint.py:89-119``). The port's modules carry the reference torch
+    names, so what JAX renames for flax is kept as it is here: the
+    denoiser's ``emb_proj.1`` (Sequential(ReLU, Linear)) and an action
+    denoiser's ``emb_proj.action_embedding`` (EmbedAction). The frozen text
+    encoder (``text_encoder.*``) is not taken, as JAX does not take it, and
+    keys the model lacks (``denoiser.sequence_pos_encoding.pe``, which the
+    reference itself strips on load) are ignored by ``load_pretrained``."""
+    state = payload.get("state_dict", payload)
+    return {k: torch.as_tensor(v) for k, v in state.items()
+            if k.startswith(("vae.", "denoiser."))}
+
+
+# what a Lightning checkpoint's hyper-parameters may hold besides tensors and
+# containers, and that a weights-only load may build: nothing of it runs code
+_SAFE_GLOBALS = (argparse.Namespace,)
+
+
+def _load_file(path: str, trust: bool = False):
+    """torch.load of a checkpoint file, tensors and containers only (and
+    ``_SAFE_GLOBALS``). A file holding other objects (a released reference
+    checkpoint whose hyper-parameters are pickled config objects) raises,
+    unless ``trust``: then it is unpickled fully, which runs whatever code
+    the file names, as the JAX package's loader does for every file."""
+    try:
+        with torch.serialization.safe_globals(list(_SAFE_GLOBALS)):
+            return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as err:
+        if not trust:
+            raise pickle.UnpicklingError(
+                f"{path} holds objects other than tensors, so loading it "
+                f"runs code; load it with trust=True (demo: "
+                f"--trust_checkpoint) only if you trust the file") from err
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def _state_from(path: str, trust: bool = False) -> Dict[str, torch.Tensor]:
     """Torch-named state of the modules in a checkpoint: a JAX npz export
-    (its vae, denoiser and clip), a port checkpoint file or a port
-    checkpoints directory (its latest step; vae and denoiser)."""
+    (its vae, denoiser and clip), a port checkpoints directory (its latest
+    step; vae and denoiser), or a file: a port checkpoint or a released
+    reference checkpoint. Both kinds of file are read through one path,
+    ``reference_state``, whatever their suffix (the port writes ``.pt``
+    files and the JAX package reads a ``.pt`` as a reference checkpoint): a
+    port checkpoint's ``state_dict`` holds only the vae and denoiser, in the
+    reference names."""
     if path.endswith(".npz"):
         tree = load_params_npz(path)
         tree = tree.get("params", tree)
@@ -124,17 +173,19 @@ def _state_from(path: str) -> Dict[str, torch.Tensor]:
         return state
     if os.path.isdir(path):
         return CheckpointManager(path).restore()["state_dict"]
-    return torch.load(path, map_location="cpu",
-                      weights_only=True)["state_dict"]
+    return reference_state(_load_file(path, trust))
 
 
 def load_pretrained(model: torch.nn.Module, path: str,
-                    only: Optional[Iterable[str]] = None) -> Iterable[str]:
+                    only: Optional[Iterable[str]] = None,
+                    trust: bool = False) -> Iterable[str]:
     """Load the top-level modules `only` (default: every one the checkpoint
     has among vae / denoiser / clip that the model has) from `path` into
     `model`, as ``_load_pretrained`` does. Every parameter of a loaded
-    module must be in the checkpoint. Returns the modules loaded."""
-    state = _state_from(path)
+    module must be in the checkpoint. `trust` lets a file that holds more
+    than tensors be unpickled fully (``_load_file``). Returns the modules
+    loaded."""
+    state = _state_from(path, trust)
     tops = sorted({k.split(".", 1)[0] for k in state}
                   & {t for t in ("vae", "denoiser", "clip")
                      if getattr(model, t, None) is not None})
