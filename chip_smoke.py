@@ -193,7 +193,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      npy, its npz and its pkl tree, each file read back (bones, a key a
      frame). Nothing is rendered (matplotlib host work, which the CPU tests
      hold, and which this script does not require);
- 13. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+ 13. the training path's input pipeline and data parallelism: the C++
+     batch loader (built with g++ into build/) against the numpy collator
+     on phase 6's corpus (lengths, masks, texts equal, motion within 1e-5;
+     the data module took the native collator); python -m
+     mld_tpu_torch.train's main() at phase 6's width, B=64, dropout 0.1,
+     --device 0 (one rank, in this process, in an NCCL group of one: the
+     data-parallel step), its --cfg_assets handing over phase 6's VAE:
+     diffusion 6 steps (K4 24, K3 9 a step) with the numpy collator, then
+     with the native one, and vae_diffusion 3 steps from the native run
+     (K4 48, K3 27, K1 50); launches of every step, frozen params
+     bit-identical, trainable moved, finite logs, ms a step and the host
+     gap between steps (median of steps 2-6), native against numpy
+     (recorded, not claimed); then one B=64 diffusion step, dropout 0,
+     through the one-rank NCCL path against no process group (within 1e-6
+     of scale) and over two gloo ranks on the one card (NCCL refuses two
+     ranks on one device) against one process (loss 2e-4 relative,
+     params 2e-4);
+ 14. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
@@ -4129,8 +4146,366 @@ def phase_output(torch, smi):
     return runs
 
 
+# --------------------------------------------- data parallelism and loader
+# phase 13: the train CLI at phase 6's width and batch on phase 6's corpus,
+# through the C++ loader and the data-parallel step (one rank here)
+PAR_ROOT = os.path.join(TRAIN_ROOT, "parallel")
+PAR_DEVICE = ["0"]                      # --device: the card's ordinal
+PAR_STEPS = {"diffusion": 6, "vae_diffusion": 3}
+# the one-rank group against no group: reducing over one rank changes
+# nothing (bar of scale); two gloo ranks against one process: JAX's
+# data-parallel bars (tests/test_parallel.py:69-75) on the loss and the
+# updated parameters, and tests/test_torch_ddp.py's on the reduced
+# gradients (of each leaf's largest |g|) and their norm. Adam's first step
+# moves a weight by about lr = 1e-4, so the parameter bar alone cannot see
+# a wrong reduction: the gradient bars can
+PAR_WS1_RTOL = 1e-6
+PAR_LOSS_RTOL = 2e-4
+PAR_PARAM_ATOL = 2e-4
+PAR_GRAD_RTOL = 1e-4
+PAR_NORM_RTOL = 2e-4
+PAR_MOTION_ATOL = 1e-5
+
+
+def _par_over(name, stage, dropout=None, native=True, **train):
+    model = dict(TRAIN_MODEL)
+    if dropout is not None:
+        model["dropout"] = dropout
+    return {"name": name, "debug": True, "model": model,
+            "dataset": {"root": os.path.join(TRAIN_ROOT, "humanml3d"),
+                        "native_loader": native},
+            "train": {"stage": stage, "batch_size": TRAIN_B, **train},
+            "logger": {"folder": os.path.join(PAR_ROOT, "experiments"),
+                       "save_checkpoint_epoch": 10 ** 6,
+                       "val_every_epochs": 10 ** 6}}
+
+
+def check_native_batches(torch):
+    """The native collator's batches against the numpy collator's on one
+    seed: lengths, masks, texts exactly, motion within 1e-5."""
+    import numpy as np
+
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.data.datamodule import get_datamodule
+    from mld_tpu_torch.native import batch_loader
+
+    dms = {native: get_datamodule(load_config(preset="mld_humanml3d",
+                                              overrides=_par_over(
+                                                  "native_check", "vae",
+                                                  native=native)))
+           for native in (True, False)}
+    if not dms[True].use_native or dms[False].use_native:
+        raise RuntimeError(f"the native collator was not taken: "
+                           f"{batch_loader.build_error()}")
+    kw = dict(batch_size=TRAIN_B, seed=SEED, drop_last=True, prefetch=0)
+    n, err = 0, 0.0
+    for a, b in zip(dms[True].loader("train", **kw),
+                    dms[False].loader("train", **kw), strict=True):
+        if (a["text"] != b["text"]
+                or not np.array_equal(a["length"], b["length"])
+                or not np.array_equal(a["mask"], b["mask"])):
+            raise RuntimeError("native and numpy batches differ")
+        err = max(err, float(np.abs(a["motion"] - b["motion"]).max()))
+        n += 1
+    log(f"[parallel:loader] native collator (g++ library "
+        f"{batch_loader.library_path().name}) vs numpy collator, {n} "
+        f"batches of {TRAIN_B}, seed {SEED}: lengths, masks, texts equal; "
+        f"motion max |diff| {err:.2e} (bar {PAR_MOTION_ATOL:g}); "
+        f"use_native {dms[True].use_native}")
+    if n == 0 or err > PAR_MOTION_ATOL:
+        raise RuntimeError("the native batches disagree with numpy's")
+    return {"batches": n, "motion_max_abs_err": err}
+
+
+class _CliWatch:
+    """Wraps the loop's train_step during a CLI run: each step's launches
+    (checked against the config's count), its ms (synchronized before and
+    after), the host gap from the previous step's return to its start,
+    finite logs, and the params before the first step."""
+
+    def __init__(self, torch, want):
+        self.torch, self.want = torch, want
+        self.ms, self.gap, self.logs, self.counts = [], [], [], None
+        self.before = self.trainable = self.end = None
+
+    def wrap(self, inner):
+        torch = self.torch
+
+        def step(state, *args, **kwargs):
+            start = time.perf_counter()
+            if self.end is not None:
+                self.gap.append((start - self.end) * 1e3)
+            if self.before is None:
+                self.before = {k: p.detach().clone()
+                               for k, p in state.mld.named_parameters()}
+                self.trainable = set(state.params)
+            _sync(torch)
+            _reset_counts()
+            t = time.perf_counter()
+            logs = inner(state, *args, **kwargs)
+            _sync(torch)
+            self.ms.append((time.perf_counter() - t) * 1e3)
+            self.counts = _read_counts()
+            _check_counts(self.counts, self.want,
+                          f"CLI training step {len(self.ms)}")
+            vals = {k: float(v) for k, v in logs.items()}
+            if not all(map(math.isfinite, vals.values())):
+                raise RuntimeError(f"non-finite training logs {vals}")
+            self.logs.append(vals)
+            self.end = time.perf_counter()
+            return logs
+
+        return step
+
+
+def run_cli(torch, smi, label, over, assets, steps):
+    """python -m mld_tpu_torch.train's main() on --device PAR_DEVICE, the
+    config and the --cfg_assets overlay written as files; checked and
+    timed."""
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.train import __main__ as cli
+    from mld_tpu_torch.train import loop
+
+    os.makedirs(PAR_ROOT, exist_ok=True)
+    cfg_path = os.path.join(PAR_ROOT, f"{label}.json")
+    assets_path = os.path.join(PAR_ROOT, f"{label}_assets.json")
+    with open(cfg_path, "w") as f:
+        json.dump(over, f)      # JSON is YAML
+    with open(assets_path, "w") as f:
+        json.dump(assets, f)
+    stage = over["train"]["stage"]
+    cfg = load_config(cfg_path, assets, preset="mld_humanml3d")
+    watch = _CliWatch(torch, _train_want(cfg, stage))
+    inner = loop.train_step
+    loop.train_step = watch.wrap(inner)
+    t0 = time.perf_counter()
+    try:
+        mld = cli.main(["--cfg", cfg_path, "--cfg_assets", assets_path,
+                        "--device", *PAR_DEVICE, "--max_steps", str(steps)])
+    finally:
+        loop.train_step = inner
+    wall = time.perf_counter() - t0
+    if mld is None or len(watch.ms) != steps:
+        raise RuntimeError(f"{label}: the CLI ran {len(watch.ms)} of {steps} "
+                           f"steps in this process")
+    moved, n_train, n_frozen = _check_params(torch, label, watch, mld)
+    kept = slice(1, None)       # steps 2 onwards
+    step_ms = statistics.median(watch.ms[kept])
+    gap_ms = statistics.median(watch.gap)
+    log(f"[parallel:{label}] python -m mld_tpu_torch.train --device "
+        f"{' '.join(PAR_DEVICE)} --cfg_assets ({', '.join(sorted(assets['train']))}"
+        f"): {stage} B={TRAIN_B} dropout {cfg.model.dropout}, collator "
+        f"{'native' if cfg.dataset.native_loader else 'numpy'}: {steps} steps;"
+        f" launches a step {watch.counts}; train_step median {step_ms:.2f} "
+        f"ms (steps 2-{steps}; all: "
+        f"{', '.join(f'{v:.1f}' for v in watch.ms)}); host gap between "
+        f"steps median {gap_ms:.2f} ms (all: "
+        f"{', '.join(f'{v:.1f}' for v in watch.gap)}); trainable "
+        f"{moved}/{n_train} tensors moved, {n_frozen} frozen unchanged; "
+        f"total {watch.logs[0]['total']:.4f} -> {watch.logs[-1]['total']:.4f};"
+        f" {wall:.1f} s with set-up; {smi}")
+    return mld, {"launches": watch.counts, "step_median_ms": step_ms,
+                 "step_ms": watch.ms, "gap_median_ms": gap_ms,
+                 "gap_ms": watch.gap, "seconds": wall,
+                 "collator": "native" if cfg.dataset.native_loader
+                 else "numpy"}
+
+
+def _step_of(torch, cfg, mean, std, batch, draws, shard=None):
+    """One diffusion step from seeded weights on the batch's device:
+    (logs, trainable params after it on the host, kernel launches, the
+    reduced gradients on the host)."""
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.train import steps
+
+    mld = MLD(cfg, mean=mean, std=std, device=batch["motion"].device,
+              generator=torch.Generator().manual_seed(SEED))
+    state = steps.create_train_state(mld, "diffusion")
+    _reset_counts()
+    logs, grads = steps.compute_grads(state, batch, None, draws, shard)
+    grads = {k: g.detach().cpu() for k, g in grads.items()}
+    steps.apply_grads(state, logs["grad_norm"])
+    if batch["motion"].is_cuda:
+        torch.cuda.synchronize()
+    counts = _read_counts()
+    out = ({k: float(v) for k, v in logs.items()},
+           {k: p.detach().cpu() for k, p in state.params.items()}, counts,
+           grads)
+    del mld, state
+    return out
+
+
+def _par_errs(a, b):
+    """a's step against b's (each as _step_of returns it): the loss's and
+    the gradient norm's relative errors; the worst updated parameter's
+    |diff| and that over the parameter's scale; the worst reduced
+    gradient's |diff| over its leaf's largest |g|."""
+    def rel_err(key):
+        return abs(a[0][key] - b[0][key]) / max(abs(b[0][key]), 1e-12)
+
+    diff = max(float((a[1][k] - p).abs().max()) for k, p in b[1].items())
+    rel = max(float((a[1][k] - p).abs().max())
+              / max(float(p.abs().max()), 1e-12) for k, p in b[1].items())
+    grad = max(float((a[3][k] - g).abs().max())
+               / max(float(g.abs().max()), 1e-6) for k, g in b[3].items())
+    return {"loss": rel_err("total"), "grad_norm": rel_err("grad_norm"),
+            "param": diff, "param_rel": rel, "grad": grad}
+
+
+def _gloo_rank(inputs_path, device):
+    """A rank of the two-rank gloo check (spawned): one diffusion step on
+    its rows of the saved global batch and draws; saves its logs and
+    trainable params."""
+    import torch
+
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.parallel import ddp
+    from mld_tpu_torch.train.steps import batch_to_device
+
+    inp = torch.load(inputs_path, weights_only=False)
+    cfg = load_config(preset="mld_humanml3d", overrides=inp["over"])
+    rank, world = ddp.rank(), ddp.world_size()
+    batch = ddp.pad_batch_to_ranks(inp["batch"], world)
+    shard = ddp.RowShard.of(batch, rank, world)
+    local = batch_to_device(ddp.shard_rows(batch, rank, world), device)
+    logs, params, counts, grads = _step_of(
+        torch, cfg, inp["mean"], inp["std"], local, inp["draws"], shard)
+    torch.save({"logs": logs, "params": params, "counts": counts,
+                "grads": grads, "shard": (shard.start, shard.stop)},
+               os.path.join(os.path.dirname(inputs_path), f"rank{rank}.pt"))
+
+
+def check_parallel_steps(torch):
+    """One B=TRAIN_B diffusion step, dropout 0, on one batch and one set of
+    draws: with no process group; through the data-parallel path in a group
+    of one (NCCL on the card); and over two gloo ranks on the one card
+    (NCCL refuses two ranks on one device)."""
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.data.datamodule import get_datamodule
+    from mld_tpu_torch.models.clip_text import ClipTokenizer
+    from mld_tpu_torch.parallel import ddp
+    from mld_tpu_torch.train.steps import batch_to_device
+
+    over = _par_over("parallel_step", "diffusion", dropout=0.0)
+    cfg = load_config(preset="mld_humanml3d", overrides=over)
+    dm = get_datamodule(cfg, tokenizer=ClipTokenizer(cfg.model.clip_path))
+    host = next(iter(dm.loader("train", batch_size=TRAIN_B, prefetch=0,
+                               drop_last=True)))
+    host = {k: host[k] for k in ("motion", "mask", "text_ids")}
+    batch = batch_to_device(host, DEVICE)
+    draws = _diffusion_draws(torch, cfg, TRAIN_B, SEED + 13)
+    want = _train_want(cfg, "diffusion")
+    single = _step_of(torch, cfg, dm.mean, dm.std, batch, draws)
+    _check_counts(single[2], want, "the single-process step")
+
+    ddp.init(0, 1, DEVICE)
+    try:
+        backend = torch.distributed.get_backend()
+        one = _step_of(torch, cfg, dm.mean, dm.std, batch, draws,
+                       ddp.RowShard.whole(batch))
+    finally:
+        ddp.teardown()
+    _check_counts(one[2], want, "the one-rank data-parallel step")
+    e1 = _par_errs(one, single)
+    log(f"[parallel:ws1] diffusion step B={TRAIN_B} dropout 0 through the "
+        f"data-parallel path in a {backend} group of one vs no group: "
+        f"launches {one[2]}; loss {one[0]['total']:.6f} vs "
+        f"{single[0]['total']:.6f} (rel err {e1['loss']:.2e}), grad_norm "
+        f"rel err {e1['grad_norm']:.2e}, reduced grads worst leaf "
+        f"{e1['grad']:.2e} of its largest |g|, updated params max |diff| "
+        f"{e1['param']:.2e} (worst leaf {e1['param_rel']:.2e} of its "
+        f"scale); bar {PAR_WS1_RTOL:g} on each")
+    if max(e1["loss"], e1["grad_norm"], e1["grad"],
+           e1["param_rel"]) > PAR_WS1_RTOL:
+        raise RuntimeError("reducing over one rank changed the step")
+
+    d = os.path.join(PAR_ROOT, "gloo")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "inputs.pt")
+    torch.save({"over": over, "mean": dm.mean, "std": dm.std,
+                "batch": host, "draws": {k: v.cpu() for k, v in
+                                         draws.items()}}, path)
+    t0 = time.perf_counter()
+    ddp.spawn(_gloo_rank, [DEVICE] * 2, path, backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    same = all(torch.equal(p, ranks[1]["params"][k])
+               for k, p in ranks[0]["params"].items())
+    e2 = _par_errs((ranks[0]["logs"], ranks[0]["params"], None,
+                    ranks[0]["grads"]), single)
+    log(f"[parallel:gloo] two gloo ranks on the one card (rows "
+        f"{ranks[0]['shard']}, {ranks[1]['shard']}), one diffusion step "
+        f"B={TRAIN_B} dropout 0 vs the single-process step: launches a rank "
+        f"{ranks[0]['counts']}; loss {ranks[0]['logs']['total']:.6f} vs "
+        f"{single[0]['total']:.6f} (rel err {e2['loss']:.2e}, bar "
+        f"{PAR_LOSS_RTOL:g}), grad_norm rel err {e2['grad_norm']:.2e} (bar "
+        f"{PAR_NORM_RTOL:g}), reduced grads worst leaf {e2['grad']:.2e} of "
+        f"its largest |g| (bar {PAR_GRAD_RTOL:g}), updated params max "
+        f"|diff| {e2['param']:.2e} (bar {PAR_PARAM_ATOL:g}); the ranks' "
+        f"params {'bit-identical' if same else 'DIFFER'}; {spawn_s:.1f} s "
+        f"with the ranks' start")
+    if (not same or e2["loss"] > PAR_LOSS_RTOL
+            or e2["grad_norm"] > PAR_NORM_RTOL or e2["grad"] > PAR_GRAD_RTOL
+            or e2["param"] > PAR_PARAM_ATOL):
+        raise RuntimeError("the two-rank step disagrees with one process")
+    return {"ws1": {"backend": backend, **e1},
+            "gloo2": {**e2, "ranks_identical": same, "seconds": spawn_s}}
+
+
+def phase_parallel(torch, smi):
+    """The training path's input pipeline and data parallelism: the native
+    batches against numpy's, the train CLI on the card (diffusion with
+    phase 6's VAE handed over by --cfg_assets, with the numpy collator,
+    then the native one; vae_diffusion from the native run), then the
+    one-rank and two-rank steps against one process."""
+    import shutil
+
+    shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    runs = {"loader": check_native_batches(torch)}
+    from mld_tpu_torch.utils.checkpoint import CheckpointManager
+
+    vae_dir = os.path.join(TRAIN_ROOT, "experiments", "mld", "smoke_vae",
+                           "checkpoints")
+    handed = CheckpointManager(vae_dir).restore(map_location=DEVICE)
+    # the numpy collator's run first, the native one's second (an earlier
+    # run had them the other way round: the first CLI run's steps were the
+    # slower)
+    for label, native in (("diffusion_numpy", False), ("diffusion", True)):
+        mld, runs[label] = run_cli(
+            torch, smi, label,
+            _par_over(f"par_{label}", "diffusion", dropout=0.1,
+                      native=native),
+            {"train": {"pretrained_vae": vae_dir}}, PAR_STEPS["diffusion"])
+        for k, p in mld.vae.named_parameters():
+            if not torch.equal(p, handed["state_dict"]["vae." + k]):
+                raise RuntimeError(f"the CLI's VAE is not the handed-over "
+                                   f"one: vae.{k}")
+        del mld
+        torch.cuda.empty_cache()
+    del handed
+    diff_dir = os.path.join(PAR_ROOT, "experiments", "mld", "par_diffusion",
+                            "checkpoints")
+    mld, runs["vae_diffusion"] = run_cli(
+        torch, smi, "vae_diffusion",
+        _par_over("par_vae_diffusion", "vae_diffusion", dropout=0.1),
+        {"train": {"pretrained": diff_dir}}, PAR_STEPS["vae_diffusion"])
+    del mld
+    torch.cuda.empty_cache()
+    nat, num = runs["diffusion"], runs["diffusion_numpy"]
+    log(f"[parallel:loader] host gap between diffusion steps (median of "
+        f"steps 2-{PAR_STEPS['diffusion']}; {runs['loader']['batches']} "
+        f"batch(es) an epoch): native collator {nat['gap_median_ms']:.2f} ms, numpy "
+        f"collator {num['gap_median_ms']:.2f} ms; train_step "
+        f"{nat['step_median_ms']:.2f} vs {num['step_median_ms']:.2f} ms; "
+        f"recorded, not claimed; {smi}")
+    runs["steps"] = check_parallel_steps(torch)
+    return runs
+
+
 def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
-                 a2m_runs, mode_runs, option_runs, e2e_runs, output_runs):
+                 a2m_runs, mode_runs, option_runs, e2e_runs, output_runs,
+                 parallel_runs):
     counts = runs["kernels"]["counts"]
     e2e_k = e2e_runs["kernels"]
     e2e_eval_b = _e2e_cfg().eval.batch_size
@@ -4188,6 +4563,11 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
         output = ({task: r["launches"][name]
                    for task, r in output_runs["demo"].items()}
                   if name != "encoder_layer" else None)
+        # phase 13: a step of the train CLI's runs, the last checked
+        parallel = ({run: parallel_runs[run]["launches"][name]
+                     for run in ("diffusion", "diffusion_numpy",
+                                 "vae_diffusion")}
+                    if name != "encoder_layer" else None)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst(results, key[0]), **arm(results[key]),
@@ -4201,6 +4581,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                 "options_launches": options,
                 "e2e_launches": e2e,
                 "output_demo_launches": output,
+                "parallel_train_launches_a_step": parallel,
                 **extra}
 
     return {"kernels": [
@@ -4295,10 +4676,15 @@ def main():
     t0 = time.perf_counter()
     output_runs = phase_output(torch, smi)
     log(f"[time] output path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parallel_runs = phase_parallel(torch, smi)
+    log(f"[time] data parallelism and loader: "
+        f"{time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
                                 runs["kernels"]["prompt_len"], train_runs,
                                 eval_runs, a2m_runs, mode_runs,
-                                option_runs, e2e_runs, output_runs)))
+                                option_runs, e2e_runs, output_runs,
+                                parallel_runs)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

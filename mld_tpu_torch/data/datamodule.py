@@ -7,8 +7,15 @@ protocol.
 When ``Mean.npy`` is missing, or the corpus carries a ``.synth_version``
 stamp other than the current one, the synthetic corpus is built in its place
 (64 clips in debug, else 256), as the original does; a real dataset never
-carries the stamp and is never touched. The native C++ loader is not part
-of the port.
+carries the stamp and is never touched.
+
+With ``dataset.native_loader`` (the default) the collator is
+``NativeMldCollator`` over the lazy dataset: the C++ loader
+(``mld_tpu_torch/native``) reads, crops, normalizes and pads the motion.
+When the loader cannot be built the numpy collator serves instead, as in
+the original (the batches are the same either way, and the loader is host
+code); the module logs which collator it took and, on a fallback, the build
+error. ``use_native`` says which.
 
 One departure: in MultiModality mode the JAX loader forces a batch of one
 text (``mld_tpu/data/datamodule.py:136-137``), whose 30 repeats then make a
@@ -17,16 +24,20 @@ call (``eval/pipeline.py``), so its loader keeps the batch size asked for.
 """
 from __future__ import annotations
 
+import logging
 import os
 from os.path import join as pjoin
 from typing import Optional
 
 import numpy as np
 
-from .collate import MldCollator
-from .dataset import DataLoader, PrefetchDataLoader, Text2MotionDataset
+from .collate import MldCollator, NativeMldCollator
+from .dataset import (DataLoader, PrefetchDataLoader, Text2MotionDataset,
+                      Text2MotionDatasetLazy)
 from .synthetic import SYNTH_VERSION, build_synthetic_dataset
 from .word_vectorizer import WordVectorizer
+
+_log = logging.getLogger(__name__)
 
 
 class MemoWordVectorizer(WordVectorizer):
@@ -81,7 +92,18 @@ class HumanML3DDataModule:
             self.mean_eval, self.std_eval = self.mean, self.std
         self.w_vectorizer = MemoWordVectorizer(ds.word_vectorizer_path,
                                                "our_vab")
-        self.collate = MldCollator(ds.max_motion_len, tokenizer)
+        self.use_native = False
+        if ds.native_loader:
+            try:
+                self.collate = NativeMldCollator(
+                    ds.max_motion_len, self.mean, self.std, tokenizer)
+                self.use_native = True
+                _log.info(f"{self.name}: native collator (C++ loader)")
+            except RuntimeError as e:
+                _log.warning(f"{self.name}: numpy collator (the native "
+                             f"loader cannot be built: {e})")
+        if not self.use_native:
+            self.collate = MldCollator(ds.max_motion_len, tokenizer)
         self._datasets = {}
         self.is_mm = False
         self._mm_backup = None
@@ -93,7 +115,8 @@ class HumanML3DDataModule:
             # GloVe/POS features feed the t2m evaluators only; the train
             # split skips them
             eval_embeddings = split != "train"
-        return Text2MotionDataset(
+        cls = Text2MotionDatasetLazy if self.use_native else Text2MotionDataset
+        return cls(
             self.root, split, self.mean, self.std, self.w_vectorizer,
             max_motion_length=ds.max_motion_len,
             min_motion_length=ds.min_motion_len,

@@ -1,8 +1,12 @@
 """Host-side dataset and loaders (carried copy of the parts of
 ``mld_tpu/data/dataset.py`` that training reads: ``Text2MotionDataset``,
-``DataLoader``, ``PrefetchDataLoader``). numpy only; the classes are kept
-equal to the originals, and ``tests/test_torch_train_data.py`` holds their
-source equal.
+``Text2MotionDatasetLazy``, ``DataLoader``, ``PrefetchDataLoader``). numpy
+only; the classes are kept equal to the originals, and
+``tests/test_torch_train_data.py`` and ``tests/test_torch_native_loader.py``
+hold their source equal. The lazy dataset keeps only the clips' place on
+disk and draws its caption and crop from ``self.rng`` in the eager
+dataset's order, so one seed gives both the same items; the native
+collator (``collate.NativeMldCollator``) reads the motion.
 
 Layout-compatible with the HumanML3D/KIT-ML distribution the reference
 consumes (new_joint_vecs/*.npy + texts/*.txt + split lists + Mean/Std.npy).
@@ -175,6 +179,61 @@ class Text2MotionDataset:
             "text": entry.caption,
             "text_len": sent_len,
             "motion": motion.astype(np.float32),
+            "length": m_length,
+            "tokens": "_".join(entry.tokens),
+        }
+        if word_embs is not None:
+            out["word_embs"] = word_embs.astype(np.float32)
+            out["pos_ohot"] = pos_ohot.astype(np.float32)
+        return out
+
+
+class Text2MotionDatasetLazy(Text2MotionDataset):
+    """Index-only variant: motions stay on disk; batches are assembled by
+    the native C++ loader (crop + normalize + pad in one threaded pass).
+
+    __getitem__ returns crop metadata instead of the motion array; pair with
+    collate.NativeMldCollator.
+    """
+
+    def __init__(self, data_root: str, split: str, mean, std, w_vectorizer,
+                 **kw):
+        super().__init__(data_root, split, mean, std, w_vectorizer, **kw)
+        self._motion_dir = pjoin(data_root, "new_joint_vecs")
+        # keep only the on-disk index; motions stream through the C++ loader
+        for name, item in self.data.items():
+            item["path"] = pjoin(self._motion_dir,
+                                 item["src_name"] + ".npy")
+            item["offset"] = item["src_offset"]
+            item.pop("motion", None)
+
+    def __getitem__(self, idx: int) -> dict:
+        item = self.data[self.name_list[idx]]
+        m_length = item["length"]
+        entry = item["text"][self.rng.randint(len(item["text"]))]
+        if self.w_vectorizer is not None and self.with_eval_embeddings:
+            word_embs, pos_ohot, sent_len = self._tokens_to_embeddings(
+                list(entry.tokens))
+        elif self.with_eval_embeddings:
+            word_embs = np.zeros((self.max_text_len + 2, 300), np.float32)
+            pos_ohot = np.zeros((self.max_text_len + 2, 15), np.float32)
+            sent_len = 0
+        else:
+            word_embs = pos_ohot = None
+            sent_len = len(entry.tokens)
+        unit = self.unit_length
+        coin2 = (self.rng.choice(["single", "single", "double"])
+                 if unit < 10 else "single")
+        if coin2 == "double":
+            m_length = (m_length // unit - 1) * unit
+        else:
+            m_length = (m_length // unit) * unit
+        start = self.rng.randint(0, item["length"] - m_length + 1)
+        out = {
+            "motion_path": item["path"],
+            "motion_start": item["offset"] + start,
+            "text": entry.caption,
+            "text_len": sent_len,
             "length": m_length,
             "tokens": "_".join(entry.tokens),
         }

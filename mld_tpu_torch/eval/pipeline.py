@@ -29,8 +29,15 @@ length-0 rows; and its MultiModality pass runs ``eval.batch_size`` texts x
 batch (the metric groups the repeats of each text either way). The action
 protocol pads the ragged last batch to ``eval.batch_size`` and slices the
 padding off, as the JAX package does (rows are independent, and a batch's
-draws then have the JAX package's shape). The multi-device ``mesh`` waits
-with that part of the port (ROADMAP.md queue 1, item 6).
+draws then have the JAX package's shape).
+
+Data parallelism (``run_split(sharded=True)``, the JAX package's ``mesh=``
+there): in a process group each rank evaluates its contiguous rows of
+every batch, on the batch's draws made for all its rows, and the ranks'
+outputs are gathered through ``parallel/multihost.py:make_metric_sync``
+and put back in the unsharded batch's length order before they reach the
+metrics (R-precision ranks groups of consecutive rows), so every rank
+computes the unsharded pass's metrics.
 """
 from __future__ import annotations
 
@@ -50,11 +57,15 @@ from mld_tpu_torch.models.mld import crop_to_bucket, resolve_device
 from mld_tpu_torch.models.t2m_eval import (MotionEncoderBiGRUCo,
                                            MovementConvEncoder,
                                            TextEncoderBiGRUCo, init_evaluator)
+from mld_tpu_torch.parallel import ddp
+from mld_tpu_torch.parallel.multihost import make_metric_sync
 from mld_tpu_torch.utils.checkpoint import load_params_npz
 from mld_tpu_torch.utils.convert import (flax_t2m_to_state_dict,
                                          state_dict_to_flax_t2m)
 from mld_tpu_torch.utils.precision import strict_f32
 
+# eval_batch's outputs in the batch's length order
+SORTED = ("lat_t", "lat_m", "lat_rm")
 # the JAX bundle's tree keys, the finest.tar keys, the bundle's attributes
 NETS = (("text", "text_encoder", "textencoder"),
         ("move", "movement_encoder", "moveencoder"),
@@ -312,6 +323,34 @@ class Evaluator:
         return {k: v.cpu().numpy() if torch.is_tensor(v) else v
                 for k, v in out.items()}
 
+    def eval_batch_sharded(self, batch: Mapping, stage: str, draws: Mapping,
+                           mm: bool, sync) -> Dict[str, np.ndarray]:
+        """eval_batch over the ranks of the process group: this rank's
+        contiguous rows (with their rows of the batch's `draws`), every
+        rank's outputs gathered by `sync` (``make_metric_sync``: rank
+        order, so batch order) and sorted by the whole batch's lengths, as
+        the unsharded eval_batch sorts them."""
+        n = len(np.asarray(batch["mask"]))
+        rank, world = ddp.rank(), ddp.world_size()
+        sl = ddp.shard_bounds(n, rank, world)
+        local = {}
+        if sl.stop > sl.start:
+            out = self.eval_batch(ddp.shard_rows(batch, rank, world), stage,
+                                  {k: v[sl] for k, v in draws.items()}, mm)
+            for k, v in out.items():
+                if k in SORTED:     # back to the rows' batch order
+                    local[k] = np.empty_like(v)
+                    local[k][out["align"]] = v
+                elif k != "align":
+                    local[k] = v
+        keys = ("lat_rm",) if mm else SORTED + ("joints_rst", "joints_ref")
+        full = {k: sync([local[k]] if k in local else [])[0] for k in keys}
+        align = torch.argsort(-torch.as_tensor(batch["length"]).long(),
+                              stable=True).numpy()
+        full = {k: v[align] if k in SORTED else v for k, v in full.items()}
+        full["align"] = align
+        return full
+
     # ------------------------------------------------------------ passes
     def _accumulators(self, metrics, mm, diversity_times):
         cfg = self.cfg
@@ -342,13 +381,17 @@ class Evaluator:
                   draws: Optional[Iterable[Mapping]] = None,
                   compute_rng: Optional[np.random.RandomState] = None,
                   diversity_times: Optional[int] = None,
-                  prediction_sink=None) -> Dict[str, float]:
+                  prediction_sink=None,
+                  sharded: bool = False) -> Dict[str, float]:
         """One metric pass over `loader`'s batches. With `mm` each text is
         repeated ``eval.mm_num_repeats`` times and only MultiModality is
         computed. `draws` gives each batch's draws (of its rows after the
         repeat); without it they come from `generator` (default: seeded
         with cfg.seed on the model's device). `prediction_sink(joints,
-        lengths)` receives each batch's generated joints."""
+        lengths)` receives each batch's generated joints. `sharded`: every
+        rank of the process group calls this on the same batches and
+        evaluates its rows of each (``eval_batch_sharded``); the metrics
+        are the unsharded pass's, on every rank."""
         cfg = self.cfg
         div_times = diversity_times or cfg.eval.diversity_times
         accs = self._accumulators(metrics, mm, div_times)
@@ -360,6 +403,7 @@ class Evaluator:
         # what a MultiModality batch reads, repeated
         mm_keys = ("text_ids", "mask", "length") + (
             ("motion",) if stage == "vae" else ())
+        sync = make_metric_sync() if sharded else None
         metric_s = 0.0
         for batch in loader:
             if mm:
@@ -369,7 +413,8 @@ class Evaluator:
             d = (next(draws) if draws is not None
                  else self.draw(n, n_frames, stage, generator))
             t0 = time.perf_counter()
-            out = self.eval_batch(batch, stage, d, mm=mm)
+            out = (self.eval_batch(batch, stage, d, mm=mm) if sync is None
+                   else self.eval_batch_sharded(batch, stage, d, mm, sync))
             self.times["mm" if mm else "main"].append(
                 time.perf_counter() - t0)
             lengths = np.asarray(batch["length"])

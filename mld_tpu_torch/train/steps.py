@@ -30,6 +30,19 @@ generation pass's initial latents, and the dropout masks when the config's
 be given instead through ``draws`` (a test replays the JAX package's
 streams that way).
 
+Every loss runs on a ``parallel/ddp.py:RowShard``, the rows of the global
+batch that the step's batch holds: under data parallelism a rank's rows,
+else the whole batch (``RowShard.whole``). Every draw above is made for the
+global batch from the step's generator, seeded alike on every rank, and the
+rank keeps its rows (``draws`` are given for the global batch too), so the
+sharded step equals the single-process step on the global batch; the
+dropout masks come from the rank's own generator (``RowShard.dropout``),
+so that ranks do not repeat each other's masks. The losses divide by the
+global valid rows (``RowShard.row_count``), and ``compute_grads`` replaces
+the gradients by their mean over the ranks (none without a process group)
+before their norm, so the non-finite skip, the update and the logs
+(averaged too) are every rank's.
+
 ``model.dtype: bfloat16`` is mixed precision (``_compute_cast``,
 ``steps.py:104-121``): each forward runs on bf16 copies of its module's
 parameters (the VAE's, the text tower's, the denoiser's, trainable or
@@ -54,6 +67,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mld_tpu_torch.losses.mld import diffusion_losses, smooth_l1, vae_losses
+from mld_tpu_torch.parallel import ddp
 
 
 # ------------------------------------------------------------------ optimizer
@@ -208,15 +222,37 @@ def _normal(shape, generator, device, what: str) -> torch.Tensor:
     return torch.randn(shape, generator=g, device=g.device).to(device)
 
 
-def _dropout_generator(mld, generator, train: bool):
+def _dropout_generator(mld, generator, train: bool, shard):
     if not train or mld.cfg.model.dropout <= 0.0:
         return None
+    if shard.dropout is not None:
+        return shard.dropout
     return _need(generator, "dropout")
+
+
+def _draw(shard, fn) -> torch.Tensor:
+    """fn(n), a draw for the global batch's n rows, of which the shard
+    keeps its own."""
+    return shard.take(fn(shard.rows))
+
+
+class _RowNoise:
+    """The generation pass's per-step noise (``diffusion_reverse``'s
+    ``step_noise``): step i's noise drawn, when the sampler asks for it,
+    for the global batch, and the shard's rows."""
+
+    def __init__(self, generator, shard, shape):
+        self.generator, self.shard, self.shape = generator, shard, shape
+
+    def __getitem__(self, i):
+        g = self.generator
+        return self.shard.take(torch.randn((self.shard.rows,) + self.shape,
+                                           generator=g, device=g.device))
 
 
 def batch_to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
     """A collated numpy batch -> the tensors a step reads (the text ids or
-    the action ids as long), with ``row_valid`` all True
+    the action ids as long), with the batch's ``row_valid``, else all True
     (``loop.py:_device_batch``)."""
     out = {"motion": torch.as_tensor(np.asarray(batch["motion"]),
                                      dtype=torch.float32, device=device),
@@ -226,8 +262,11 @@ def batch_to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
         if key in batch:
             out[key] = torch.as_tensor(np.asarray(batch[key]),
                                        dtype=torch.long, device=device)
-    out["row_valid"] = torch.ones(out["motion"].shape[0], dtype=torch.bool,
-                                  device=device)
+    out["row_valid"] = (torch.as_tensor(np.asarray(batch["row_valid"]),
+                                        dtype=torch.bool, device=device)
+                        if "row_valid" in batch else
+                        torch.ones(out["motion"].shape[0], dtype=torch.bool,
+                                   device=device))
     return out
 
 
@@ -288,16 +327,17 @@ def _segment(mld, top: str, fn, generator, *args):
 
 
 # --------------------------------------------------------------------- losses
-def vae_loss(mld, batch, generator=None, train: bool = True,
-             draws: Optional[Mapping] = None):
+def vae_loss(mld, batch, generator, train: bool,
+             draws: Optional[Mapping], shard):
     """Reconstruction + KL (``steps.py:118-142``). draws: {"eps"}."""
     d = draws or {}
     feats_ref, mask = batch["motion"], batch["mask"]
-    drop = _dropout_generator(mld, generator, train)
+    drop = _dropout_generator(mld, generator, train, shard)
     eps = d.get("eps")
     if eps is None:
-        eps = _normal((feats_ref.shape[0], mld.latent_size, mld.latent_dim),
-                      generator, feats_ref.device, "the VAE's eps")
+        eps = _draw(shard, lambda n: _normal(
+            (n, mld.latent_size, mld.latent_dim), generator,
+            feats_ref.device, "the VAE's eps"))
     z, (mu, logvar) = _segment(
         mld, "vae", lambda g, f: mld.encode_motion(
             f, mask, eps=eps, dropout_generator=g),
@@ -308,16 +348,16 @@ def vae_loss(mld, batch, generator=None, train: bool = True,
     feats_rst, mu, logvar = feats_rst.float(), mu.float(), logvar.float()
     return vae_losses(feats_rst, feats_ref, mld.feats2joints(feats_rst),
                       mld.feats2joints(feats_ref), mu, logvar, mld.cfg.loss,
-                      row_valid=batch.get("row_valid"))
+                      row_valid=batch.get("row_valid"),
+                      row_count=shard.row_count)
 
 
-def diffusion_loss(mld, batch, generator=None, train: bool = True,
-                   draws: Optional[Mapping] = None):
+def diffusion_loss(mld, batch, generator, train: bool,
+                   draws: Optional[Mapping], shard):
     """Denoiser MSE (``steps.py:145-199``). draws: {"eps", "cfg_drop" [B]
     bool (text) or "keep" [B] bool (action), "noise", "t" [B]}."""
     d = draws or {}
     feats_ref, mask = batch["motion"], batch["mask"]
-    B = feats_ref.shape[0]
     dev = feats_ref.device
     keep = None
     with torch.no_grad():
@@ -328,8 +368,9 @@ def diffusion_loss(mld, batch, generator=None, train: bool = True,
         else:
             eps = d.get("eps")
             if eps is None:
-                eps = _normal((B, mld.latent_size, mld.latent_dim),
-                              generator, dev, "the VAE's eps")
+                eps = _draw(shard, lambda n: _normal(
+                    (n, mld.latent_size, mld.latent_dim), generator, dev,
+                    "the VAE's eps"))
             z = _segment(mld, "vae", lambda g, f: mld.encode_motion(
                 f, mask, eps=eps)[0], None, feats_ref.to(mld.dtype)).float()
         if mld.condition == "action":
@@ -341,7 +382,8 @@ def diffusion_loss(mld, batch, generator=None, train: bool = True,
                 keep = d.get("keep")
                 if keep is None:
                     g = _need(generator, "EmbedAction's drop")
-                    keep = torch.rand(B, generator=g, device=g.device) < 1 - p
+                    keep = _draw(shard, lambda n: torch.rand(
+                        n, generator=g, device=g.device) < 1 - p)
                 keep = keep.to(dev)
         else:
             # the frozen text tower and the CFG text drop (mld.py:536-541)
@@ -351,56 +393,69 @@ def diffusion_loss(mld, batch, generator=None, train: bool = True,
             drop = d.get("cfg_drop")
             if drop is None:
                 g = _need(generator, "the CFG drop")
-                drop = (torch.rand(B, generator=g, device=g.device)
-                        < mld.cfg.model.guidance_uncondp)
+                drop = _draw(shard, lambda n: torch.rand(
+                    n, generator=g, device=g.device)
+                    < mld.cfg.model.guidance_uncondp)
             cond_emb = torch.where(drop.to(dev)[:, None, None],
                                    uncond.expand_as(cond),
                                    cond).to(mld.dtype)
     noise = d.get("noise")
     if noise is None:
-        noise = _normal(z.shape, generator, dev, "the noise")
+        noise = _draw(shard, lambda n: _normal(
+            (n,) + tuple(z.shape[1:]), generator, dev, "the noise"))
     noise = noise.to(dev, torch.float32)
     t = d.get("t")
     if t is None:
         g = _need(generator, "the timesteps")
-        t = torch.randint(0, mld.noise_scheduler.schedule.num_train_timesteps,
-                          (B,), generator=g, device=g.device)
+        t = _draw(shard, lambda n: torch.randint(
+            0, mld.noise_scheduler.schedule.num_train_timesteps, (n,),
+            generator=g, device=g.device))
     t = t.to(dev, torch.long)
     noisy = mld.noise_scheduler.add_noise(z, noise, t)
     pred = _segment(
         mld, "denoiser", lambda g, x: mld.denoise(
             x, t, cond_emb, mask if mld.raw_motion else None,
             training=train, dropout_generator=g, cond_keep=keep),
-        _dropout_generator(mld, generator, train),
+        _dropout_generator(mld, generator, train, shard),
         noisy.to(mld.dtype)).float()
     predict_epsilon = mld.cfg.train.predict_epsilon
     return diffusion_losses(pred, noise if predict_epsilon else z,
                             mld.cfg.loss, predict_epsilon,
-                            row_valid=batch.get("row_valid"))
+                            row_valid=batch.get("row_valid"),
+                            row_count=shard.row_count)
 
 
-def vae_diffusion_loss(mld, batch, generator=None, train: bool = True,
-                       draws: Optional[Mapping] = None):
+def vae_diffusion_loss(mld, batch, generator, train: bool,
+                       draws: Optional[Mapping], shard):
     """The joint stage (``steps.py:202-245``): vae + diffusion losses, and
     the generated sample's feature and joint losses, whose generation pass
     (DDIM with CFG over the prompts or the batch's actions, K1 on the card)
     runs on the f32 masters without grad as the reference's does. draws:
     {"vae": {...}, "diffusion": {...}, "gen_init"}."""
     d = draws or {}
-    total_v, logs_v = vae_loss(mld, batch, generator, train, d.get("vae"))
+    total_v, logs_v = vae_loss(mld, batch, generator, train, d.get("vae"),
+                               shard)
     total_d, logs_d = diffusion_loss(mld, batch, generator, train,
-                                     d.get("diffusion"))
+                                     d.get("diffusion"), shard)
     feats_ref, mask = batch["motion"], batch["mask"]
-    init = d.get("gen_init")
+    init, step_noise = d.get("gen_init"), None
+    if init is None:
+        # diffusion_reverse's draws, in its order: the initial latents, then
+        # (DDPM) each step's noise
+        g = _need(generator, "the generation pass")
+        shape = ((mask.shape[1], mld.nfeats) if mld.raw_motion
+                 else (mld.latent_size, mld.latent_dim))
+        init = _draw(shard, lambda n: torch.randn(
+            (n,) + shape, generator=g, device=g.device)
+            * mld.scheduler.init_noise_sigma)
+        step_noise = _RowNoise(g, shard, shape)
     gen_feats = mld.generate_feats(
         batch["action" if mld.condition == "action" else "text_ids"], mask,
-        init_latents=init,
-        generator=None if init is not None else _need(
-            generator, "the generation pass"))
-    row_valid = batch.get("row_valid")
-    gen_feature = smooth_l1(gen_feats, feats_ref, row_valid=row_valid)
+        init_latents=init, step_noise=step_noise)
+    rows = dict(row_valid=batch.get("row_valid"), row_count=shard.row_count)
+    gen_feature = smooth_l1(gen_feats, feats_ref, **rows)
     gen_joints = smooth_l1(mld.feats2joints(gen_feats),
-                           mld.feats2joints(feats_ref), row_valid=row_valid)
+                           mld.feats2joints(feats_ref), **rows)
     cfg = mld.cfg.loss
     total = (total_v + total_d + cfg.lambda_gen * gen_feature
              + cfg.lambda_joint * gen_joints)
@@ -425,19 +480,30 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sq.float())
 
 
-def compute_grads(state: TrainState, batch, generator=None, draws=None):
+def compute_grads(state: TrainState, batch, generator=None, draws=None,
+                  shard=None):
     """The loss and gradients of one step without the update: (logs,
     grads by trainable name). A trainable parameter the loss does not reach
-    gets a zero gradient, as under jax.grad."""
+    gets a zero gradient, as under jax.grad. Under data parallelism
+    (`shard`: the batch is the rank's rows; `draws`, if given, the global
+    batch's) the gradients and the logs are every rank's mean, reduced
+    before the gradients' norm; without `shard` the batch is the whole
+    one."""
     state.optimizer.zero_grad(set_to_none=True)
+    if shard is None:
+        shard = ddp.RowShard.whole(batch)
+    if draws is not None:
+        draws = shard.take(draws)
     total, logs = STAGE_LOSSES[state.stage](state.mld, batch, generator,
-                                            True, draws)
+                                            True, draws, shard)
     total.backward()
     for p in state.params.values():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = {k: p.grad for k, p in state.params.items()}
     logs = {k: v.detach() for k, v in logs.items()}
+    ddp.all_reduce_grads(grads.values())
+    logs = ddp.all_reduce_mean(logs)
     logs["grad_norm"] = global_norm(list(grads.values()))
     return logs, grads
 
@@ -454,12 +520,13 @@ def apply_grads(state: TrainState,
     return applied
 
 
-def train_step(state: TrainState, batch, generator=None,
-               draws=None) -> Dict[str, torch.Tensor]:
+def train_step(state: TrainState, batch, generator=None, draws=None,
+               shard=None) -> Dict[str, torch.Tensor]:
     """One optimizer step (``make_train_step``): logs of the stage's losses
     and ``grad_norm``, as tensors on the device (no host sync beyond the
-    non-finite check, which reads ``grad_norm``)."""
-    logs, _ = compute_grads(state, batch, generator, draws)
+    non-finite check, which reads ``grad_norm``). `shard` as in
+    ``compute_grads``."""
+    logs, _ = compute_grads(state, batch, generator, draws, shard)
     apply_grads(state, logs["grad_norm"])
     return logs
 
@@ -470,5 +537,6 @@ def eval_step(state: TrainState, batch, generator=None,
     the serving kernels may run (K1, and K5 with fused_decode)."""
     with torch.no_grad():
         _, logs = STAGE_LOSSES[state.stage](state.mld, batch, generator,
-                                            False, draws)
+                                            False, draws,
+                                            ddp.RowShard.whole(batch))
     return logs

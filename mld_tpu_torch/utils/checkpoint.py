@@ -39,6 +39,7 @@ from typing import Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
+from mld_tpu_torch.parallel import ddp
 from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
                                          flax_to_state_dict)
 
@@ -60,12 +61,18 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{int(step)}.pt")
 
     def save(self, step: int, model: torch.nn.Module, optimizer=None):
-        payload = {"step": int(step), "state_dict": model_state(model),
-                   "optimizer": (optimizer.state_dict()
-                                 if optimizer is not None else None)}
-        tmp = self.path(step) + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, self.path(step))
+        """Write ``<step>.pt``. Under data parallelism every rank calls it:
+        rank 0 writes (the ranks' weights and optimizer are the same) and
+        the ranks wait at a barrier until the file is whole, so that none
+        goes on to read it half-written."""
+        if ddp.rank() == 0:
+            payload = {"step": int(step), "state_dict": model_state(model),
+                       "optimizer": (optimizer.state_dict()
+                                     if optimizer is not None else None)}
+            tmp = self.path(step) + ".tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, self.path(step))
+        ddp.barrier()
 
     def steps(self):
         found = (_STEP_FILE.match(f) for f in os.listdir(self.directory))
