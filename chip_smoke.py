@@ -210,7 +210,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      of scale) and over two gloo ranks on the one card (NCCL refuses two
      ranks on one device) against one process (loss 2e-4 relative,
      params 2e-4);
- 14. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+ 14. the released-checkpoint path and the user scripts
+     (mld_tpu_torch.scripts.*), at mld_humanml3d's full width from seeded
+     weights: the parity drill on assets fabricated into build/ (a
+     reference-format .ckpt, an HF-named 12x768 tower as
+     pytorch_model.bin, phase 7's trained evaluators as finest.tar, its
+     corpus as the dataset) with --replications 1 --no-mm (cuts of 20 and
+     the MultiModality pass): every step ok, the verdict fail: (random
+     weights), exit code 1, the converted weights bit-equal to the file's,
+     the hydrated tower's f32 features on the card against the CPU, the
+     launches of its evaluated batches and AITS calls (K1 50, K4 24, K3 18
+     a call), AITS in ms and against 0.217 s (recorded, not claimed); the
+     checkpoint converter, whose npz reloads bit for bit; the flops script
+     at B = 1 and 128, each stage's count (kernel counters + aten) against
+     the CPU's plain-path count within 1e-6 and generate_feats against its
+     parts; the latent trajectories of 4 prompts (DDIM-50, PCA), the last
+     latent against the CPU; the DDIM ablation on phase 11's workdir at
+     steps {10, 50} (cut from {5, 10, 20, 50, 100}), B=128, 3 timed calls
+     (K1 a call = the steps; motions/s recorded); one B=64 diffusion step
+     with the denoiser split over a model axis of two gloo ranks on the
+     one card (parallel/partition.py) against one process (loss 2e-4
+     relative, params 2e-4, grad_norm 2e-4, reassembled gradients 1e-4 of
+     each leaf's largest |g|), the residual stream bit-identical on both
+     model ranks under dropout 0.1, and K3 at a rank's [64, 2, 3, 64];
+ 15. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
@@ -612,72 +635,30 @@ def _library_kernels(torch, fn):
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def _weight_bytes(st, packed):
-    """Bytes of a stack's weights, each once: the copies of its matrices in
-    the kernel's order (`packed`: K1's fragment order, K5's [out, in]) are
-    not counted again."""
-    return sum(t.numel() * t.element_size()
-               for f, t in st._asdict().items() if f not in packed)
-
-
 def _encoder_work(n_seq, n_block, st, s=S, d=D, ff=FF):
-    """(flops, bytes, peak) of K1 (K2 at n_block = 0) on n_seq sequences of
-    s tokens (width d, FFN ff; the flagship's by default): per layer the
-    QKV and out projections (4 d^2) and the FFN (2 d ff) a row, and s x s
-    attention a sequence; a skip linear (2d -> d) a row for each of the
-    n_block output blocks. Bytes: the stacked weights, x in and out
-    (f32)."""
-    L, rows = 2 * n_block + 1, n_seq * s
-    flops = (2 * rows * (L * (4 * d * d + 2 * d * ff) + n_block * 2 * d * d)
-             + 4 * n_seq * s * s * d * L)
-    from mld_tpu_torch.ops.fused_layer import _PACKED
-    # products on the tensor cores: 3xTF32 for f32 weights, bf16 mma
-    peak = BF16_MMA if st.wqkv.element_size() == 2 else TF32X3
-    return flops, _weight_bytes(st, _PACKED) + 2 * rows * d * 4, peak
+    """bound()'s arguments for K1 (K2 at n_block = 0) on n_seq sequences of
+    s tokens (width d, FFN ff; the flagship's by default):
+    ``ops/work.py:encoder_work`` at the unit the weights run on (3xTF32 for
+    f32 weights, bf16 mma)."""
+    from mld_tpu_torch.ops import work
+    flops, nbytes = work.encoder_work(n_seq, n_block, st, s, d, ff)
+    return flops, nbytes, BF16_MMA if st.wqkv.element_size() == 2 else TF32X3
 
 
 def _decoder_work(tgt, mem, valid, st):
-    """bound()'s arguments for one K5 call, the work its function needs: a
-    row's self-attention QKV and out-projections (4 D^2) and FFN (2 D F) a
-    layer; the cross-attention at M = 1 as its value projection and
-    out-projection once a sequence (its output is the value row), otherwise
-    a row's query and out-projections and the latent tokens' key and value
-    projections; a skip linear (2D -> D) a row for each output block. These
-    run at the weights' rate (3xTF32 for f32, bf16 mma); the attention
-    products at 3xTF32 in both arms: self-attention over each example's
-    valid frames (key 0 always) and, at M > 1, cross-attention to M tokens.
-    Bytes: the stacked weights, tgt, mem and the mask in, the output."""
-    from mld_tpu_torch.ops.fused_seq_decoder import _PACKED
-    B, T, _ = tgt.shape
-    M = mem.shape[1]
-    rows, L = B * T, N_LAYERS
-    keys = T * valid.sum(1).clamp(min=1).sum().item()
-    cross = (2 * B * 2 * D * D if M == 1
-             else 2 * rows * 2 * D * D + 2 * B * M * 2 * D * D)
-    weights = (L * (2 * rows * (4 * D * D + 2 * D * FF) + cross)
-               + N_BLOCK * 2 * rows * 2 * D * D)
-    attn = L * (4 * D * keys + (4 * rows * M * D if M > 1 else 0))
-    nbytes = (_weight_bytes(st, _PACKED) + 2 * tgt.numel() * 4
-              + mem.numel() * 4 + valid.numel() * valid.element_size())
+    """bound()'s arguments for one K5 call (``ops/work.py:decoder_work``):
+    the weights' products at their unit's rate (3xTF32 for f32, bf16 mma),
+    the attention products at 3xTF32 in both arms."""
+    from mld_tpu_torch.ops import work
+    weights, attn, nbytes = work.decoder_work(tgt, mem, valid, st)
     peak = BF16_MMA if st.wqkv_s.element_size() == 2 else TF32X3
     return weights, nbytes, peak, ((attn, TF32X3),)
 
 
 def _flash_work(q, k, valid, peak):
-    """(flops, bytes, peak) of K3: Q.K^T and P.V over the keys the output
-    needs (an example's valid keys; all Sk where none is valid), q, k, v
-    and the mask read, the output written."""
-    B, H, Sq, Dh = q.shape
-    Sk = k.shape[2]
-    if valid is None:
-        keys = B * Sk
-    else:
-        n = valid.sum(1)
-        keys = n.masked_fill(n == 0, Sk).sum().item()
-    flops = 4 * H * Sq * Dh * keys
-    nbytes = (q.element_size() * B * H * Dh * (2 * Sq + 2 * Sk)
-              + (valid.numel() if valid is not None else 0))
-    return flops, nbytes, peak
+    """bound()'s arguments for K3 (``ops/work.py:flash_work``)."""
+    from mld_tpu_torch.ops import work
+    return (*work.flash_work(q, k, valid), peak)
 
 
 def _rms(a, b):
@@ -4503,14 +4484,505 @@ def phase_parallel(torch, smi):
     return runs
 
 
+# -------------------------------- 14. released-checkpoint path and the tools
+TOOLS_ROOT = os.path.join(REPO, "build", "tools_smoke")
+# the drill's cuts: 1 replication of the protocol's 20, no MultiModality
+DRILL_ARGV = ("--replications", "1", "--no-mm")
+# model and eval overrides (none: the preset's full width and the
+# protocol's constants); a CPU rehearsal sets small ones
+TOOLS_MODEL = {}
+TOOLS_EVAL = {}
+# flops: the batches counted on the card and on the CPU
+FLOPS_BATCHES = (1, B_LARGE)
+FLOPS_RTOL = 1e-6
+TSNE_TEXTS = ("a person walks forward", "a person jumps",
+              "someone sits down", "a person waves")
+# the ablation's cuts: steps {10, 50} of {5, 10, 20, 50, 100}, 3 timed
+# iterations of 10
+ABLATION_STEPS = (10, 50)
+ABLATION_BATCH = B_LARGE
+ABLATION_ITERS = 3
+# the model axis: B=64 diffusion steps at full width over two gloo ranks
+# on the one card (1 data x 2 model), dropout 0 against one process and
+# 0.1 for the residual stream across the model ranks; phase 13's bars
+AXIS_B = TRAIN_B
+AXIS_DROPOUT = 0.1
+AXIS_ROOT = os.path.join(TOOLS_ROOT, "model_axis")
+AXIS_FLASH_CASE = ("model-axis denoiser self", AXIS_B, 2, 3, 3, 64, None)
+
+
+def _ckpt_state(torch, path):
+    """The state dict of a fabricated reference checkpoint (its pickled
+    hyper-parameter is an argparse.Namespace)."""
+    import argparse
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        return torch.load(path, map_location="cpu",
+                          weights_only=True)["state_dict"]
+
+
+def _tools_cfg(**model):
+    from mld_tpu_torch.config import load_config
+
+    return load_config(preset="mld_humanml3d", overrides={
+        "model": {**TOOLS_MODEL, **model}})
+
+
+def _f32_tower(cfg):
+    from mld_tpu_torch.config.core import (config_from_dict, config_to_dict,
+                                           merge_dicts)
+    return config_from_dict(merge_dicts(
+        config_to_dict(cfg), {"model": {"clip_compute_dtype": "float32"}}))
+
+
+def tools_drill(torch, smi):
+    """python -m mld_tpu_torch.scripts.parity_drill on fabricated assets at
+    full width (phase 7's trained evaluators as finest.tar, its corpus as
+    the dataset), with its launches, the converted weights against the
+    file's, the hydrated tower on the card against the CPU, and AITS."""
+    from mld_tpu_torch.models.clip_text import (ClipTextModel,
+                                                load_hf_clip_weights)
+    from mld_tpu_torch.scripts import drill_assets, parity_drill
+    from mld_tpu_torch.utils.checkpoint import load_params_npz
+
+    root = os.path.join(TOOLS_ROOT, "drill")
+    t0 = time.perf_counter()
+    paths = parity_drill.asset_paths(root)
+    yml = None
+    if TOOLS_MODEL or TOOLS_EVAL:
+        # a rehearsal's overrides, given to the drill as --cfg
+        import yaml
+        os.makedirs(root, exist_ok=True)
+        yml = os.path.join(root, "model.yaml")
+        with open(yml, "w") as f:
+            yaml.safe_dump({"model": TOOLS_MODEL, "eval": TOOLS_EVAL}, f)
+    cfg = parity_drill.drill_config(root, paths, 1, yml)
+    drill_assets.fabricate(
+        root, cfg, seed=SEED,
+        t2m_params=load_params_npz(os.path.join(EVAL_ROOT,
+                                                "t2m_trained.npz")),
+        corpus=os.path.join(EVAL_ROOT, "humanml3d"))
+    fab_s = time.perf_counter() - t0
+    out = os.path.join(root, "drill_report.json")
+    argv = ["--assets-root", root, *DRILL_ARGV, "--out", out,
+            "--device", DEVICE] + (["--cfg", yml] if yml else [])
+    _reset_counts()
+    t0 = time.perf_counter()
+    code, report, built = parity_drill.run(parity_drill.parse_args(argv))
+    _sync(torch)
+    drill_s = time.perf_counter() - t0
+    counts = _read_counts()
+    steps = {s["step"]: s["ok"] for s in report["steps"]}
+    if code != 1 or not report["verdict"].startswith("fail:") \
+            or not all(steps.values()):
+        raise RuntimeError(f"the drill on random weights: exit {code}, "
+                           f"steps {steps}, verdict {report['verdict']}")
+    mld, ev = built["mld"], built["evaluator"]
+    batches = len(ev.times["main"])
+    calls = batches + parity_drill.AITS_ITERS + 1
+    per_call = _eval_want(mld.cfg)
+    want = {k: v * calls for k, v in per_call.items()}
+    _check_counts(counts, want, f"the drill ({batches} evaluated batches "
+                  f"and {parity_drill.AITS_ITERS + 1} AITS calls)")
+    # the converted weights are the file's
+    state = _ckpt_state(torch, paths["ckpt"])
+    own = mld.state_dict()
+    n_conv = 0
+    for k, v in own.items():
+        if k.startswith(("vae.", "denoiser.")):
+            if not torch.equal(v.cpu(), state[k]):
+                raise RuntimeError(f"the drill's {k} is not the file's")
+            n_conv += 1
+    # the hydrated tower on the card against the file's tower on the CPU,
+    # both computing in f32
+    ids = mld.tokenize(list(TSNE_TEXTS))
+    mld.clip.compute_dtype = torch.float32
+    with torch.no_grad():
+        card = mld.clip(ids, mode="features").cpu()
+        m = mld.cfg.model
+        cpu_tower = ClipTextModel(width=m.text_encoded_dim,
+                                  layers=m.clip_layers, heads=m.clip_heads,
+                                  projection_dim=m.text_encoded_dim)
+        load_hf_clip_weights(paths["clip"], tower=cpu_tower)
+        ref = cpu_tower(ids.cpu(), mode="features")
+    scale = ref.abs().max().item()
+    tower_err = (card - ref).abs().max().item()
+    log(f"[tools:drill] fabricated assets ({fab_s:.1f} s, host) -> "
+        f"parity_drill {' '.join(DRILL_ARGV)} on {DEVICE}: exit {code}, "
+        f"steps {steps}, verdict '{report['verdict']}' (random weights "
+        f"fail, as they must); {batches} evaluated batches + "
+        f"{parity_drill.AITS_ITERS + 1} AITS calls, launches {counts} = "
+        f"{calls} x {per_call}; {n_conv} converted tensors bit-equal to the "
+        f"file's; the hydrated tower's features on the card vs the CPU "
+        f"(f32): max_abs_err {tower_err:.3e} (scale {scale:.3e}, bar "
+        f"{E2E_RTOL:g} x max(scale, 1)); {drill_s:.1f} s; {smi}")
+    if not tower_err <= E2E_RTOL * max(scale, 1.0):
+        raise RuntimeError("the hydrated tower on the card disagrees with "
+                           "the CPU")
+    aits = report["aits_sec"]
+    log(f"[tools:drill] AITS {aits * 1e3:.2f} ms a motion (B=1, "
+        f"DDIM-{mld.cfg.model.scheduler.num_inference_timesteps}, "
+        f"mean of {parity_drill.AITS_ITERS} calls after a warm one), "
+        f"{parity_drill.PAPER_AITS / aits:.1f}x the paper's 0.217 s on a "
+        f"V100 (recorded, not claimed); {smi}")
+    results = {k: v for k, v in report["results"].items()
+               if not k.endswith("conf95")}
+    _finite_metrics("the drill", results)
+    del mld, ev, built
+    torch.cuda.empty_cache()
+    return {"launches": counts, "calls": calls, "batches": batches,
+            "aits_ms": aits * 1e3, "tower_err": tower_err,
+            "seconds": drill_s, "verdict": report["verdict"]}
+
+
+def tools_converter(torch):
+    """python -m mld_tpu_torch.scripts.convert_checkpoint at full width: its
+    npz reloads through load_pretrained bit for bit."""
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.scripts import convert_checkpoint, parity_drill
+    from mld_tpu_torch.utils.checkpoint import load_pretrained
+
+    root = os.path.join(TOOLS_ROOT, "drill")
+    ckpt = parity_drill.asset_paths(root)["ckpt"]
+    npz = os.path.join(TOOLS_ROOT, "converted_params.npz")
+    t0 = time.perf_counter()
+    argv = ["--ckpt", ckpt, "--out", npz, "--device", DEVICE]
+    if TOOLS_MODEL or TOOLS_EVAL:
+        argv += ["--cfg", os.path.join(root, "model.yaml")]
+    tops = convert_checkpoint.main(argv)
+    conv_s = time.perf_counter() - t0
+    state = _ckpt_state(torch, ckpt)
+    fresh = MLD(_tools_cfg(), device=DEVICE,
+                generator=torch.Generator().manual_seed(SEED + 9))
+    loaded = load_pretrained(fresh, npz)
+    n = 0
+    for k, v in fresh.state_dict().items():
+        if k.startswith(("vae.", "denoiser.")):
+            if not torch.equal(v.cpu(), state[k]):
+                raise RuntimeError(f"the converted npz's {k} is not the "
+                                   f"checkpoint's")
+            n += 1
+    log(f"[tools:convert] {tops} -> {os.path.getsize(npz) / 2 ** 20:.1f} MiB "
+        f"npz in {conv_s:.1f} s; reloaded {sorted(loaded)} through "
+        f"load_pretrained: {n} tensors bit-equal to the checkpoint's")
+    del fresh
+    return {"tensors": n, "seconds": conv_s}
+
+
+def tools_flops(torch):
+    """python -m mld_tpu_torch.scripts.flops at full width on the card
+    (kernel counters + FlopCounterMode) and the same stages on the CPU
+    (plain versions, counted by the mode; K1's plain version, an f32
+    tower: the count does not depend on the dtype), at FLOPS_BATCHES."""
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.scripts import flops
+
+    cfg32 = _f32_tower(_tools_cfg())
+    reports = {}
+    for dev in (DEVICE, "cpu"):
+        mld = MLD(cfg32 if dev == "cpu" else _tools_cfg(), device=dev,
+                  fused_denoiser=True,
+                  generator=torch.Generator().manual_seed(SEED))
+        for B in FLOPS_BATCHES:
+            t0 = time.perf_counter()
+            reports[(dev, B)] = flops.analyze(mld, B, T_FRAMES)
+            reports[(dev, B)]["seconds"] = time.perf_counter() - t0
+        del mld
+    out = {}
+    for B in FLOPS_BATCHES:
+        card, cpu = reports[(DEVICE, B)], reports[("cpu", B)]
+        errs = {}
+        for k, v in card.items():
+            if isinstance(v, dict) and "flops" in v:
+                ref = cpu[k]["flops"]
+                errs[k] = abs(v["flops"] - ref) / max(ref, 1.0)
+        parts = card["generate_parts"]
+        ident = abs(parts["whole"] - (
+            parts["text_condition"] + parts["sampler_preamble"]
+            + parts["steps"] * parts["sampler_step"] + parts["vae_decode"])
+        ) / parts["whole"]
+        gflop = card["generate_feats"]["flops"] / B / 1e9
+        log(f"[tools:flops] B={B}: generate_feats "
+            f"{card['generate_feats']['flops']:.4e} FLOP ({gflop:.3f} GFLOP "
+            f"a motion; text {parts['text_condition']:.3e} + preamble "
+            f"{parts['sampler_preamble']:.3e} + {parts['steps']} x step "
+            f"{parts['sampler_step']:.3e} + decode {parts['vae_decode']:.3e}"
+            f", identity rel err {ident:.1e}), denoiser_step "
+            f"{card['denoiser_step']['flops']:.4e}, vae_encode "
+            f"{card['vae_encode']['flops']:.4e}, vae_decode "
+            f"{card['vae_decode']['flops']:.4e}, clip_text "
+            f"{card['clip_text']['flops']:.4e}, params "
+            f"{card['param_count']}; card (kernel counters + aten) vs CPU "
+            f"(plain versions) worst rel err {max(errs.values()):.1e} (bar "
+            f"{FLOPS_RTOL:g}); {card['seconds']:.1f} s card, "
+            f"{cpu['seconds']:.1f} s CPU")
+        if max(errs.values()) > FLOPS_RTOL or ident > FLOPS_RTOL:
+            raise RuntimeError(f"flops at B={B}: card vs CPU {errs}, "
+                               f"identity {ident}")
+        out[B] = {"gflop_a_motion": gflop, "errs": errs,
+                  **{k: v["flops"] for k, v in card.items()
+                     if isinstance(v, dict) and "flops" in v}}
+    return out
+
+
+def tools_tsne(torch, smi):
+    """The latent trajectories at full width, 4 prompts, DDIM-50, PCA: the
+    last latent on the card against the CPU (K1's plain version, f32 towers
+    on both), the launches, and the plot (or the embedding where matplotlib
+    is missing)."""
+    import numpy as np
+
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.scripts import tsne
+
+    cfg32 = _f32_tower(_tools_cfg())
+    init = None
+    traj = {}
+    for dev in (DEVICE, "cpu"):
+        mld = MLD(cfg32, device=dev, fused_denoiser=True,
+                  generator=torch.Generator().manual_seed(SEED))
+        if init is None:
+            init = torch.randn(len(TSNE_TEXTS), mld.latent_size,
+                               mld.latent_dim,
+                               generator=torch.Generator().manual_seed(
+                                   SEED + 21))
+        _reset_counts()
+        t0 = time.perf_counter()
+        cond = tsne.full_context_condition(mld, TSNE_TEXTS)
+        traj[dev] = tsne.diffusion_reverse_trajectory(
+            mld, cond, init_latents=init).cpu()
+        if dev == DEVICE:
+            _sync(torch)
+            secs = time.perf_counter() - t0
+            counts = _read_counts()
+            n_steps = len(mld.scheduler.timesteps())
+        del mld
+    m = cfg32.model
+    # the condition's one tower call (uncond rows and prompts together)
+    want = {"skip_encoder": n_steps, "skip_decoder": 0,
+            "skip_decoder_kernels": 0, "flash_causal": m.clip_layers,
+            "flash_attention": 0}
+    _check_counts(counts, want, "the trajectory")
+    last, ref = traj[DEVICE][-1], traj["cpu"][-1]
+    scale = ref.abs().max().item()
+    err = (last - ref).abs().max().item()
+    emb = tsne.embed(traj[DEVICE].numpy(), "pca")
+    try:
+        import matplotlib  # noqa: F401
+        path = os.path.join(TOOLS_ROOT, "tsne_latents.png")
+        tsne.plot(emb, TSNE_TEXTS, "pca", path)
+        drawn = "drew"
+    except ImportError:
+        path = os.path.join(TOOLS_ROOT, "tsne_latents.npy")
+        np.save(path, emb)
+        drawn = "wrote"
+        log(f"[tools:tsne] matplotlib is not installed: wrote the "
+            f"embedding {emb.shape} as {os.path.relpath(path, REPO)} "
+            f"instead of the plot")
+    log(f"[tools:tsne] {len(TSNE_TEXTS)} prompts, DDIM-{n_steps}: "
+        f"trajectory {tuple(traj[DEVICE].shape)} in {secs:.3f} s, launches "
+        f"{counts}; last latent card vs CPU max_abs_err {err:.3e} (scale "
+        f"{scale:.3e}, bar {E2E_RTOL:g} x max(scale, 1)); {drawn} "
+        f"{os.path.relpath(path, REPO)}; {smi}")
+    if not (np.isfinite(emb).all() and err <= E2E_RTOL * max(scale, 1.0)):
+        raise RuntimeError("the trajectory on the card disagrees with the "
+                           "CPU")
+    return {"launches": counts, "err": err, "seconds": secs}
+
+
+def tools_ablation(torch, smi):
+    """python -m mld_tpu_torch.scripts.ablate_ddim_steps on phase 11's
+    trained workdir at ABLATION_STEPS: each arm's metrics and motions/s,
+    and K1's launches a generate call equal to its step count."""
+    from mld_tpu_torch.scripts import ablate_ddim_steps as abl
+
+    runs = {}
+    for n_steps in ABLATION_STEPS:
+        _reset_counts()
+        t0 = time.perf_counter()
+        arm = abl.run_arm(E2E_ROOT, n_steps, 2.5, torch.device(DEVICE),
+                          ABLATION_BATCH, ABLATION_ITERS)
+        secs = time.perf_counter() - t0
+        counts = _read_counts()
+        cfg = abl.arm_config(E2E_ROOT, n_steps, 2.5)
+        calls = counts["flash_causal"] // (2 * cfg.model.clip_layers)
+        if counts["skip_encoder"] != calls * n_steps or calls < 1 \
+                + ABLATION_ITERS + 1:
+            raise RuntimeError(f"the ablation's arm {n_steps}: launches "
+                               f"{counts} for {calls} generate calls")
+        _finite_metrics(f"the ablation's arm {n_steps}",
+                        {k: v for k, v in arm.items()})
+        runs[n_steps] = {**arm, "launches": counts, "calls": calls,
+                         "seconds": secs}
+        log(f"[tools:ablation] DDIM-{n_steps}: FID {arm['FID']:.3f}, R@1 "
+            f"{arm['R_precision_top_1']:.3f}, {arm['motions_per_sec']:.1f} "
+            f"motions/s at B={ABLATION_BATCH} ({arm['aits_ms']:.4f} ms a "
+            f"motion, {ABLATION_ITERS} timed calls); {calls} generate calls"
+            f", K1 {n_steps} a call; {secs:.1f} s; recorded, not claimed; "
+            f"{smi}")
+    return runs
+
+
+def _axis_rank(inputs_path, device):
+    """A rank of the model-axis check (spawned): the diffusion steps of the
+    saved batch and draws on a denoiser split over a model axis of the two
+    ranks; saves rank 0's logs, whole gradients and parameters, launches,
+    and each rank's residual stream under dropout."""
+    import torch
+
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.models.mld import MLD
+    from mld_tpu_torch.parallel import ddp, partition
+    from mld_tpu_torch.train import steps
+
+    inp = torch.load(inputs_path, weights_only=False)
+    axis = partition.make_groups(1, 2)
+    out = {}
+    for name, over in inp["over"].items():
+        cfg = load_config(preset="mld_humanml3d", overrides=over)
+        mld = MLD(cfg, mean=inp["mean"], std=inp["std"], device=device,
+                  generator=torch.Generator().manual_seed(SEED))
+        partition.shard_params(mld, axis)
+        state = steps.create_train_state(mld, "diffusion")
+        kinds = {k: getattr(p, "model_shard", None)
+                 for k, p in state.params.items()}
+        batch = steps.batch_to_device(inp["batch"], device)
+        dropout = (partition.axis_generators(SEED + 31, axis, device)
+                   if cfg.model.dropout > 0 else None)
+        shard = ddp.RowShard.of(ddp.pad_batch_to_ranks(inp["batch"], 1), 0,
+                                1, dropout)
+        acts = []
+        enc = mld.denoiser.encoder
+        hooks = [layer.register_forward_hook(
+            lambda _m, _i, o: acts.append(o.detach().cpu()))
+            for layer in (list(enc.input_blocks) + [enc.middle_block]
+                          + list(enc.output_blocks))]
+        _reset_counts()
+        logs, grads = steps.compute_grads(state, batch, None, inp["draws"],
+                                          shard)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        counts = _read_counts()
+        for h in hooks:
+            h.remove()
+        grads = partition.whole_state(grads, kinds, axis)
+        steps.apply_grads(state, logs["grad_norm"])
+        params = partition.whole_state(
+            {k: p.detach() for k, p in state.params.items()}, kinds, axis)
+        out[name] = {"logs": {k: float(v) for k, v in logs.items()},
+                     "grads": grads, "params": params, "counts": counts,
+                     "acts": acts, "kinds": kinds}
+        del mld, state
+    torch.save(out, os.path.join(os.path.dirname(inputs_path),
+                                 f"rank{ddp.rank()}.pt"))
+
+
+def tools_model_axis(torch, smi):
+    """One B=AXIS_B diffusion step at full width with the denoiser split
+    over a model axis of two gloo ranks on the one card, dropout 0, against
+    the single-process step (phase 13's _step_of, the same batch and
+    draws); then dropout AXIS_DROPOUT: the residual stream bit-identical on
+    both model ranks; and K3 at a rank's shape against its plain
+    version."""
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.data.datamodule import get_datamodule
+    from mld_tpu_torch.models.clip_text import ClipTokenizer
+    from mld_tpu_torch.parallel import ddp
+    from mld_tpu_torch.train.steps import batch_to_device
+
+    over = {name: _par_over(f"axis_{name}", "diffusion", dropout=d)
+            for name, d in (("plain", 0.0), ("dropout", AXIS_DROPOUT))}
+    cfg = load_config(preset="mld_humanml3d", overrides=over["plain"])
+    dm = get_datamodule(cfg, tokenizer=ClipTokenizer(cfg.model.clip_path))
+    host = next(iter(dm.loader("train", batch_size=AXIS_B, prefetch=0,
+                               drop_last=True)))
+    host = {k: host[k] for k in ("motion", "mask", "text_ids")}
+    draws = _diffusion_draws(torch, cfg, AXIS_B, SEED + 17)
+    single = _step_of(torch, cfg, dm.mean, dm.std,
+                      batch_to_device(host, DEVICE), draws)
+    want = _train_want(cfg, "diffusion")
+    _check_counts(single[2], want, "the single-process step")
+
+    os.makedirs(AXIS_ROOT, exist_ok=True)
+    path = os.path.join(AXIS_ROOT, "inputs.pt")
+    torch.save({"over": over, "mean": dm.mean, "std": dm.std, "batch": host,
+                "draws": {k: v.cpu() for k, v in draws.items()}}, path)
+    t0 = time.perf_counter()
+    ddp.spawn(_axis_rank, [DEVICE] * 2, path, backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(AXIS_ROOT, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    r0 = ranks[0]["plain"]
+    _check_counts(r0["counts"], want, "a model-axis rank's step")
+    e = _par_errs((r0["logs"], r0["params"], None, r0["grads"]), single)
+    same = all(torch.equal(p, ranks[1]["plain"]["params"][k])
+               for k, p in r0["params"].items())
+    split = sum(1 for v in r0["kinds"].values() if v)
+    log(f"[tools:axis] model axis of 2 gloo ranks on the one card "
+        f"({split} of {len(r0['kinds'])} trainable leaves split: QKV by "
+        f"heads, FFN, out projections), one diffusion step B={AXIS_B} "
+        f"dropout 0 vs the single-process step: launches a rank "
+        f"{r0['counts']}; loss {r0['logs']['total']:.6f} vs "
+        f"{single[0]['total']:.6f} (rel err {e['loss']:.2e}, bar "
+        f"{PAR_LOSS_RTOL:g}), grad_norm rel err {e['grad_norm']:.2e} (bar "
+        f"{PAR_NORM_RTOL:g}), reassembled grads worst leaf {e['grad']:.2e} "
+        f"of its largest |g| (bar {PAR_GRAD_RTOL:g}), updated params max "
+        f"|diff| {e['param']:.2e} (bar {PAR_PARAM_ATOL:g}); the ranks' "
+        f"reassembled params {'bit-identical' if same else 'DIFFER'}; "
+        f"{spawn_s:.1f} s with the ranks' start")
+    if (not same or e["loss"] > PAR_LOSS_RTOL
+            or e["grad_norm"] > PAR_NORM_RTOL or e["grad"] > PAR_GRAD_RTOL
+            or e["param"] > PAR_PARAM_ATOL):
+        raise RuntimeError("the model-axis step disagrees with one process")
+    a, b = ranks[0]["dropout"]["acts"], ranks[1]["dropout"]["acts"]
+    stream_same = len(a) == len(b) > 0 and all(
+        torch.equal(x, y) for x, y in zip(a, b))
+    moved = ranks[0]["dropout"]["logs"]["total"] != r0["logs"]["total"]
+    log(f"[tools:axis] dropout {AXIS_DROPOUT}: the residual stream (the "
+        f"{len(a)} encoder layers' outputs) "
+        f"{'bit-identical' if stream_same else 'DIFFERS'} on the two model "
+        f"ranks; loss {ranks[0]['dropout']['logs']['total']:.6f} (dropout "
+        f"{'moved' if moved else 'did not move'} it)")
+    if not (stream_same and moved):
+        raise RuntimeError("the residual stream parts across the model "
+                           "ranks under dropout")
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    with torch.no_grad():
+        flash = check_flash(torch, None, g, cases=(AXIS_FLASH_CASE,))
+    return {"errs": e, "counts": r0["counts"], "seconds": spawn_s,
+            "flash": flash}
+
+
+def phase_tools(torch, smi):
+    """The released-checkpoint path and the user scripts: the drill, the
+    converter, the operation counts, the trajectories, the DDIM ablation
+    and the model axis."""
+    import shutil
+
+    shutil.rmtree(TOOLS_ROOT, ignore_errors=True)
+    os.makedirs(TOOLS_ROOT)
+    runs = {}
+    for name, fn in (("drill", lambda: tools_drill(torch, smi)),
+                     ("convert", lambda: tools_converter(torch)),
+                     ("flops", lambda: tools_flops(torch)),
+                     ("tsne", lambda: tools_tsne(torch, smi)),
+                     ("ablation", lambda: tools_ablation(torch, smi)),
+                     ("axis", lambda: tools_model_axis(torch, smi))):
+        t0 = time.perf_counter()
+        runs[name] = fn()
+        torch.cuda.empty_cache()
+        log(f"[time] tools {name}: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                  a2m_runs, mode_runs, option_runs, e2e_runs, output_runs,
-                 parallel_runs):
+                 parallel_runs, tools_runs):
     counts = runs["kernels"]["counts"]
     e2e_k = e2e_runs["kernels"]
     e2e_eval_b = _e2e_cfg().eval.batch_size
     layer_res, layer_rounding = kr["encoder_layer"]
     dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
+    axis_k = tools_runs["axis"]["flash"]
 
     def worst(results, dtype):
         return max(v["err"] for k, v in results.items() if k[0] == dtype)
@@ -4568,6 +5040,15 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                      for run in ("diffusion", "diffusion_numpy",
                                  "vae_diffusion")}
                     if name != "encoder_layer" else None)
+        # phase 14: the drill's run (its evaluated batches and AITS calls),
+        # a trajectory, each ablation arm, a model-axis rank's step
+        tools = ({"drill": tools_runs["drill"]["launches"][name],
+                  "drill_calls": tools_runs["drill"]["calls"],
+                  "tsne": tools_runs["tsne"]["launches"][name],
+                  "ablation": {str(n): r["launches"][name] for n, r in
+                               tools_runs["ablation"].items()},
+                  "model_axis_step": tools_runs["axis"]["counts"][name]}
+                 if name != "encoder_layer" else None)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst(results, key[0]), **arm(results[key]),
@@ -4582,6 +5063,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                 "e2e_launches": e2e,
                 "output_demo_launches": output,
                 "parallel_train_launches_a_step": parallel,
+                "tools_launches": tools,
                 **extra}
 
     return {"kernels": [
@@ -4638,7 +5120,12 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                     "e2e_dh16_"),
               **arm(e2e_k["flash_attention"][("bf16", ("e2e decode self",
                                                        e2e_eval_b))],
-                    "e2e_dh16_bf16_")),
+                    "e2e_dh16_bf16_"),
+              # a model-axis rank's denoiser self-attention (half the heads)
+              **arm(axis_k[("f32", (AXIS_FLASH_CASE[0], AXIS_B))],
+                    "model_axis_"),
+              **arm(axis_k[("bf16", (AXIS_FLASH_CASE[0], AXIS_B))],
+                    "model_axis_bf16_")),
     ]}
 
 
@@ -4680,11 +5167,15 @@ def main():
     parallel_runs = phase_parallel(torch, smi)
     log(f"[time] data parallelism and loader: "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tools_runs = phase_tools(torch, smi)
+    log(f"[time] released-checkpoint path and tools: "
+        f"{time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
                                 runs["kernels"]["prompt_len"], train_runs,
                                 eval_runs, a2m_runs, mode_runs,
                                 option_runs, e2e_runs, output_runs,
-                                parallel_runs)))
+                                parallel_runs, tools_runs)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

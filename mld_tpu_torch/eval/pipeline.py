@@ -44,7 +44,7 @@ from __future__ import annotations
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Iterable, Mapping, Optional
+from typing import Dict, Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -484,12 +484,16 @@ class Evaluator:
     def run(self, generator: Optional[torch.Generator] = None,
             replication_times: Optional[int] = None,
             stage: str = "diffusion", with_mm: bool = True,
-            prediction_sink=None) -> Dict[str, float]:
+            prediction_sink=None,
+            draws: Optional[Sequence[Iterable[Mapping]]] = None
+            ) -> Dict[str, float]:
         """The test protocol: `replication_times` passes over the test split
         (default ``cfg.test.replication_times``), each with its
         MultiModality pass, reported as mean and "<metric>/conf95" (1.96
         std / sqrt(N)). `prediction_sink` sees the first replication's main
-        pass."""
+        pass. `draws`, one iterable of batch draws a replication, replaces
+        the main passes' draws from `generator` (``run_split``'s
+        `draws`)."""
         cfg = self.cfg
         replication_times = replication_times or cfg.test.replication_times
         if generator is None:
@@ -514,7 +518,8 @@ class Evaluator:
             res = self.run_split(loader, stage=stage,
                                  metrics=tuple(cfg.eval.metrics),
                                  generator=generator, compute_rng=rep_rng,
-                                 prediction_sink=sink)
+                                 prediction_sink=sink,
+                                 draws=None if draws is None else draws[rep])
             if with_mm and "TM2TMetrics" in cfg.eval.metrics:
                 self.dm.mm_mode(True, cfg.eval.mm_num_samples, rng=rep_rng)
                 try:

@@ -4,7 +4,9 @@
 Module names are HuggingFace's ``CLIPTextModelWithProjection``
 (``text_model.embeddings.token_embedding``, ``text_model.encoder.layers.N.
 self_attn.q_proj``, ``...mlp.fc1``, ``text_model.final_layer_norm``,
-``text_projection``), so an HF CLIP state_dict loads as it is.
+``text_projection``), so an HF CLIP state_dict loads as it is:
+``load_hf_clip_weights`` reads a local HF clone's weights (the drill's
+hydration, ``scripts/parity_drill.py``), as the JAX package's does.
 
 The tower computes in ``compute_dtype`` (bf16 in the serving preset) while its
 output is f32; softmax and LayerNorm statistics are f32. Its parameters are
@@ -162,6 +164,56 @@ class ClipTextModel(nn.Module):
         if mode == "pooled":
             return pooled
         return self.text_projection(pooled)
+
+
+# ------------------------------------------------------------------ weights
+HF_CLIP_FILES = ("model.safetensors", "pytorch_model.bin")
+# what an HF CLIPModel holds beside the text tower, and the position-id
+# buffer HF keeps in the tower's embeddings
+_NOT_TOWER = ("vision_model.", "visual_projection.", "logit_scale",
+              "text_model.embeddings.position_ids")
+
+
+def hf_text_tower_state(state) -> dict:
+    """An HF CLIPModel / CLIPTextModel(WithProjection) state dict -> the
+    tower's, in ``ClipTextModel``'s names: a leading ``model.`` stripped
+    (``convert_hf_clip_text`` strips ``model.text_model.``,
+    ``mld_tpu/models/clip_text.py:171-173``), the vision tower, its
+    projection, ``logit_scale`` and the ``position_ids`` buffer dropped."""
+    out = {}
+    for key, val in state.items():
+        k = key[len("model."):] if key.startswith("model.") else key
+        if not k.startswith(_NOT_TOWER):
+            out[k] = val
+    return out
+
+
+def load_hf_clip_weights(modelpath: str,
+                         tower: Optional[nn.Module] = None) -> dict:
+    """The text tower's state dict from a local HF CLIP clone's
+    ``model.safetensors`` (read by ``utils/safetensors.py``) or
+    ``pytorch_model.bin`` (weights only), loaded strictly into `tower` when
+    one is given. Raises when the clone has neither file or no text-tower
+    weights: the raising variant of the JAX package's loader
+    (``mld_tpu/models/clip_text.py:275-295``), for where a silent random
+    tower would invalidate the result."""
+    for name in HF_CLIP_FILES:
+        path = os.path.join(modelpath, name)
+        if not os.path.exists(path):
+            continue
+        if name.endswith(".bin"):
+            raw = torch.load(path, map_location="cpu", weights_only=True)
+        else:
+            from mld_tpu_torch.utils.safetensors import load_file
+            raw = load_file(path)
+        state = hf_text_tower_state(raw)
+        if "text_model.embeddings.token_embedding.weight" not in state:
+            raise ValueError(f"{path} has no CLIP text-tower weights")
+        if tower is not None:
+            tower.load_state_dict(state, strict=True)
+        return state
+    raise FileNotFoundError(f"no {' / '.join(HF_CLIP_FILES)} under "
+                            f"{modelpath}")
 
 
 # ------------------------------------------------------------------ tokenizer

@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, work
 from .dropout import dropout
 
 NEG_INF = -1e9
@@ -137,6 +137,7 @@ def _flash_launch(q, k, v, key_valid):
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     FLASH_LAUNCHES += 1
+    work.add("flash_attention", work.dense_attention_flops(q, k))
     return out
 
 
@@ -245,6 +246,7 @@ def _flash_causal_launch(q, k, v, sm_scale):
         raise RuntimeError(f"causal-attention kernel launch failed: "
                            f"cudaError {err}")
     LAUNCHES += 1
+    work.add("flash_causal", work.dense_attention_flops(q, k))
     return out
 
 

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, work
 
 MAX_S = 8            # short-sequence regime; the latent denoiser has S=3
 MAX_TILE_ROWS = 32   # rows (sequences x S) a tile holds: two m16 tiles
@@ -310,6 +310,8 @@ def skip_encoder_stack(x: torch.Tensor, stacked: StackedSkipEncoder,
         raise ValueError(f"no skip-encoder kernel for device {x.device}")
     out = _launch(x, stacked, n_block, num_heads)
     LAUNCHES += 1
+    work.add("skip_encoder", work.encoder_flops(
+        x.shape[0], x.shape[1], x.shape[2], stacked.w1.shape[-1], n_block))
     return out
 
 
@@ -334,4 +336,6 @@ def fused_encoder_layer(x: torch.Tensor, layer,
         raise ValueError(f"no encoder-layer kernel for device {x.device}")
     out = _launch(x, stacked, 0, H)
     LAYER_LAUNCHES += 1
+    work.add("encoder_layer", work.encoder_flops(
+        x.shape[0], x.shape[1], x.shape[2], stacked.w1.shape[-1], 0))
     return out

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, work
 from .attention import NEG_INF
 from .fused_layer import (_layer_norm, _mm, stack_matrices,
                           stack_skip_linears, stack_vectors)
@@ -372,6 +372,8 @@ def skip_decoder_stack(tgt: torch.Tensor, mem: torch.Tensor,
                            f"cudaError {err}")
     LAUNCHES += 1
     KERNELS += launched.value
+    work.add("skip_decoder", work.decoder_plain_flops(B, T, M, D, F_,
+                                                      n_block))
     return out
 
 

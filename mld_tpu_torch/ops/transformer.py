@@ -43,6 +43,7 @@ from torch import nn
 
 from .attention import sdpa
 from .dropout import dropout as _dropout
+from .dropout import sharded
 
 FLAX_LN_EPS = 1e-6
 
@@ -89,7 +90,12 @@ class LayerNorm(nn.LayerNorm):
 
 
 class MultiheadAttention(nn.Module):
-    """Packed-QKV multi-head attention with torch MHA's parameter names."""
+    """Packed-QKV multi-head attention with torch MHA's parameter names.
+
+    Its width is the packed projection's rows / 3, and its heads
+    ``num_heads``: a model axis keeps a rank's heads' rows and sets the
+    heads it holds (``parallel/partition.py``), whose subclass replaces
+    ``_inputs``."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -99,9 +105,13 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = Linear(d_model, d_model)
 
+    def _inputs(self, query, key, value):
+        return query, key, value
+
     def forward(self, query, key, value, key_valid=None, generator=None):
-        d = query.shape[-1]
+        d = self.in_proj_weight.shape[0] // 3
         self_attn = query is key and key is value
+        query, key, value = self._inputs(query, key, value)
         query, w, b = _promoted(query, self.in_proj_weight, self.in_proj_bias)
         key, value = key.to(w.dtype), value.to(w.dtype)
         if self_attn:
@@ -117,7 +127,8 @@ class MultiheadAttention(nn.Module):
             return t.reshape(B, t.shape[1], H, d // H).transpose(1, 2)
 
         out = sdpa(split(q), split(k), split(v), key_valid,
-                   self.dropout if generator is not None else 0.0, generator)
+                   self.dropout if generator is not None else 0.0,
+                   sharded(generator))
         return self.out_proj(out.transpose(1, 2).reshape(B, Sq, d))
 
 
@@ -142,7 +153,10 @@ class TransformerEncoderLayer(nn.Module):
             return _dropout(x, self.dropout, generator)
 
         def ffn(x):
-            return drop(self.linear2(drop(self.activation(self.linear1(x)))))
+            # the hidden is what a model axis shards (its own masks)
+            h = _dropout(self.activation(self.linear1(x)), self.dropout,
+                         sharded(generator))
+            return drop(self.linear2(h))
 
         if self.normalize_before:
             x = self.norm1(src)
@@ -178,7 +192,10 @@ class TransformerDecoderLayer(nn.Module):
             return _dropout(x, self.dropout, generator)
 
         def ffn(x):
-            return drop(self.linear2(drop(self.activation(self.linear1(x)))))
+            # the hidden is what a model axis shards (its own masks)
+            h = _dropout(self.activation(self.linear1(x)), self.dropout,
+                         sharded(generator))
+            return drop(self.linear2(h))
 
         if self.normalize_before:
             x = self.norm1(tgt)

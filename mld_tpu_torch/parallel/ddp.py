@@ -220,14 +220,14 @@ def rank_generator(seed: int, rank_: int, device) -> torch.Generator:
 
 
 # ------------------------------------------------------------- collectives
-def _flat_collective(tensors: List[torch.Tensor], op):
+def _flat_collective(tensors: List[torch.Tensor], op, group=None):
     """op(flat) on one flat buffer of `tensors` (one dtype), written back.
-    gloo takes the buffer through the host."""
+    gloo (the backend of `group`) takes the buffer through the host."""
     if not tensors:
         return
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
     staged = flat.cpu() if (flat.is_cuda and
-                            dist.get_backend() == "gloo") else flat
+                            dist.get_backend(group) == "gloo") else flat
     op(staged)
     if staged is not flat:
         flat.copy_(staged)
@@ -239,35 +239,42 @@ def _flat_collective(tensors: List[torch.Tensor], op):
             offset += n
 
 
-def all_reduce_grads(grads: Iterable[torch.Tensor]):
-    """Replace each gradient by its mean over the ranks: one flat buffer,
-    one all_reduce (sum), divided by the world size."""
-    if not is_initialized():
-        return
-    world = world_size()
+def _mean_op(group):
+    n = dist.get_world_size(group)
 
     def op(flat):
-        dist.all_reduce(flat)
-        flat.div_(world)
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
 
-    _flat_collective(list(grads), op)
+    return op
 
 
-def all_reduce_mean(values: Mapping[str, torch.Tensor]
+def all_reduce_grads(grads: Iterable[torch.Tensor], group=None):
+    """Replace each gradient by its mean over the ranks of `group` (default
+    the world; under a model axis the data group,
+    ``parallel/partition.py``): one flat buffer, one all_reduce (sum),
+    divided by the group's size."""
+    if not is_initialized():
+        return
+    _flat_collective(list(grads), _mean_op(group), group)
+
+
+def all_reduce_mean(values: Mapping[str, torch.Tensor], group=None
                     ) -> Dict[str, torch.Tensor]:
-    """Scalars averaged over the ranks (one all_reduce)."""
+    """Scalars averaged over the ranks of `group` (one all_reduce)."""
     if not is_initialized() or not values:
         return dict(values)
     keys = list(values)
     stacked = torch.stack([values[k].detach().float() for k in keys])
-    world = world_size()
-
-    def op(flat):
-        dist.all_reduce(flat)
-        flat.div_(world)
-
-    _flat_collective([stacked], op)
+    _flat_collective([stacked], _mean_op(group), group)
     return dict(zip(keys, stacked.unbind()))
+
+
+def all_reduce_sum(t: torch.Tensor, group=None):
+    """`t` replaced in place by its sum over the ranks of `group`."""
+    if is_initialized():
+        _flat_collective([t], lambda flat: dist.all_reduce(flat, group=group),
+                         group)
 
 
 def broadcast_module(module: torch.nn.Module, src: int = 0):

@@ -197,6 +197,10 @@ def create_train_state(mld, stage: str, optimizer=None,
     the rest (lr from the config, or `schedule`'s: ``make_optimizer``)."""
     check_trainable(mld.cfg.model)
     tops = trainable_modules(mld, stage)
+    if getattr(mld, "model_axis", None) is not None and tops != ("denoiser",):
+        raise NotImplementedError(
+            f"a model axis shards the denoiser only; stage {stage} trains "
+            f"{tops}")
     params = {}
     for name, p in mld.named_parameters():
         train = name.split(".", 1)[0] in tops
@@ -312,6 +316,8 @@ def _segment(mld, top: str, fn, generator, *args):
 
     if not (mld.cfg.train.remat and torch.is_grad_enabled()):
         return run(generator, *args)
+    if getattr(mld, "model_axis", None) is not None:
+        raise NotImplementedError("train.remat under a model axis")
     start = generator.get_state() if generator is not None else None
     calls = []
 
@@ -469,14 +475,26 @@ STAGE_LOSSES: Dict[str, Callable] = {"vae": vae_loss,
 
 
 # ---------------------------------------------------------------------- steps
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+def _squares(tensors: List[torch.Tensor]) -> torch.Tensor:
+    return torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64) ** 2
+                        for t in tensors]).sum()
+
+
+def global_norm(tensors: List[torch.Tensor], shards: List[torch.Tensor] = (),
+                group=None) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum of squares over every element.
     The sum accumulates in f64 (torch's f32 norm of a 3M-element leaf drifts
     by up to 8e-5 relative on the CPU, where optax's sum holds 1e-6) and is
     rounded to f32 before the root, so that, as optax's f32 sum, it
-    overflows to inf past the f32 range."""
-    sq = torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64) ** 2
-                      for t in tensors]).sum()
+    overflows to inf past the f32 range. Under a model axis `shards` are
+    this rank's parts of the leaves the axis shards, whose squares are
+    summed over the model `group`; `tensors` (the replicated leaves) count
+    once."""
+    sq = _squares(list(tensors))
+    if shards:
+        part = _squares(list(shards))
+        ddp.all_reduce_sum(part, group)
+        sq = sq + part
     return torch.sqrt(sq.float())
 
 
@@ -502,9 +520,18 @@ def compute_grads(state: TrainState, batch, generator=None, draws=None,
             p.grad = torch.zeros_like(p)
     grads = {k: p.grad for k, p in state.params.items()}
     logs = {k: v.detach() for k, v in logs.items()}
-    ddp.all_reduce_grads(grads.values())
-    logs = ddp.all_reduce_mean(logs)
-    logs["grad_norm"] = global_norm(list(grads.values()))
+    # under a model axis the data-parallel mean is over the data group and
+    # the norm sums the sharded leaves' squares over the model group
+    axis = getattr(state.mld, "model_axis", None)
+    data_group, model_group = ((None, None) if axis is None
+                               else (axis.data_group, axis.model_group))
+    ddp.all_reduce_grads(grads.values(), data_group)
+    logs = ddp.all_reduce_mean(logs, data_group)
+    split = {k: bool(getattr(p, "model_shard", None))
+             for k, p in state.params.items()}
+    logs["grad_norm"] = global_norm(
+        [g for k, g in grads.items() if not split[k]],
+        [g for k, g in grads.items() if split[k]], model_group)
     return logs, grads
 
 
