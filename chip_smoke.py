@@ -2,6 +2,11 @@
 """Drive the PyTorch port (mld_tpu_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py precision --out DIR
+
+The second form runs phases 1-2, 11's workdir and 15 alone, then the
+uncut precision study (all of JAX's arms), its decision and the training
+study's three arms on that workdir, and writes their reports into DIR.
 
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: require CUDA; print the nvidia-smi name/power-limit line and the
@@ -176,8 +181,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      24, K3 18 a replication; 6 npys [len, 22, 3] each), --task action
      (mld_humanact12, two ids: K1 50, K3 18), random_sampling (K3 18) and
      reconstruction of a seeded feature npy (K3 27); python -m
-     mld_tpu_torch.fit --mesh on the six motions of the first replication
-     (300 Adam steps, the 25-step polish, the GMM prior; MPJPE, Adam and
+     mld_tpu_torch.fit --mesh on the first replication's shortest and
+     longest motions (300 Adam steps, the 25-step polish, the GMM prior; MPJPE, Adam and
      polish seconds, ms a frame), --ply on the shortest; the 196-frame
      motion's Adam phase and polish traced (device busy against the
      untraced phase, device events a step) and fitted again on the CPU,
@@ -233,7 +238,26 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      relative, params 2e-4, grad_norm 2e-4, reassembled gradients 1e-4 of
      each leaf's largest |g|), the residual stream bit-identical on both
      model ranks under dropout 0.1, and K3 at a rank's [64, 2, 3, 64];
- 15. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+ 15. the serving-precision path (MLD_TPU_MATMUL_PRECISION and
+     MLD_TPU_STAGE_PRECISION, utils/precision.py): mld_humanml3d at full
+     width, B=128, under highest, high, default, scan=default,
+     decode=default and gen_fast, and under fused_decode highest and
+     default: ms a call (median of 3), each stage's ms, K1 and K5 launches
+     by weight dtype against what the arm's settings derive, the distance
+     from highest's joints (recorded), and each arm card vs CPU at the same
+     setting on 2 prompts stage by stage (1e-3 x max(scale, 1), or 3x the
+     CPU's own change with every GEMM summed in reverse order; each
+     reduced GEMM of the stage replayed from its operands within 1e-5 of
+     scale; K1's and K5's stacks bit for bit; highest's joints end to end
+     at 1e-3), and a planted bf16 rounding of every reduced GEMM's result
+     that must miss a bar; hidden mode and raw
+     motion (DDPM-50) under highest and default and one [25088, 256] x
+     [256, 1024] GEMM under each setting (ms, TFLOP/s; recorded); the
+     evaluators' embeddings bit-identical under default; precision_study
+     on phase 11's workdir (9 arms, 5 at a time), precision_decide, and
+     train_precision_study (highest, default) at phase 11's budgets;
+     profile_serving of the scan at B=128, top 10;
+ 16. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
@@ -752,11 +776,17 @@ def check_skip_encoder_a2m(torch, g):
 
 def check_encoder_layer(torch, layer, g):
     """K2 (K1's entry at n_block = 0) vs the plain stack at n_block = 0,
-    and the bf16 rounding of that one layer."""
+    and the bf16 rounding of that one layer. The one PyTorch call that
+    computes the f32 layer, nn.TransformerEncoderLayer in eval mode (its
+    fused fast path) at the kernel's eps, is timed at 256 sequences."""
     from mld_tpu_torch.ops import fused_layer
     from mld_tpu_torch.ops.fused_layer import (fused_encoder_layer,
                                                skip_encoder_stack_plain,
                                                stack_encoder_layer)
+    lib = torch.nn.TransformerEncoderLayer(
+        D, H, FF, activation="gelu", layer_norm_eps=fused_layer.LN_EPS,
+        batch_first=True, device=DEVICE).eval()
+    lib.load_state_dict(layer.state_dict())
     res = {}
     for wname, wdt, atol in WEIGHT_ARMS:
         st = stack_encoder_layer(layer, getattr(torch, wdt))
@@ -768,6 +798,8 @@ def check_encoder_layer(torch, layer, g):
                 lambda: skip_encoder_stack_plain(x, st, 0, H),
                 atol, f"{wname} seqs={n}",
                 lambda: fused_layer.LAYER_LAUNCHES,
+                library=(lambda: lib(x)) if (wname, n) == ("f32", 2 * B_LARGE)
+                else None,
                 work=_encoder_work(n, 0, st))
     st16 = stack_encoder_layer(layer, torch.bfloat16)
     st32 = stack_encoder_layer(layer)
@@ -3878,30 +3910,33 @@ def _fit_gaps(a, b):
 def output_fit_reference(torch, smpl_path, joints, label, bars, trace):
     """One motion fitted on the card, Adam and polish apart (each traced
     once after the untraced run when `trace`), then the same fit on the
-    CPU, and on the CPU again with the target nudged by OUTPUT_NUDGE of its
-    scale: the card against the CPU (the loss curve, Adam's iterate, the
-    polished joints, MPJPE and the mesh) beside the CPU against its nudged
-    self. The card-vs-CPU gaps `bars` names are held to their limits;
-    "nudge" holds the loss curve, the iterate and the polished joints to
-    OUTPUT_NUDGE_FACTOR times the nudge's."""
+    CPU, and, where `bars` holds "nudge", on the CPU again with the target
+    nudged by OUTPUT_NUDGE of its scale: the card against the CPU (the loss
+    curve, Adam's iterate, the polished joints, MPJPE and the mesh) beside
+    the CPU against its nudged self. The card-vs-CPU gaps `bars` names are
+    held to their limits; "nudge" holds the loss curve, the iterate and the
+    polished joints to OUTPUT_NUDGE_FACTOR times the nudge's."""
     import numpy as np
 
     from mld_tpu_torch.transforms.fitting import BatchedSMPLFitter
-    from mld_tpu_torch.utils.precision import strict_f32
+    from mld_tpu_torch.utils.precision import matmul_precision
 
     kw = dict(num_steps=OUTPUT_FIT_STEPS, polish_steps=OUTPUT_POLISH_STEPS)
     scale = float(np.abs(joints[:, :22]).max())
     nudge = (OUTPUT_NUDGE * scale * np.random.RandomState(SEED + 13).randn(
         *joints[:, :22].shape)).astype(np.float32)
     sides = {}
-    for name, device, shift in (("card", DEVICE, None), ("cpu", "cpu", None),
-                                ("nudged", "cpu", nudge)):
+    # the nudged CPU fit only where its divergence is a bar
+    fits = [("card", DEVICE, None), ("cpu", "cpu", None)]
+    if "nudge" in bars:
+        fits.append(("nudged", "cpu", nudge))
+    for name, device, shift in fits:
         fitter = BatchedSMPLFitter(smpl_path, device=device, **kw)
         if not fitter.prior.available:
             raise RuntimeError("the GMM prior did not load")
         goal = joints[:, :22] if shift is None else joints[:, :22] + shift
         target = torch.as_tensor(goal, device=fitter.device)
-        with strict_f32(), torch.no_grad():
+        with matmul_precision("highest"), torch.no_grad():
             t0 = time.perf_counter()
             params, losses = fitter.adam(target)
             _sync(torch)
@@ -3975,7 +4010,8 @@ def output_fit_reference(torch, smpl_path, joints, label, bars, trace):
     errs = _fit_gaps(card, cpu)
     errs["vertices"] = (float(np.abs(verts["card"] - verts["cpu"]).max())
                         / float(np.abs(verts["cpu"]).max()))
-    nudged = _fit_gaps(cpu, sides["nudged"])
+    nudged = (_fit_gaps(cpu, sides["nudged"]) if "nudged" in sides
+              else None)
     limits = {"loss_first": OUTPUT_LOSS0_RTOL, "loss": OUTPUT_LOSS_RTOL,
               "loss_last": OUTPUT_LOSS_LAST_RTOL,
               "adam_iterate": OUTPUT_PARAM_ATOL,
@@ -3995,10 +4031,11 @@ def output_fit_reference(torch, smpl_path, joints, label, bars, trace):
         + ", ".join(f"{k} {fmt(v)}" + (f" (bar {limits[k]:.3g})"
                                        if k in held else "")
                     for k, v in errs.items()))
-    log(f"[output:fit] {label} CPU vs the CPU with the target moved by "
-        f"{OUTPUT_NUDGE:g} of its scale {scale:.3f} (MPJPE "
-        f"{sides['nudged']['mpjpe']:.5f} m): "
-        + ", ".join(f"{k} {fmt(v)}" for k, v in nudged.items()))
+    if nudged is not None:
+        log(f"[output:fit] {label} CPU vs the CPU with the target moved by "
+            f"{OUTPUT_NUDGE:g} of its scale {scale:.3f} (MPJPE "
+            f"{sides['nudged']['mpjpe']:.5f} m): "
+            + ", ".join(f"{k} {fmt(v)}" for k, v in nudged.items()))
     for k in held:
         if not errs[k] <= limits[k]:
             raise RuntimeError(f"fit {label} card vs CPU: {k} {errs[k]} > "
@@ -4057,7 +4094,8 @@ def output_fbx(npy, npz, ply_dir):
 
 def phase_output(torch, smi):
     """The output path: the demo at full width in each task, the fit of
-    every demo motion (mesh; ply and pkl on the shortest), one fit traced
+    the shortest and the longest demo motion (mesh; ply and pkl on the
+    shortest), one fit traced
     and held against the CPU, and FBX export read back."""
     import numpy as np
 
@@ -4072,10 +4110,12 @@ def phase_output(torch, smi):
     out_dir = os.path.join(OUTPUT_ROOT, "demo")
     runs = {"demo": output_demo(torch, cfgs, out_dir)}
 
-    # the first replication's six motions
+    # the first replication's shortest and longest motions
     demo_dir = os.path.join(out_dir, "text_motion")
     files = runs["demo"]["text_motion"]["files"]
-    files = files[: len(files) // OUTPUT_REPS]
+    frames = {f: len(np.load(f, mmap_mode="r"))
+              for f in files[: len(files) // OUTPUT_REPS]}
+    files = [min(frames, key=frames.get), max(frames, key=frames.get)]
     t0 = time.perf_counter()
     rows = fit.main(["--files", *files, "--smpl", smpl_path, "--mesh",
                      "--steps", str(OUTPUT_FIT_STEPS), "--device", DEVICE])
@@ -4974,9 +5014,698 @@ def phase_tools(torch, smi):
     return runs
 
 
+# ---------------------------------------- 15. the serving-precision path
+# MLD_TPU_MATMUL_PRECISION / MLD_TPU_STAGE_PRECISION on the main path at
+# full width, B=128 (label, session precision, stage overlay): the default
+# configuration's arms, then the fused decode's
+PREC_VARS = ("MLD_TPU_MATMUL_PRECISION", "MLD_TPU_STAGE_PRECISION")
+PREC_ARMS = (("highest", "highest", ""), ("high", "high", ""),
+             ("default", "default", ""),
+             ("scan=default", "highest", "scan=default"),
+             ("decode=default", "highest", "decode=default"),
+             ("gen_fast", "highest", "clip=default,scan=default,decode=high"))
+PREC_FUSED_ARMS = (PREC_ARMS[0], PREC_ARMS[2])
+PREC_ITERS = 3
+PREC_BIND_ITERS = 2
+PREC_REF_PROMPTS = 2
+# what parts the card from the CPU under a reduced arithmetic is the order
+# of its f32 sums: the CPU against itself with every GEMM summed over the
+# contraction in reverse order shows how far that alone carries a stage;
+# card vs CPU may part by PREC_RESUM_FACTOR times that where it exceeds
+# phase 4's bar
+PREC_RESUM_FACTOR = 3.0
+# one GEMM of the VAE decode's FFN at B=128: [196 x 128, 256] x [256, 1024]
+PREC_GEMM = (T_FRAMES * B_LARGE, 256, 1024)
+PREC_GEMM_CHECK_ROWS = 2048
+PREC_GEMM_RTOL = 1e-5
+PREC_RAW_STEPS = 50
+# the study on phase 11's workdir, its arms run PREC_JOBS at a time, beside
+# the training study on a copy of that workdir's corpus and evaluators
+PREC_STUDY_ARMS = ("highest", "default", "clip_bf16", "scan_bf16",
+                   "decode_bf16", "gen_fast", "gen_bf16", "noise_seed8",
+                   "noise_seed9")
+PREC_TRAIN_ARMS = ("highest", "default")
+PREC_JOBS = 5
+PREC_PROFILE = ("--stage", "scan", "--batch", str(B_LARGE), "--top", "10")
+PREC_ROOT = os.path.join(REPO, "build", "precision_smoke")
+# model overrides of the phase's configs (none: the presets' full width)
+PREC_MODEL = {}
+
+
+@contextlib.contextmanager
+def _precision_env(prec, spec=""):
+    """The two variables set for the body (the port reads them when a call
+    is made), the caller's restored after."""
+    with _env(**{PREC_VARS[0]: prec, PREC_VARS[1]: spec or None}):
+        yield
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables set (None: unset) for the body, the caller's
+    restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+
+    def put(vals):
+        for k, v in vals.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    put(values)
+    try:
+        yield
+    finally:
+        put(saved)
+
+
+def _bf16_counts(reset=False):
+    """K1's and K5's launches on bf16 weights (read, or set to 0)."""
+    from mld_tpu_torch.ops import fused_layer, fused_seq_decoder
+    mods = {"skip_encoder": fused_layer, "skip_decoder": fused_seq_decoder}
+    if reset:
+        for mod in mods.values():
+            mod.BF16_LAUNCHES = 0
+    return {k: mod.BF16_LAUNCHES for k, mod in mods.items()}
+
+
+def _stage_settings():
+    """The setting each serving stage takes under the variables in force,
+    and the weight dtype K1 (scan) and K5 (decode) pick there."""
+    from mld_tpu_torch.utils import precision
+
+    out = {}
+    for stage in precision.STAGES:
+        with precision.stage_precision(stage):
+            out[stage] = (precision.current(), precision.weight_dtype())
+    return out
+
+
+def prec_arm(torch, mld, label, prec, spec, ids, mask, init, z, base, smi):
+    """One arm at B=128: a generate_joints call with its launches (K1 and
+    K5 by weight dtype) against what the arm's settings derive, ms a call
+    (median of PREC_ITERS warm calls), each stage's ms and the distance of
+    its joints from `base` (highest's)."""
+    from mld_tpu_torch.ops.fused_seq_decoder import launch_count
+
+    n_steps = len(mld.scheduler.timesteps())
+    with _precision_env(prec, spec):
+        st = _stage_settings()
+        bf_scan = st["scan"][1] == torch.bfloat16
+        bf_dec = st["decode"][1] == torch.bfloat16
+        fused = int(mld.fused_decode)
+        want = {"skip_encoder": n_steps, "skip_decoder": fused,
+                "skip_decoder_kernels": fused * launch_count(
+                    N_BLOCK, mld.latent_size),
+                "flash_causal": 2 * mld.cfg.model.clip_layers,
+                "flash_attention": 0 if fused
+                else 2 * mld.cfg.model.num_layers}
+        want_bf16 = {"skip_encoder": n_steps * bf_scan,
+                     "skip_decoder": fused * bf_dec}
+        _reset_counts()
+        _bf16_counts(reset=True)
+        joints = mld.generate_joints(ids, mask, init_latents=init)
+        _sync(torch)
+        counts, bf16 = _read_counts(), _bf16_counts()
+        _check_counts(counts, want, f"precision {label}")
+        _check_counts(bf16, want_bf16, f"precision {label} bf16 weights")
+        _check_joints(torch, joints, mask,
+                      (B_LARGE, mld.max_frames, mld.njoints, 3))
+        times = []
+        for _ in range(PREC_ITERS):
+            t0 = time.perf_counter()
+            mld.generate_joints(ids, mask, init_latents=init)
+            _sync(torch)
+            times.append(time.perf_counter() - t0)
+        cond = mld.condition_embedding(ids)
+        stage_ms = {
+            "clip": _time_ms(torch, lambda: mld.encode_text_tokens(ids), 5, 1),
+            "scan": _time_ms(torch, lambda: mld.diffusion_reverse(
+                cond, init_latents=init), 2, 1),
+            "decode": _time_ms(torch, lambda: mld.decode_latent(z, mask), 5,
+                               1)}
+    ms = statistics.median(times) * 1e3
+    dist = None if base is None else (joints - base).abs().max().item()
+    launches = {k: (v, bf16.get(k)) for k, v in counts.items()}
+    log(f"[precision:{label}] fused_decode={mld.fused_decode} MLD_TPU_MATMUL_"
+        f"PRECISION={prec} MLD_TPU_STAGE_PRECISION='{spec}': stages "
+        f"{ {s: v[0] for s, v in st.items()} }; generate_joints B={B_LARGE} "
+        f"{ms:.3f} ms a call (median of {PREC_ITERS}; "
+        f"{B_LARGE / ms * 1e3:.1f} motions/s), text tower "
+        f"{stage_ms['clip']:.4f} ms, DDIM-{n_steps} loop "
+        f"{stage_ms['scan']:.3f} ms, VAE decode {stage_ms['decode']:.4f} ms;"
+        f" K1 {counts['skip_encoder']} ({bf16['skip_encoder']} on bf16 "
+        f"weights), K5 {counts['skip_decoder']} ({bf16['skip_decoder']} bf16),"
+        f" K4 {counts['flash_causal']}, K3 {counts['flash_attention']}; "
+        f"max |joints - highest's| "
+        f"{'-' if dist is None else f'{dist:.3e}'} (recorded, no bar); {smi}")
+    return joints, {"ms": ms, "stage_ms": stage_ms, "launches": counts,
+                    "bf16_launches": bf16, "settings": {
+                        s: v[0] for s, v in st.items()},
+                    "dist_from_highest": dist, "precision": prec,
+                    "stage_precision": spec}
+
+
+@contextlib.contextmanager
+def _cpu_resummed():
+    """The CPU's GEMMs in a reduced arithmetic (``precision._mm``) and the
+    plain versions' of K1 and K5 (``fused_layer._mm``) summed over the
+    contraction in reverse order: the same products, added in another
+    order, as the card adds them in its own."""
+    from mld_tpu_torch.ops import fused_layer, fused_seq_decoder
+    from mld_tpu_torch.utils import precision
+
+    mm, plain = precision._mm, fused_layer._mm
+
+    def reversed_sum(fn):
+        def run(a, b, *mode):
+            if a.device.type != "cpu":
+                return fn(a, b, *mode)
+            return fn(a.flip(-1), b.flip(-2), *mode)
+        return run
+
+    precision._mm = reversed_sum(mm)
+    fused_layer._mm = fused_seq_decoder._mm = reversed_sum(plain)
+    try:
+        yield
+    finally:
+        precision._mm = mm
+        fused_layer._mm = fused_seq_decoder._mm = plain
+
+
+@contextlib.contextmanager
+def _card_gemms(fault=False):
+    """Every GEMM the port runs on the card in a reduced arithmetic during
+    the body (``precision._mm``: its operands, arithmetic and result), in
+    order. With `fault` each of those results is rounded to bf16 on the
+    way out: the extra rounding an autocast would add, planted to show
+    that the reference's bars see it."""
+    from mld_tpu_torch.utils import precision
+
+    import torch
+
+    mm, calls, card = precision._mm, [], torch.device(DEVICE).type
+
+    def logged(a, b, mode):
+        y = mm(a, b, mode)
+        if y.device.type == card:
+            if fault:
+                y = y.bfloat16().float()
+            calls.append((a.detach().clone(), b.detach().clone(), mode,
+                          y.detach().clone()))
+        return y
+
+    precision._mm = logged
+    try:
+        yield calls
+    finally:
+        precision._mm = mm
+
+
+def _replay_gemms(calls):
+    """The card's logged GEMMs against the plain version of each on its own
+    operands: the worst error relative to that GEMM's scale, the
+    arithmetics seen and the count."""
+    from mld_tpu_torch.utils import precision
+
+    worst = 0.0
+    for a, b, mode, y in calls:
+        want = precision._mm(a.cpu(), b.cpu(), mode)
+        worst = max(worst, ((y.cpu() - want).abs().max()
+                            / want.abs().max()).item())
+    return {"gemm_err": worst, "gemms": len(calls),
+            "arithmetic": sorted({c[2] for c in calls})}
+
+
+REF_STAGES = (("cond", "clip"), ("latents", "scan"), ("feats", "decode"))
+
+
+def _ref_setup(torch, cfg, kw, texts, lengths):
+    """The reference's card and CPU models (same weights, f32 text tower
+    on both) and its fixed inputs: PREC_REF_PROMPTS prompts, the initial
+    noise, and highest's CPU condition and latents (the scan's and the
+    decode's inputs)."""
+    from mld_tpu_torch.config.core import (config_from_dict, config_to_dict,
+                                           merge_dicts)
+    from mld_tpu_torch.models.mld import MLD, lengths_to_mask
+
+    cfg32 = config_from_dict(merge_dicts(
+        config_to_dict(cfg), {"model": {"clip_compute_dtype": "float32"}}))
+    n = PREC_REF_PROMPTS
+    models = {dev: MLD(cfg32, device=dev, fused_denoiser=True,
+                       generator=torch.Generator().manual_seed(SEED), **kw)
+              for dev in ("cpu", DEVICE)}
+    ctx = {"card": models[DEVICE], "cpu": models["cpu"],
+           "ids": {dev: m.tokenize(texts[:n]) for dev, m in models.items()},
+           "masks": {dev: lengths_to_mask(lengths[:n], m.max_frames,
+                                          m.device)
+                     for dev, m in models.items()},
+           "init": torch.randn(n, cfg.model.latent_size,
+                               cfg.model.latent_dim,
+                               generator=torch.Generator().manual_seed(
+                                   SEED + 3))}
+    with _precision_env("highest"), torch.no_grad():
+        cond0 = ctx["cpu"].condition_embedding(ctx["ids"]["cpu"])
+        ctx["cond0"] = cond0
+        ctx["lat0"] = ctx["cpu"].diffusion_reverse(cond0,
+                                                   init_latents=ctx["init"])
+    return ctx
+
+
+def _ref_stages(ctx, m, dev, calls=None, keys=("cond", "latents", "feats")):
+    """The stages `keys` on `m` from the fixed inputs (the ids, highest's
+    CPU condition, highest's CPU latents), with the card's GEMMs of each
+    stage sliced out of `calls` where given."""
+    ids, init, mask = ctx["ids"][dev], ctx["init"], ctx["masks"][dev]
+    runs = (("cond", lambda: m.condition_embedding(ids)),
+            ("latents", lambda: m.diffusion_reverse(
+                ctx["cond0"].to(m.device), init_latents=init)),
+            ("feats", lambda: m.decode_latent(ctx["lat0"].to(m.device),
+                                              mask)))
+    out, gemms = {}, {}
+    for k, fn in runs:
+        if k not in keys:
+            continue
+        first = len(calls) if calls is not None else 0
+        out[k] = fn()
+        if calls is not None:
+            gemms[k] = calls[first:]
+    return out, gemms
+
+
+def _ref_arm(torch, ctx, prec, spec, fault=False):
+    """One arm's reference: the stages on the card and on the CPU at the
+    same setting, the CPU again with its sums reversed
+    (`_cpu_resummed`), the card's reduced GEMMs of each stage replayed on
+    the CPU, and the stacks K1 (and K5 under fused decode) read, card
+    against CPU. Returns the records by stage, the settings, the card's
+    and the CPU's outputs and the bars missed."""
+    from mld_tpu_torch.utils import precision
+
+    card, cpu = ctx["card"], ctx["cpu"]
+    with _precision_env(prec, spec), torch.no_grad():
+        settings = {s: v[0] for s, v in _stage_settings().items()}
+        want, _ = _ref_stages(ctx, cpu, "cpu")
+        # in f32 another summation order flips no rounding: phase 4's bar
+        reduced = [k for k, stage in REF_STAGES
+                   if precision.ARITHMETIC[settings[stage]] != "f32"]
+        with _cpu_resummed():
+            resum, _ = _ref_stages(ctx, cpu, "cpu", keys=reduced)
+        with _card_gemms(fault) as calls:
+            got, gemms = _ref_stages(ctx, card, DEVICE, calls)
+        with precision.stage_precision("scan"):
+            stacks = [(card.denoiser.stacked_encoder(),
+                       cpu.denoiser.stacked_encoder())]
+        if card.fused_decode:
+            with precision.stage_precision("decode"):
+                stacks.append((card.vae.stacked_decoder(),
+                               cpu.vae.stacked_decoder()))
+    same_stacks = all(torch.equal(a.cpu(), b)
+                      for st_card, st_cpu in stacks
+                      for a, b in zip(st_card, st_cpu))
+    rec, bad = {}, [] if same_stacks else ["K1 / K5 stacks"]
+    for k, stage in REF_STAGES:
+        scale = want[k].abs().max().item()
+        r = {"err": (got[k].cpu() - want[k]).abs().max().item(),
+             "scale": scale, **_replay_gemms(gemms[k])}
+        r["bar"] = E2E_RTOL * max(scale, 1.0)
+        if k in resum:
+            r["resum"] = (resum[k] - want[k]).abs().max().item()
+            r["bar"] = max(r["bar"], PREC_RESUM_FACTOR * r["resum"])
+        arith = precision.ARITHMETIC[settings[stage]]
+        if not r["err"] <= r["bar"]:
+            bad.append(f"{k} card vs CPU")
+        if not r["gemm_err"] <= PREC_GEMM_RTOL:
+            bad.append(f"{k} GEMMs vs their plain versions")
+        if r["arithmetic"] != ([] if arith == "f32" else [arith]):
+            bad.append(f"{k} GEMMs in {r['arithmetic']}, not {arith}")
+        rec[k] = r
+    return rec, settings, got, want, bad, same_stacks
+
+
+def _ref_line(rec):
+    return "; ".join(
+        f"{k} max_abs_err {r['err']:.3e} (scale {r['scale']:.3e}"
+        + (f", the CPU's own sums reversed {r['resum']:.3e}"
+           if "resum" in r else "") + f", bar {r['bar']:.3e}"
+        + (f"; its {r['gemms']} {'/'.join(r['arithmetic'])} GEMMs "
+           f"{r['gemm_err']:.3e} of scale from their plain versions"
+           if r.get("gemms") else "") + ")"
+        for k, r in rec.items())
+
+
+def prec_reference(torch, cfg, kw, arms, texts, lengths, plant):
+    """Each arm on the card (kernels) and on the CPU (plain versions) at
+    the same setting: PREC_REF_PROMPTS prompts, same weights, f32 text
+    tower on both, stage by stage on fixed inputs (the text condition of
+    the ids; the sampling loop's latents from highest's CPU condition and
+    initial noise; the decode's features from highest's CPU latents).
+
+    Each stage is held within E2E_RTOL x max(scale, 1), or, where it is
+    larger, PREC_RESUM_FACTOR times the CPU's change when every GEMM it
+    runs sums its products in reverse order. Another summation order is
+    what parts the card from the CPU: a last-bit difference in an f32
+    result, which under bf16 or TF32 flips an operand's rounding, and the
+    flip grows through the stage (PERF.md, section 6). So that
+    growth cannot hide a fault of the arithmetic, each GEMM the card runs
+    in a reduced arithmetic in the stage is replayed on the CPU from its
+    own operands and held within PREC_GEMM_RTOL of its scale, in the
+    stage's arithmetic; the stacks K1 and K5 read must equal the CPU's
+    bit for bit. The arm must also take effect exactly where it says: a
+    stage at "highest" gives highest's card output bit for bit, any other
+    setting another. highest's joints end to end are held at phase 4's
+    bar.
+
+    With `plant`, the default arm runs again with every reduced GEMM's
+    result on the card rounded to bf16 (`_card_gemms(fault)`), and must
+    miss a bar."""
+    if arms[0][1:] != ("highest", ""):
+        raise ValueError("the reference's first arm must be highest")
+    ctx = _ref_setup(torch, cfg, kw, texts, lengths)
+    card, cpu, masks = ctx["card"], ctx["cpu"], ctx["masks"]
+    errs, base = {}, None
+    for label, prec, spec in arms:
+        rec, settings, got, want, bad, same_stacks = _ref_arm(
+            torch, ctx, prec, spec)
+        if base is None:
+            # highest end to end: each device's own chain (the CPU's
+            # features are its own chain's: decoded from lat0)
+            with _precision_env(prec, spec), torch.no_grad():
+                own = card.decode_latent(card.diffusion_reverse(
+                    got["cond"], init_latents=ctx["init"]), masks[DEVICE])
+                joints = (card.masked_joints(own, masks[DEVICE]).cpu(),
+                          cpu.masked_joints(want["feats"], masks["cpu"]))
+            base = got
+            scale = joints[1].abs().max().item()
+            rec["joints"] = {"err": (joints[0] - joints[1]).abs().max().item(),
+                             "scale": scale,
+                             "bar": E2E_RTOL * max(scale, 1.0)}
+            if not rec["joints"]["err"] <= rec["joints"]["bar"]:
+                bad.append("joints end to end")
+        moved = {k: not torch.equal(got[k], base[k]) for k in got}
+        errs[label] = rec
+        log(f"[precision:reference {label}] fused_decode="
+            f"{bool(kw.get('fused_decode'))}: card vs CPU at "
+            f"MLD_TPU_MATMUL_PRECISION={prec} MLD_TPU_STAGE_PRECISION="
+            f"'{spec}' ({settings}), {PREC_REF_PROMPTS} prompts: "
+            + _ref_line(rec) + f"; K1 / K5 stacks equal to the CPU's "
+            f"{same_stacks}; moved from highest's card output: {moved}")
+        bad += [f"{k} moved is {moved[k]}" for k, stage in REF_STAGES
+                if moved[k] != (settings[stage] != "highest")]
+        if bad:
+            raise RuntimeError(f"precision arm {label}: {bad}")
+    if not plant:
+        return errs
+    label, prec, spec = next(a for a in arms if a[1:] == ("default", ""))
+    rec, _, _, _, bad, _ = _ref_arm(torch, ctx, prec, spec, fault=True)
+    log(f"[precision:reference {label}, planted fault] fused_decode="
+        f"{bool(kw.get('fused_decode'))}: every reduced GEMM's result on "
+        f"the card rounded to bf16: " + _ref_line(rec) + f"; bars missed: "
+        f"{bad}")
+    if not bad:
+        raise RuntimeError("the precision reference did not see a planted "
+                           "bf16 rounding of every reduced GEMM's result")
+    errs["planted fault"] = {**rec, "missed": bad}
+    return errs
+
+
+def prec_main_path(torch, smi, texts, lengths):
+    """PREC_ARMS in the default configuration and PREC_FUSED_ARMS under
+    fused_decode, each at B=128 and against the CPU."""
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.models.mld import MLD, lengths_to_mask
+
+    cfg = load_config(preset="mld_humanml3d",
+                      overrides={"model": dict(PREC_MODEL)})
+    reps = -(-B_LARGE // len(texts))
+    btexts, blengths = (texts * reps)[:B_LARGE], (lengths * reps)[:B_LARGE]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    runs = {}
+    for config, kw, arms in (("default", {}, PREC_ARMS),
+                             ("kernels", {"fused_decode": True},
+                              PREC_FUSED_ARMS)):
+        t0 = time.perf_counter()
+        mld = MLD(cfg, device=DEVICE,
+                  generator=torch.Generator().manual_seed(SEED), **kw)
+        ids = mld.tokenize(btexts)
+        mask = lengths_to_mask(blengths, mld.max_frames, mld.device)
+        init = torch.randn(B_LARGE, mld.latent_size, mld.latent_dim,
+                           device=DEVICE, generator=gen)
+        z = torch.randn(B_LARGE, mld.latent_size, mld.latent_dim,
+                        device=DEVICE, generator=gen)
+        base = None
+        for label, prec, spec in arms:
+            joints, rec = prec_arm(torch, mld, label, prec, spec, ids, mask,
+                                   init, z, base, smi)
+            base = joints if base is None else base
+            runs[f"{config} {label}"] = rec
+        del mld, base, joints
+        torch.cuda.empty_cache()
+        # the planted fault once: the default configuration's GEMMs
+        errs = prec_reference(torch, cfg, kw, arms, texts, lengths,
+                              plant=config == "default")
+        for label, _, _ in arms:
+            runs[f"{config} {label}"]["reference"] = errs[label]
+        if "planted fault" in errs:
+            runs[f"{config} default"]["planted_fault"] = errs["planted fault"]
+        log(f"[time] precision arms {config}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def prec_gemm_bound(torch, smi, texts, lengths):
+    """Where f32 GEMMs bind: hidden mode and raw motion (novae_humanml3d,
+    DDPM cut to PREC_RAW_STEPS) at B=128 under highest and default, and
+    one PREC_GEMM GEMM under each of the three settings (recorded, not
+    claimed), that GEMM held against its plain version within
+    PREC_GEMM_RTOL of scale."""
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.models.mld import MLD, lengths_to_mask
+    from mld_tpu_torch.utils import precision
+
+    out = {}
+    M, K, N = PREC_GEMM
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    a = torch.randn(M, K, device=DEVICE, generator=g)
+    w = torch.randn(N, K, device=DEVICE, generator=g)
+    rows = min(M, PREC_GEMM_CHECK_ROWS)
+    for prec in ("highest", "high", "default"):
+        with precision.matmul_precision(prec):
+            ms = _time_ms(torch, lambda: precision.linear(a, w), 20, 3)
+            # the card's GEMM against its plain version (the operands
+            # rounded on the bits, an f32 product) on the CPU
+            want = precision.linear(a[:rows].cpu(), w.cpu())
+            got = precision.linear(a[:rows], w).cpu()
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        out[f"gemm {prec}"] = {"ms": ms, "tflops": 2 * M * K * N / ms / 1e9,
+                               "rel_err": err}
+        log(f"[precision:gemm] [{M}, {K}] x [{K}, {N}] at {prec} "
+            f"({precision.ARITHMETIC[prec]}): {ms:.4f} ms, "
+            f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s; its first {rows} rows "
+            f"{err:.3e} of scale from the CPU's plain version (bar "
+            f"{PREC_GEMM_RTOL:g}); {smi}")
+        if not err <= PREC_GEMM_RTOL:
+            raise RuntimeError(f"the {prec} GEMM disagrees with its plain "
+                               f"version: {err:.3e} of scale")
+    del a, w
+    reps = -(-B_LARGE // len(texts))
+    btexts, blengths = (texts * reps)[:B_LARGE], (lengths * reps)[:B_LARGE]
+    for label, cfg in (
+            ("hidden", load_config(preset="mld_humanml3d", overrides={
+                "model": {**PREC_MODEL, "clip_last_hidden": True}})),
+            (f"novae DDPM-{PREC_RAW_STEPS}", _cut_config(
+                load_config(preset="novae_humanml3d",
+                            overrides={"model": dict(PREC_MODEL)}),
+                PREC_RAW_STEPS))):
+        mld = MLD(cfg, device=DEVICE,
+                  generator=torch.Generator().manual_seed(SEED))
+        lens = _scaled_lengths(blengths, mld.max_frames)
+        ids = mld.tokenize(btexts)
+        mask = lengths_to_mask(lens, mld.max_frames, mld.device)
+        for prec in ("highest", "default"):
+            with _precision_env(prec):
+                mld.generate_joints(ids, mask, generator=g)
+                times = []
+                for _ in range(PREC_BIND_ITERS):
+                    t0 = time.perf_counter()
+                    mld.generate_joints(ids, mask, generator=g)
+                    _sync(torch)
+                    times.append(time.perf_counter() - t0)
+            ms = statistics.median(times) * 1e3
+            out[f"{label} {prec}"] = {"ms": ms}
+            log(f"[precision:bind] {label} B={B_LARGE} at {prec}: {ms:.3f} "
+                f"ms a call (median of {PREC_BIND_ITERS}); recorded, not "
+                f"claimed; {smi}")
+        del mld
+        torch.cuda.empty_cache()
+    return out
+
+
+def prec_evaluators(torch):
+    """The evaluators' embeddings under session "default" (and a stage
+    overlay) bit-identical to those under "highest", run twice."""
+    from mld_tpu_torch.config import load_config
+    from mld_tpu_torch.eval.pipeline import T2MEvaluatorBundle
+
+    bundle = T2MEvaluatorBundle(load_config(preset="mld_humanml3d"),
+                                device=DEVICE, seed=SEED)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    B = EVAL_B
+    feats = torch.randn(B, T_FRAMES, 263, device=DEVICE, generator=g)
+    words = torch.randn(B, 20, 300, device=DEVICE, generator=g)
+    pos = torch.rand(B, 20, 15, device=DEVICE, generator=g)
+    lens = torch.randint(4, 21, (B,), device=DEVICE, generator=g)
+    m_lens = torch.randint(10, T_FRAMES // 4 + 1, (B,), device=DEVICE,
+                           generator=g)
+
+    def run(prec, spec=""):
+        with _precision_env(prec, spec):
+            return (bundle.motion_embedding(feats, m_lens),
+                    bundle.text_embedding(words, pos, lens))
+
+    want = run("highest")
+    got = run("default", "clip=default,scan=default,decode=default")
+    again = run("highest")
+    same = [torch.equal(a, b) for a, b in zip(got + again, want + want)]
+    log(f"[precision:evaluators] motion and text embeddings [{B}, 512] under "
+        f"MLD_TPU_MATMUL_PRECISION=default vs highest: bit-identical "
+        f"{same[:2]}; highest twice {same[2:]}")
+    if not all(same):
+        raise RuntimeError("the evaluators' embeddings moved with the "
+                           "session's matmul precision")
+    return same
+
+
+def _study_arms(report, smi):
+    for arm in PREC_STUDY_ARMS:
+        r = report[arm]
+        _finite_metrics(f"precision study arm {arm}",
+                        {k: v for k, v in r.items() if not k.startswith("_")
+                         and not isinstance(v, bool)})
+        log(f"[precision:study] {arm} {r['_env']}: FID {r['FID']:.4f}, R@1 "
+            f"{r['R_precision_top_1']:.4f}, Matching "
+            f"{r['Matching_score']:.4f}, FID delta vs highest "
+            f"{r.get('fid_rel_delta_vs_f32', 0.0) * 100:.2f}%, exceeds the "
+            f"noise floor {r.get('exceeds_noise_floor', '-')}; {smi}")
+
+
+def _train_arms(train, steps, clip_steps, smi):
+    for arm in PREC_TRAIN_ARMS:
+        rec = train["arms"][arm]
+        cp, vae, dif = rec["clip_pretrain"], rec["vae"], rec["diffusion"]
+        for what, first, last in (("clip", cp["style_mse_first"],
+                                   cp["style_mse_last"]),
+                                  ("vae", vae["loss_first"], vae["loss_last"]),
+                                  ("diffusion", dif["loss_first"],
+                                   dif["loss_last"])):
+            if not last < first:
+                raise RuntimeError(f"train precision {arm}: the {what} loss "
+                                   f"did not fall ({first} -> {last})")
+        ev = rec["eval_f32_serving"]
+        log(f"[precision:train] {arm}-trained ({steps} steps a stage, "
+            f"{clip_steps} tower steps): clip style-mse "
+            f"{cp['style_mse_first']:.5f} -> {cp['style_mse_last']:.5f}, vae "
+            f"{vae['loss_first']:.4f} -> {vae['loss_last']:.4f}, diffusion "
+            f"{dif['loss_first']:.4f} -> {dif['loss_last']:.4f}; served at "
+            f"highest: FID {ev['FID']:.4f}, R@1 "
+            f"{ev['R_precision_top_1']:.4f}, FID delta vs the f32-trained "
+            f"{rec.get('fid_rel_delta_vs_f32_train', 0.0) * 100:.2f}%; {smi}")
+
+
+def prec_studies(torch, smi):
+    """precision_study on phase 11's workdir at PREC_STUDY_ARMS and its
+    decision, beside train_precision_study at phase 11's budgets on a copy
+    of that workdir's corpus and evaluators (the two run at once: each arm
+    is a process of its own, and the retraining writes into its workdir)."""
+    import concurrent.futures
+    import shutil
+
+    from mld_tpu_torch.scripts import (precision_decide, precision_study,
+                                       train_precision_study,
+                                       train_synthetic_e2e as e2e)
+
+    t0 = time.perf_counter()
+    train_root = os.path.join(PREC_ROOT, "train_workdir")
+    shutil.copytree(os.path.join(E2E_ROOT, "data"),
+                    os.path.join(train_root, "data"))
+    shutil.copy(os.path.join(E2E_ROOT, "t2m_eval_params.npz"), train_root)
+    args = e2e.parse_args(list(E2E_ARGV))
+    report_path = os.path.join(PREC_ROOT, "precision_report.json")
+    # two host threads a process: the arms share the host's cores
+    with _env(OMP_NUM_THREADS="2"), \
+            concurrent.futures.ThreadPoolExecutor(2) as pool:
+        study = pool.submit(precision_study.main, [
+            "--workdir", E2E_ROOT, "--arms", *PREC_STUDY_ARMS, "--device",
+            DEVICE, "--jobs", str(PREC_JOBS), "--out", report_path])
+        training = pool.submit(train_precision_study.main, [
+            "--workdir", train_root, "--arms", *PREC_TRAIN_ARMS, "--steps",
+            str(args.steps), "--clip-steps", str(args.clip_steps),
+            "--device", DEVICE, "--jobs", str(len(PREC_TRAIN_ARMS)),
+            "--out", os.path.join(PREC_ROOT, "train_precision.json")])
+        report, train = study.result(), training.result()
+    _study_arms(report, smi)
+    decision = precision_decide.main([
+        "--report", report_path,
+        "--out", os.path.join(PREC_ROOT, "precision_decision.json")])
+    if not decision["chosen"]["arm"]:
+        raise RuntimeError("the precision decision names no arm")
+    log(f"[precision:decide] FID noise floor {report['fid_noise_floor']:.4f}"
+        f" (seed re-rolls), gates {decision['noise_floor']}; verdicts "
+        f"{ {a: r['passes'] for a, r in decision['arms'].items()} }; chosen "
+        f"{decision['chosen']}; {report['_device']}")
+    _train_arms(train, args.steps, args.clip_steps, smi)
+    log(f"[time] precision study, decision and training study: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"study": report, "decision": decision, "train": train}
+
+
+def prec_profile(torch, smi):
+    """python -m mld_tpu_torch.scripts.profile_serving at PREC_PROFILE, in
+    process, with the session's precision unset (its default: "default")."""
+    from mld_tpu_torch.scripts import profile_serving
+
+    with _precision_env("default"):
+        summary, rows = profile_serving.main(
+            [*PREC_PROFILE, "--device", DEVICE, "--keep",
+             os.path.join(PREC_ROOT, "profile")])
+    if not rows or summary["device_total_ms"] <= 0:
+        raise RuntimeError(f"the profile of the scan saw no device time: "
+                           f"{summary}")
+    log(f"[precision:profile] scan B={B_LARGE} at default: "
+        f"{summary['per_iter_ms']:.3f} device ms a call over "
+        f"{summary['iters']} calls; top by self time: "
+        + "; ".join(f"{name[:60]} {us / summary['iters']:.1f} us x{n}"
+                    for name, us, n in rows) + f"; {smi}")
+    return {"summary": summary, "rows": rows}
+
+
+def phase_precision(torch, smi, texts, lengths):
+    """The serving-precision path: the arms at full width with their
+    launches and card-vs-CPU checks, where f32 GEMMs bind, the evaluators'
+    pin, the study, its decision, the training study and the profile."""
+    import shutil
+
+    shutil.rmtree(PREC_ROOT, ignore_errors=True)
+    os.makedirs(PREC_ROOT)
+    runs = {}
+    for name, fn in (("arms", lambda: prec_main_path(torch, smi, texts,
+                                                     lengths)),
+                     ("bind", lambda: prec_gemm_bound(torch, smi, texts,
+                                                      lengths)),
+                     ("evaluators", lambda: prec_evaluators(torch)),
+                     ("studies", lambda: prec_studies(torch, smi)),
+                     ("profile", lambda: prec_profile(torch, smi))):
+        t0 = time.perf_counter()
+        runs[name] = fn()
+        torch.cuda.empty_cache()
+        log(f"[time] precision {name}: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                  a2m_runs, mode_runs, option_runs, e2e_runs, output_runs,
-                 parallel_runs, tools_runs):
+                 parallel_runs, tools_runs, precision_runs):
     counts = runs["kernels"]["counts"]
     e2e_k = e2e_runs["kernels"]
     e2e_eval_b = _e2e_cfg().eval.batch_size
@@ -5049,6 +5778,14 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                                tools_runs["ablation"].items()},
                   "model_axis_step": tools_runs["axis"]["counts"][name]}
                  if name != "encoder_layer" else None)
+        # phase 15: a generate_joints call of each precision arm, K1 and K5
+        # as (launches, of them on bf16 weights)
+        prec = ({arm: ([r["launches"][name],
+                        r["bf16_launches"][name]]
+                       if name in r["bf16_launches"]
+                       else r["launches"][name])
+                 for arm, r in precision_runs["arms"].items()}
+                if name != "encoder_layer" else None)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst(results, key[0]), **arm(results[key]),
@@ -5064,6 +5801,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                 "output_demo_launches": output,
                 "parallel_train_launches_a_step": parallel,
                 "tools_launches": tools,
+                "precision_launches": prec,
                 **extra}
 
     return {"kernels": [
@@ -5129,9 +5867,48 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
     ]}
 
 
+def precision_only(torch, smi, out):
+    """Phase 11's workdir and phase 15, then the uncut studies into
+    `out`: precision_study at every arm of JAX's, precision_decide on its
+    report, train_precision_study at highest, high and default."""
+    from mld_tpu_torch.data.synthetic import build_synthetic_dataset
+    from mld_tpu_torch.scripts import (precision_decide, precision_study,
+                                       train_precision_study,
+                                       train_synthetic_e2e as e2e)
+
+    build_synthetic_dataset(os.path.join(TRAIN_ROOT, "humanml3d"),
+                            n_samples=TRAIN_CLIPS, seed=SEED)
+    t0 = time.perf_counter()
+    phase_e2e(torch, smi)
+    log(f"[time] end-to-end protocol: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_precision(torch, smi, *_demo_prompts())
+    log(f"[time] serving-precision path: {time.perf_counter() - t0:.1f} s")
+    os.makedirs(out, exist_ok=True)
+    report = os.path.join(out, "precision_report_torch_h100.json")
+    args = e2e.parse_args(list(E2E_ARGV))
+    t0 = time.perf_counter()
+    with _env(OMP_NUM_THREADS="2"):
+        precision_study.main(["--workdir", E2E_ROOT, "--device", DEVICE,
+                              "--jobs", str(PREC_JOBS), "--out", report])
+        decision = precision_decide.main([
+            "--report", report,
+            "--out", os.path.join(out, "precision_decision_torch_h100.json")])
+        train_precision_study.main([
+            "--workdir", os.path.join(PREC_ROOT, "train_workdir"),
+            "--steps", str(args.steps), "--clip-steps", str(args.clip_steps),
+            "--device", DEVICE, "--jobs", "3",
+            "--out", os.path.join(out, "train_precision_torch_h100.json")])
+    log(f"[precision:uncut] chosen {decision['chosen']}; reports in {out}; "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+
+
 def main():
     import torch
 
+    argv = sys.argv[1:]
+    if argv and (len(argv) != 3 or argv[:2] != ["precision", "--out"]):
+        raise SystemExit("usage: python3 chip_smoke.py [precision --out DIR]")
     smi = phase_device(torch)
     if not os.path.isdir(os.path.join(REPO, "mld_tpu_torch")):
         raise RuntimeError(f"no mld_tpu_torch package beside {__file__}: run "
@@ -5140,6 +5917,8 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     log(f"[time] build: {time.perf_counter() - t0:.1f} s")
+    if argv:
+        return precision_only(torch, smi, os.path.abspath(argv[2]))
     kr, runs, texts, lengths = phase_main_path(torch)
     raw_runs = phase_raw_motion(torch, texts, lengths)
     t0 = time.perf_counter()
@@ -5171,11 +5950,14 @@ def main():
     tools_runs = phase_tools(torch, smi)
     log(f"[time] released-checkpoint path and tools: "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    precision_runs = phase_precision(torch, smi, texts, lengths)
+    log(f"[time] serving-precision path: {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
                                 runs["kernels"]["prompt_len"], train_runs,
                                 eval_runs, a2m_runs, mode_runs,
                                 option_runs, e2e_runs, output_runs,
-                                parallel_runs, tools_runs)))
+                                parallel_runs, tools_runs, precision_runs)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,7 @@ from mld_tpu_torch.eval.t2m_train import ClippedAdam
 from mld_tpu_torch.models.humanact12_gru import build_classifier
 from mld_tpu_torch.utils.checkpoint import save_params_npz
 from mld_tpu_torch.utils.convert import state_dict_to_flax_humanact12
-from mld_tpu_torch.utils.precision import strict_f32
+from mld_tpu_torch.utils.precision import matmul_precision
 
 
 def train_a2m_classifier(cfg, dm, mld, steps: int = 600, lr: float = 1e-3,
@@ -55,7 +55,7 @@ def train_a2m_classifier(cfg, dm, mld, steps: int = 600, lr: float = 1e-3,
             joints = joints.reshape(joints.shape[0], joints.shape[1], -1)
             labels = torch.as_tensor(np.asarray(b["action"]),
                                      dtype=torch.long, device=device)
-            with strict_f32():
+            with matmul_precision("highest"):
                 _, logits = model(joints, np.asarray(b["length"]))
                 loss = F.cross_entropy(logits, labels)
                 for p in weights:

@@ -13,8 +13,9 @@
 Metric accumulation and FID stay on the host in float64 (``metrics/``), as
 in the reference. The evaluator networks run in f32 without TF32, in cuBLAS
 and in cuDNN (the convolutions and the GRUs), for their own calls only
-(``strict_f32``): the JAX package pins its measuring stick to "highest"
-matmul precision so that serving-precision knobs never touch it.
+(``matmul_precision("highest")``, whatever MLD_TPU_MATMUL_PRECISION
+says): the JAX package pins its measuring stick to "highest" matmul
+precision so that serving-precision knobs never touch it.
 
 Randomness: each batch's initial latents (``init_latents``, or ``eps`` of
 the VAE stage) are drawn from one ``torch.Generator`` or given per batch by
@@ -62,7 +63,7 @@ from mld_tpu_torch.parallel.multihost import make_metric_sync
 from mld_tpu_torch.utils.checkpoint import load_params_npz
 from mld_tpu_torch.utils.convert import (flax_t2m_to_state_dict,
                                          state_dict_to_flax_t2m)
-from mld_tpu_torch.utils.precision import strict_f32
+from mld_tpu_torch.utils.precision import matmul_precision
 
 # eval_batch's outputs in the batch's length order
 SORTED = ("lat_t", "lat_m", "lat_rm")
@@ -120,13 +121,13 @@ class T2MEvaluatorBundle(nn.Module):
     def motion_embedding(self, feats: torch.Tensor, m_lens) -> torch.Tensor:
         """evaluator-normalised features [B, T, nfeats], lengths in units
         [B] -> [B, 512]."""
-        with torch.no_grad(), strict_f32():
+        with torch.no_grad(), matmul_precision("highest"):
             return self.motionencoder(self.moveencoder(feats[..., :-4]),
                                       m_lens)
 
     def text_embedding(self, word_embs, pos_ohot, text_lens) -> torch.Tensor:
         """[B, S, 300], [B, S, 15], [B] -> [B, 512]."""
-        with torch.no_grad(), strict_f32():
+        with torch.no_grad(), matmul_precision("highest"):
             return self.textencoder(word_embs, pos_ohot, text_lens)
 
 

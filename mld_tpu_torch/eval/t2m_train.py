@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from mld_tpu_torch.data.synthetic import style_vector_from_caption
-from mld_tpu_torch.eval.pipeline import T2MEvaluatorBundle, strict_f32
+from mld_tpu_torch.eval.pipeline import T2MEvaluatorBundle
+from mld_tpu_torch.utils.precision import matmul_precision
 from mld_tpu_torch.models.mld import resolve_device
 from mld_tpu_torch.utils.checkpoint import save_params_npz
 
@@ -180,7 +181,7 @@ def train_t2m_evaluator(cfg, dm, steps: int = 600, lr: float = 5e-4,
     while len(losses) < steps:
         for b in loader:
             batch, style = batch_to(b, device)
-            with strict_f32():
+            with matmul_precision("highest"):
                 loss, acc, nce, mse = contrastive_loss(
                     bundle, batch, style, stats, cfg.dataset.unit_len,
                     temperature, style_weight)

@@ -4,9 +4,10 @@ of ``mld_tpu/metrics/gru.py``).
 Parity target: mld/models/metrics/gru.py:13-200: the GRU classifier over
 generated and ground-truth joints [B, T, 72], confusion-matrix accuracy, FID
 on the tanh(linear1) features, per-class multimodality. The classifier runs
-on its device in f32 without TF32 (``utils/precision.py:strict_f32``); the
-accumulation and the statistics are numpy on the host, and their only
-randomness is the ``RandomState`` handed to ``compute``.
+on its device in f32 without TF32 (``matmul_precision("highest")``,
+``utils/precision.py``); the accumulation and the statistics are numpy on
+the host, and their only randomness is the ``RandomState`` handed to
+``compute``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from mld_tpu_torch.models.humanact12_gru import (
     build_classifier, convert_humanact12_checkpoint)
-from mld_tpu_torch.utils.precision import strict_f32
+from mld_tpu_torch.utils.precision import matmul_precision
 from .utils import (activation_statistics, calculate_diversity,
                     calculate_multimodality, frechet_distance)
 
@@ -57,7 +58,7 @@ class HUMANACTMetrics:
         j = torch.as_tensor(joints).to(self.device, torch.float32)
         if j.ndim == 4:
             j = j.reshape(j.shape[0], j.shape[1], -1)
-        with torch.no_grad(), strict_f32():
+        with torch.no_grad(), matmul_precision("highest"):
             return self.model(j, lengths)
 
     def update(self, labels, joints_rst, joints_ref, lengths):

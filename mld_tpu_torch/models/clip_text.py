@@ -30,6 +30,7 @@ from torch import nn
 
 from mld_tpu_torch.ops.attention import sdpa_flash_causal
 from mld_tpu_torch.ops.transformer import LayerNorm, Linear
+from mld_tpu_torch.utils.precision import linear
 
 CLIP_VOCAB = 49408
 CLIP_BOS = 49406
@@ -42,9 +43,10 @@ def quick_gelu(x):
 
 
 def _linear(x, layer: nn.Linear):
-    # f32 params, activations in the compute dtype
+    # f32 params, activations in the compute dtype; an f32 tower's GEMMs at
+    # the matmul precision in force
     b = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, layer.weight.to(x.dtype), b)
+    return linear(x, layer.weight.to(x.dtype), b)
 
 
 def _layer_norm(x, ln: nn.LayerNorm):

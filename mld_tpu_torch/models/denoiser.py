@@ -51,6 +51,7 @@ from mld_tpu_torch.ops.fused_layer import StackedSkipEncoder, stack_skip_encoder
 from mld_tpu_torch.ops.transformer import (Linear, SkipTransformerEncoder,
                                            TransformerDecoder,
                                            TransformerEncoder)
+from mld_tpu_torch.utils import precision
 
 
 class EmbedAction(nn.Module):
@@ -166,24 +167,33 @@ class MldDenoiser(nn.Module):
         else:
             self.encoder = TransformerEncoder(d, num_heads, num_layers,
                                               **layer_kw)
+        # K1's stacks: in weight_dtype, and the bf16 arm the matmul
+        # precision picks when weight_dtype is f32 (built at first use)
         self._stacked: Optional[StackedSkipEncoder] = None
+        self._stacked_bf16: Optional[StackedSkipEncoder] = None
         self.register_load_state_dict_post_hook(
             lambda module, incompatible: module.restack())
 
     def restack(self):
-        """Rebuild the kernel's stacked weights from the current params (a
-        denoiser K1 cannot serve has none)."""
+        """Rebuild the kernel's stacked weights from the current params, the
+        bf16 arm too once it was built (a denoiser K1 cannot serve has
+        none)."""
         if self.fusable:
             self._stacked = stack_skip_encoder(self.encoder,
                                                self.weight_dtype)
+            if self._stacked_bf16 is not None:
+                self._stacked_bf16 = stack_skip_encoder(self.encoder,
+                                                        torch.bfloat16)
 
     def drop_stack(self):
         """Forget the stacked weights (the params changed in place); the
         next K1 call restacks."""
-        self._stacked = None
+        self._stacked = self._stacked_bf16 = None
 
     def stacked_encoder(self) -> StackedSkipEncoder:
-        """K1's stacked weights: the cached stack of the parameters or,
+        """K1's stacked weights: the cached stack of the parameters, in
+        weight_dtype or, where that is f32, in the arm the matmul precision
+        in force picks (bf16 under "default", ``mld.py:379-391``); or,
         while a forward runs on their bf16 copies (a mixed-precision step's
         validation, ``train/steps.py:_segment``), a stack of those copies
         built for the call, matrices in bf16."""
@@ -191,6 +201,12 @@ class MldDenoiser(nn.Module):
         dtype = self.encoder.norm.weight.dtype
         if dtype != torch.float32:
             return stack_skip_encoder(self.encoder, dtype)
+        if self.weight_dtype == torch.float32 \
+                and precision.weight_dtype() == torch.bfloat16:
+            if self._stacked_bf16 is None:
+                self._stacked_bf16 = stack_skip_encoder(self.encoder,
+                                                        torch.bfloat16)
+            return self._stacked_bf16
         if self._stacked is None:
             self.restack()
         return self._stacked
@@ -204,7 +220,7 @@ class MldDenoiser(nn.Module):
     def _apply(self, fn, *args, **kwargs):
         # .to() / .cuda() / .float() replace the params: restack after them
         out = super()._apply(fn, *args, **kwargs)
-        if self._stacked is not None:
+        if self._stacked is not None or self._stacked_bf16 is not None:
             self.restack()
         return out
 

@@ -52,6 +52,7 @@ batch-first; latents [B, latent_size, latent_dim] or [B, T, nfeats]; masks
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, List, Mapping, Optional, Sequence
 
@@ -77,6 +78,7 @@ from mld_tpu_torch.ops.fused_seq_decoder import (can_fuse_decode,
 from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
                                          flax_to_state_dict,
                                          state_dict_to_flax)
+from mld_tpu_torch.utils.precision import stage_precision
 
 TEXT_BUCKETS = (16, 24, 32, 48, 64)
 
@@ -109,6 +111,13 @@ def _fused_decode_from_env(model_cfg) -> bool:
     only "1" turns it on, and only where can_fuse_decode holds."""
     return (os.environ.get("MLD_TPU_FUSED_DECODE", "auto") == "1"
             and can_fuse_decode(model_cfg))
+
+
+def _scope(stage: str, serving: bool):
+    """A serving stage's matmul-precision scope; none for a training call
+    site, where MLD_TPU_STAGE_PRECISION must not reach (``mld.py:220-224``,
+    ``296-298``)."""
+    return stage_precision(stage) if serving else contextlib.nullcontext()
 
 
 def resolve_device(device) -> torch.device:
@@ -239,6 +248,12 @@ class MLD(nn.Module):
     path on the CPU, JAX's default off a TPU; for a denoiser K1 cannot
     serve, every value takes the module path, as in JAX. Training and any
     dropout always take the module path (``mld.py:375-376``).
+
+    `weight_dtype` bf16 forces K1's and K5's bf16-weight stacks; with its
+    default, f32, the matmul precision of the serving stage picks them
+    (bf16 under "default"). Serving runs each stage (text tower, sampling
+    loop, decode) in its MLD_TPU_STAGE_PRECISION setting, else the
+    session's MLD_TPU_MATMUL_PRECISION (``utils/precision.py``).
 
     Neither switch is a fallback: with it on, the kernel launches on the
     card or the call raises. The raw-motion family has no VAE (``vae`` is
@@ -441,12 +456,16 @@ class MLD(nn.Module):
         return torch.as_tensor(ids, dtype=torch.long, device=self.device)
 
     @torch.no_grad()
-    def encode_text_tokens(self, token_ids: torch.Tensor) -> torch.Tensor:
+    def encode_text_tokens(self, token_ids: torch.Tensor,
+                           serving: bool = True) -> torch.Tensor:
         """[B, L] ids -> the denoiser's text condition (f32): [B, 1,
         text_dim] CLIP features, or in hidden mode the [B, L, text_dim]
-        hidden states after the final LayerNorm."""
-        out = self.clip(token_ids.to(self.device, torch.long),
-                        mode=self.clip_mode)
+        hidden states after the final LayerNorm. Serving runs in the clip
+        stage's matmul precision; training call sites (`serving=False`)
+        keep the precision in force (``mld.py:220-224``)."""
+        with _scope("clip", serving):
+            out = self.clip(token_ids.to(self.device, torch.long),
+                            mode=self.clip_mode)
         return out[:, None, :] if self.clip_mode == "features" else out
 
     # ----------------------------------------------------------- sampling
@@ -464,7 +483,15 @@ class MLD(nn.Module):
         `init_latents` replaces the drawn initial noise (already scaled by
         init_noise_sigma). Ancestral DDPM draws one noise tensor a step, of
         the latents' shape, from `generator`; `step_noise` replaces those
-        draws (step_noise[i] is step i's). DDIM draws none."""
+        draws (step_noise[i] is step i's). DDIM draws none. The loop
+        and its hoisted preamble run in the scan stage's matmul precision
+        (``mld.py:490-500``)."""
+        with stage_precision("scan"):
+            return self._diffusion_reverse(cond_emb, generator, init_latents,
+                                           mask, step_noise)
+
+    def _diffusion_reverse(self, cond_emb, generator, init_latents, mask,
+                           step_noise):
         B = cond_emb.shape[0] // 2 if self.do_cfg else cond_emb.shape[0]
         dev = generator.device if generator is not None else self.device
         mask2 = None
@@ -543,8 +570,8 @@ class MLD(nn.Module):
 
     def decode_latent(self, z: torch.Tensor, mask: torch.Tensor, *,
                       training: bool = False,
-                      dropout_generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
+                      dropout_generator: Optional[torch.Generator] = None,
+                      serving: bool = True) -> torch.Tensor:
         """z [B, latent_size, latent_dim], mask [B, T] -> feats [B, T,
         nfeats].
 
@@ -554,13 +581,17 @@ class MLD(nn.Module):
         the plain modules with the gradient, never fused, as the JAX package
         fuses only without a dropout rng (``mld.py:303-319``). A
         mixed-precision step's validation fuses on its bf16 copies of the
-        parameters (``ops.fused_seq_decoder.fused_vae_decode``)."""
-        if training or dropout_generator is not None:
-            return self.vae.decode(z, mask, dropout_generator)
-        with torch.no_grad():
-            if self.fused_decode:
-                return fused_vae_decode(self.vae, z, mask)
-            return self.vae.decode(z, mask)
+        parameters (``ops.fused_seq_decoder.fused_vae_decode``). It runs
+        in the decode stage's matmul precision, which also picks K5's
+        weight arm; training call sites (`serving=False`) keep the
+        precision in force (``mld.py:294-312``)."""
+        with _scope("decode", serving):
+            if training or dropout_generator is not None:
+                return self.vae.decode(z, mask, dropout_generator)
+            with torch.no_grad():
+                if self.fused_decode:
+                    return fused_vae_decode(self.vae, z, mask)
+                return self.vae.decode(z, mask)
 
     def feats2joints(self, feats: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -619,11 +650,15 @@ class MLD(nn.Module):
         return (self.masked_joints(feats, mask),
                 self.masked_joints(feats_ref, mask))
 
-    def encode_uncond(self) -> torch.Tensor:
+    def encode_uncond(self, serving: bool = True) -> torch.Tensor:
         """The empty prompt's embedding, one row: [1, 1, text_dim], or in
         hidden mode [1, 77, text_dim]."""
-        return self.encode_text_tokens(
-            torch.as_tensor(self.uncond_ids, device=self.device))
+        ids = torch.as_tensor(self.uncond_ids, device=self.device)
+        if serving:
+            # the serving call stays encode_text_tokens(ids), the call a
+            # caller's wrapper of it sees
+            return self.encode_text_tokens(ids)
+        return self.encode_text_tokens(ids, serving=False)
 
     def condition_embedding(self, cond: torch.Tensor) -> torch.Tensor:
         """The denoiser's condition over the CFG batch (uncond half first):

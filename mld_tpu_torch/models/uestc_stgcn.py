@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from mld_tpu_torch.models.smpl import SMPL_PARENTS
 from mld_tpu_torch.utils.convert import stgcn_params_to_torch
-from mld_tpu_torch.utils.precision import strict_f32
+from mld_tpu_torch.utils.precision import matmul_precision
 
 
 # ----------------------------------------------------------------- graph
@@ -149,7 +149,7 @@ class STGCN:
         """motion [N, V=24, C=6, T] rot6d (the reference's input layout) ->
         (features [N, 256], logits [N, num_class]), f32 without TF32."""
         motion = torch.as_tensor(motion).to(self.device, torch.float32)
-        with torch.no_grad(), strict_f32():
+        with torch.no_grad(), matmul_precision("highest"):
             return self._forward(motion)
 
     # ------------------------------------------------------------- factories

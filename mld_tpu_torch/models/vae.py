@@ -37,6 +37,7 @@ from mld_tpu_torch.ops.fused_seq_decoder import (StackedSkipDecoder,
                                                  stack_skip_decoder)
 from mld_tpu_torch.ops.transformer import (Linear, SkipTransformerDecoder,
                                            SkipTransformerEncoder)
+from mld_tpu_torch.utils import precision
 
 
 class MldVae(nn.Module):
@@ -74,31 +75,46 @@ class MldVae(nn.Module):
         self.skel_embedding = Linear(nfeats, d)
         self.final_layer = Linear(d, nfeats)
         self.weight_dtype = weight_dtype
+        # K5's stacks: in weight_dtype, and the bf16 arm the matmul
+        # precision picks when weight_dtype is f32 (built at first use)
         self._stacked: Optional[StackedSkipDecoder] = None
+        self._stacked_bf16: Optional[StackedSkipDecoder] = None
         self.register_load_state_dict_post_hook(
             lambda module, incompatible: module._restack_if_stacked())
 
     def restack(self):
-        """Rebuild the decoder kernel's stacked weights from the params."""
+        """Rebuild the decoder kernel's stacked weights from the params, the
+        bf16 arm too once it was built."""
         self._stacked = stack_skip_decoder(self.decoder, self.weight_dtype)
+        if self._stacked_bf16 is not None:
+            self._stacked_bf16 = stack_skip_decoder(self.decoder,
+                                                    torch.bfloat16)
 
     def _restack_if_stacked(self):
-        if self._stacked is not None:
+        if self._stacked is not None or self._stacked_bf16 is not None:
             self.restack()
 
     def drop_stack(self):
         """Forget the stacked weights (the params changed in place); the
         next fused decode restacks."""
-        self._stacked = None
+        self._stacked = self._stacked_bf16 = None
 
     def stacked_decoder(self) -> StackedSkipDecoder:
-        """K5's stacked weights: the cached stack of the parameters or,
+        """K5's stacked weights: the cached stack of the parameters, in
+        weight_dtype or, where that is f32, in the arm the matmul precision
+        in force picks (bf16 under "default", ``mld.py:305-312``); or,
         while a forward runs on their bf16 copies (a mixed-precision step's
         validation, ``train/steps.py:_segment``), a stack of those copies
         built for the call, matrices in bf16."""
         dtype = self.decoder.norm.weight.dtype
         if dtype != torch.float32:
             return stack_skip_decoder(self.decoder, dtype)
+        if self.weight_dtype == torch.float32 \
+                and precision.weight_dtype() == torch.bfloat16:
+            if self._stacked_bf16 is None:
+                self._stacked_bf16 = stack_skip_decoder(self.decoder,
+                                                        torch.bfloat16)
+            return self._stacked_bf16
         if self._stacked is None:
             self.restack()
         return self._stacked

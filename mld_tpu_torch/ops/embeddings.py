@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .dropout import dropout as _dropout
+from .transformer import Linear
 
 # the denoisers' timestep sinusoid: cos first, no frequency shift
 # (mld_tpu/models/denoiser.py:79-80; every preset keeps these)
@@ -115,12 +116,13 @@ def build_position_encoding(d_model: int, kind: str = "learned",
 
 
 class TimestepEmbedding(nn.Module):
-    """2-layer SiLU MLP over the sinusoid (embeddings.py:288-305)."""
+    """2-layer SiLU MLP over the sinusoid (embeddings.py:288-305), its
+    GEMMs at the matmul precision in force."""
 
     def __init__(self, in_channels: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_channels, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = Linear(in_channels, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))

@@ -41,9 +41,10 @@ def smem_bytes(D: int, F: int, H: int, S: int) -> int:
     return (4 * MAX_TILE_ROWS * (2 * (D + 8) + max(3 * D, F) + 8 + H * S)
             + 4 * 12 * 256)
 
-# kernel launches made by skip_encoder_stack and by fused_encoder_layer
-# (CUDA only)
+# kernel launches made by skip_encoder_stack (and those of them on bf16
+# weights) and by fused_encoder_layer (CUDA only)
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 LAYER_LAUNCHES = 0
 
 
@@ -302,7 +303,7 @@ def skip_encoder_stack(x: torch.Tensor, stacked: StackedSkipEncoder,
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream (no synchronisation) or raise, also when autograd
     tracks an input (the kernel has no backward)."""
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
     if x.device.type == "cpu":
         return skip_encoder_stack_plain(x, stacked, n_block, num_heads)
     _build.check_no_grad("skip-encoder", x, *stacked)
@@ -310,6 +311,7 @@ def skip_encoder_stack(x: torch.Tensor, stacked: StackedSkipEncoder,
         raise ValueError(f"no skip-encoder kernel for device {x.device}")
     out = _launch(x, stacked, n_block, num_heads)
     LAUNCHES += 1
+    BF16_LAUNCHES += stacked.wqkv.dtype == torch.bfloat16
     work.add("skip_encoder", work.encoder_flops(
         x.shape[0], x.shape[1], x.shape[2], stacked.w1.shape[-1], n_block))
     return out

@@ -41,10 +41,11 @@ MAX_D = 256      # one GEMM block holds a whole row for the LayerNorm epilogue
 MAX_DH = 128     # the self-attention kernel's (K3) head widths
 WIDTH_STEP = 64  # D and F: whole weight tiles (64 rows) and bf16 stages
 
-# kernel-entry calls made by skip_decoder_stack (CUDA only), and the device
-# kernels those calls launched as the C entry counts them (launch_count()
-# a call)
+# kernel-entry calls made by skip_decoder_stack (CUDA only), those of them
+# on bf16 weights, and the device kernels those calls launched as the C
+# entry counts them (launch_count() a call)
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 KERNELS = 0
 
 
@@ -342,7 +343,7 @@ def skip_decoder_stack(tgt: torch.Tensor, mem: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch the kernels on
     the current stream (no synchronisation) or raise, also when autograd
     tracks an input (the kernels have no backward)."""
-    global LAUNCHES, KERNELS
+    global LAUNCHES, BF16_LAUNCHES, KERNELS
     if tgt.device.type == "cpu":
         return skip_decoder_stack_plain(tgt, mem, valid, stacked, n_block,
                                         num_heads)
@@ -371,6 +372,7 @@ def skip_decoder_stack(tgt: torch.Tensor, mem: torch.Tensor,
         raise RuntimeError(f"skip-decoder kernels failed to launch: "
                            f"cudaError {err}")
     LAUNCHES += 1
+    BF16_LAUNCHES += bf16
     KERNELS += launched.value
     work.add("skip_decoder", work.decoder_plain_flops(B, T, M, D, F_,
                                                       n_block))

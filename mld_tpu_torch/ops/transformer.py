@@ -41,6 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mld_tpu_torch.utils.precision import linear
+
 from .attention import sdpa
 from .dropout import dropout as _dropout
 from .dropout import sharded
@@ -68,12 +70,11 @@ def _promoted(x: torch.Tensor, *params: Optional[torch.Tensor]):
 
 class Linear(nn.Linear):
     """``nn.Linear`` in the promoted dtype of input and weights (flax's
-    ``Dense``)."""
+    ``Dense``), its f32 GEMM at the matmul precision in force
+    (``utils/precision.py:linear``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == self.weight.dtype:
-            return super().forward(x)
-        return F.linear(*_promoted(x, self.weight, self.bias))
+        return linear(*_promoted(x, self.weight, self.bias))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -115,11 +116,11 @@ class MultiheadAttention(nn.Module):
         query, w, b = _promoted(query, self.in_proj_weight, self.in_proj_bias)
         key, value = key.to(w.dtype), value.to(w.dtype)
         if self_attn:
-            q, k, v = F.linear(query, w, b).split(d, dim=-1)
+            q, k, v = linear(query, w, b).split(d, dim=-1)
         else:
-            q = F.linear(query, w[:d], b[:d])
-            k = F.linear(key, w[d:2 * d], b[d:2 * d])
-            v = F.linear(value, w[2 * d:], b[2 * d:])
+            q = linear(query, w[:d], b[:d])
+            k = linear(key, w[d:2 * d], b[d:2 * d])
+            v = linear(value, w[2 * d:], b[2 * d:])
         B, Sq, _ = query.shape
         H = self.num_heads
 

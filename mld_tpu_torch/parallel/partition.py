@@ -49,11 +49,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch import nn
 
 from mld_tpu_torch.ops.dropout import AxisGenerators
 from mld_tpu_torch.ops.transformer import Linear, MultiheadAttention, _promoted
+from mld_tpu_torch.utils.precision import linear
 from mld_tpu_torch.parallel import ddp
 
 COLUMN = "column"   # flax P(None, "model"): torch dim 0 (and its bias)
@@ -173,7 +173,7 @@ class RowParallelLinear(Linear):
 
     def forward(self, x):
         x, w, b = _promoted(x, self.weight, self.bias)
-        out = reduce_from_model(F.linear(x, w), self.model_axis)
+        out = reduce_from_model(linear(x, w), self.model_axis)
         return out if b is None else out + b
 
 

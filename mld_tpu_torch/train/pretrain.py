@@ -33,6 +33,7 @@ import torch
 from mld_tpu_torch.data.synthetic import style_vector_from_caption
 from mld_tpu_torch.eval.t2m_train import ClippedAdam
 from mld_tpu_torch.models.mld import crop_to_bucket
+from mld_tpu_torch.utils.precision import linear, matmul_precision, session
 
 K_STYLE = 11
 
@@ -49,9 +50,10 @@ def make_probe(text_dim: int, seed: int, device):
 def style_loss(clip, probe_w, probe_b, ids: torch.Tensor,
                style: torch.Tensor) -> torch.Tensor:
     """The f32 MSE of the probe over the tower's features to the style
-    vectors (``pretrain.py:62-65``)."""
+    vectors (``pretrain.py:62-65``), the probe's GEMM at the matmul
+    precision in force."""
     feat = clip(ids, mode="features")
-    return ((feat @ probe_w + probe_b - style) ** 2).mean()
+    return ((linear(feat, probe_w.t()) + probe_b - style) ** 2).mean()
 
 
 def batch_ids_style(batch, device):
@@ -73,7 +75,8 @@ def pretrain_clip_text(cfg, dm, mld, steps: int = 800, lr: float = 1e-3,
     Only meaningful on the synthetic corpus (its captions parse with
     ``style_vector_from_caption``). The tower's ``requires_grad`` is on for
     the run and restored afterwards. `on_step(count, loss)` is called after
-    each optimizer step with the step's loss tensor."""
+    each optimizer step with the step's loss tensor. The run is at the
+    session's matmul precision (MLD_TPU_MATMUL_PRECISION)."""
     loader = dm.loader("train", seed=seed, drop_last=True)
     if len(loader) == 0:
         raise ValueError("the train split holds fewer clips than a batch")
@@ -88,28 +91,29 @@ def pretrain_clip_text(cfg, dm, mld, steps: int = 800, lr: float = 1e-3,
                       end=0.05)
 
     losses = []
-    try:
-        while len(losses) < steps:
-            for b in loader:
-                ids, style = batch_ids_style(b, device)
-                loss = style_loss(clip, probe_w, probe_b, ids, style)
-                for p in params:
-                    p.grad = None
-                loss.backward()
-                opt.step()
-                losses.append(loss.detach())
-                if on_step is not None:
-                    on_step(len(losses), losses[-1])
-                if log_every and len(losses) % log_every == 0:
-                    mse = float(torch.stack(losses[-20:]).mean())
-                    print(f"clip-pretrain step {len(losses)}: "
-                          f"style-mse {mse:.5f}", flush=True)
-                if len(losses) >= steps:
-                    break
-    finally:
-        for p, flag in zip(tower, was):
-            p.grad = None
-            p.requires_grad_(flag)
+    with matmul_precision(session()):
+        try:
+            while len(losses) < steps:
+                for b in loader:
+                    ids, style = batch_ids_style(b, device)
+                    loss = style_loss(clip, probe_w, probe_b, ids, style)
+                    for p in params:
+                        p.grad = None
+                    loss.backward()
+                    opt.step()
+                    losses.append(loss.detach())
+                    if on_step is not None:
+                        on_step(len(losses), losses[-1])
+                    if log_every and len(losses) % log_every == 0:
+                        mse = float(torch.stack(losses[-20:]).mean())
+                        print(f"clip-pretrain step {len(losses)}: "
+                              f"style-mse {mse:.5f}", flush=True)
+                    if len(losses) >= steps:
+                        break
+        finally:
+            for p, flag in zip(tower, was):
+                p.grad = None
+                p.requires_grad_(flag)
     curve = torch.stack(losses).tolist()
     return {"steps": len(curve),
             "style_mse_first": float(np.mean(curve[:10])),

@@ -43,6 +43,12 @@ the gradients by their mean over the ranks (none without a process group)
 before their norm, so the non-finite skip, the update and the logs
 (averaged too) are every rank's.
 
+Every forward and backward of a step runs at the session's matmul
+precision (``MLD_TPU_MATMUL_PRECISION``, ``utils/precision.py``); the
+serving stages' overlay (``MLD_TPU_STAGE_PRECISION``) reaches only the
+joint stage's generation pass, which is a serving call in JAX too
+(``steps.py:220-230``).
+
 ``model.dtype: bfloat16`` is mixed precision (``_compute_cast``,
 ``steps.py:104-121``): each forward runs on bf16 copies of its module's
 parameters (the VAE's, the text tower's, the denoiser's, trainable or
@@ -68,6 +74,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mld_tpu_torch.losses.mld import diffusion_losses, smooth_l1, vae_losses
 from mld_tpu_torch.parallel import ddp
+from mld_tpu_torch.utils.precision import matmul_precision, session
 
 
 # ------------------------------------------------------------------ optimizer
@@ -350,7 +357,8 @@ def vae_loss(mld, batch, generator, train: bool,
         drop, feats_ref.to(mld.dtype))
     feats_rst = _segment(
         mld, "vae", lambda g, zz: mld.decode_latent(
-            zz, mask, training=train, dropout_generator=g), drop, z)
+            zz, mask, training=train, dropout_generator=g, serving=False),
+        drop, z)
     feats_rst, mu, logvar = feats_rst.float(), mu.float(), logvar.float()
     return vae_losses(feats_rst, feats_ref, mld.feats2joints(feats_rst),
                       mld.feats2joints(feats_ref), mu, logvar, mld.cfg.loss,
@@ -394,8 +402,8 @@ def diffusion_loss(mld, batch, generator, train: bool,
         else:
             # the frozen text tower and the CFG text drop (mld.py:536-541)
             cond, uncond = _segment(mld, "clip", lambda g: (
-                mld.encode_text_tokens(batch["text_ids"]),
-                mld.encode_uncond()), None)
+                mld.encode_text_tokens(batch["text_ids"], serving=False),
+                mld.encode_uncond(serving=False)), None)
             drop = d.get("cfg_drop")
             if drop is None:
                 g = _need(generator, "the CFG drop")
@@ -512,9 +520,10 @@ def compute_grads(state: TrainState, batch, generator=None, draws=None,
         shard = ddp.RowShard.whole(batch)
     if draws is not None:
         draws = shard.take(draws)
-    total, logs = STAGE_LOSSES[state.stage](state.mld, batch, generator,
-                                            True, draws, shard)
-    total.backward()
+    with matmul_precision(session()):
+        total, logs = STAGE_LOSSES[state.stage](state.mld, batch, generator,
+                                                True, draws, shard)
+        total.backward()
     for p in state.params.values():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -562,7 +571,7 @@ def eval_step(state: TrainState, batch, generator=None,
               draws=None) -> Dict[str, torch.Tensor]:
     """The stage's losses without dropout or grad (``make_eval_step``):
     the serving kernels may run (K1, and K5 with fused_decode)."""
-    with torch.no_grad():
+    with torch.no_grad(), matmul_precision(session()):
         _, logs = STAGE_LOSSES[state.stage](state.mld, batch, generator,
                                             False, draws,
                                             ddp.RowShard.whole(batch))

@@ -20,8 +20,9 @@ pickle). Two phases, as in JAX:
    and dropped otherwise (lambda x 2.5); a system Cholesky cannot factor
    is a dropped step, as JAX's NaN solve is, never an exception.
 
-Everything runs on `device` under ``strict_f32`` (no TF32): the Gram-Schmidt,
-the FK chain and the Cholesky are held to JAX's f32.
+Everything runs on `device` under ``matmul_precision("highest")`` (no
+TF32): the Gram-Schmidt, the FK chain and the Cholesky are held to JAX's
+f32.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from mld_tpu_torch.models.mld import resolve_device
 from mld_tpu_torch.models.smpl import SMPL_NUM_JOINTS, SMPLLayer
 from mld_tpu_torch.ops.rotation import (matrix_to_rotation_6d,
                                         rotation_6d_to_axis_angle)
-from mld_tpu_torch.utils.precision import strict_f32
+from mld_tpu_torch.utils.precision import matmul_precision
 
 # HumanML3D's 22 joints are the first 22 SMPL joints, in the same order
 _N_FIT_JOINTS = 22
@@ -237,7 +238,7 @@ class BatchedSMPLFitter:
         that ends in a device synchronisation)."""
         if joints.shape[1] < _N_FIT_JOINTS:
             raise ValueError("need at least 22 joints")
-        with strict_f32(), torch.no_grad():
+        with matmul_precision("highest"), torch.no_grad():
             target = torch.as_tensor(
                 np.array(joints[:, :_N_FIT_JOINTS], np.float32),
                 device=self.device)
@@ -259,7 +260,7 @@ class BatchedSMPLFitter:
 
     def vertices(self, rot6d, trans) -> np.ndarray:
         """Mesh vertices [T, V, 3] for export (needs the SMPL asset)."""
-        with strict_f32(), torch.no_grad():
+        with matmul_precision("highest"), torch.no_grad():
             return self.smpl.vertices(
                 torch.as_tensor(np.array(rot6d, np.float32),
                                 device=self.device),

@@ -1,23 +1,197 @@
-"""The measuring stick's precision: f32 matmuls, convolutions and RNNs
-without TF32, as the JAX package pins its evaluator networks to "highest"
-matmul precision so that serving-precision knobs never touch them."""
+"""Matmul precision: the session's and each serving stage's (the twin of
+``mld_tpu/__init__.py:18-20`` and ``MLD._stage_precision``,
+``mld_tpu/models/mld.py:181-202``).
+
+``MLD_TPU_MATMUL_PRECISION`` sets the session's precision (default
+"highest"); ``MLD_TPU_STAGE_PRECISION`` overlays one on a serving stage, as
+comma-separated ``stage=precision`` pairs over the stages ``clip``, ``scan``
+and ``decode`` (the first pair of a stage counts, as in JAX). Both are read
+when a call is made, in JAX's names, and mapped to the card's arithmetic as
+JAX maps them on a GPU:
+
+  default / bfloat16 / fastest   bf16 operands, f32 accumulation and result
+  high / tensorfloat32           TF32 operands, f32 accumulation
+  highest / float32              IEEE f32
+
+On a TPU "high" is three bf16 passes; here it is TF32 (ROADMAP.md section
+3). An unknown precision or stage raises: nothing falls back to f32.
+
+``matmul_precision(name)`` is the one scope: inside it ``current()`` is
+`name`, TF32 is on for cuBLAS and cuDNN exactly under "high", and all of it
+is restored on the way out. Outside every scope ``current()`` is the
+session's. What reads it: ``linear`` (every f32 GEMM of the models' linear
+layers, forward and backward) and ``weight_dtype`` (K1's and K5's weight
+arm, ``mld.py:305-312``, ``379-391``). Attention keeps its own precision
+under every setting (K3 and K4, as JAX's kernels pin theirs,
+``mld_tpu/ops/attention.py:89-103``, ``201-203``), and so do the evaluator
+networks, which run under ``matmul_precision("highest")`` whatever the
+session says (``mld_tpu/eval/pipeline.py:75-87``).
+
+On the CPU the GEMM of each arm is its plain version: the operands rounded
+to bf16 or TF32 on the bits, then an f32 product.
+"""
 from __future__ import annotations
 
 import contextlib
+import os
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
+
+# JAX's precision names -> the card's arithmetic
+ARITHMETIC = {"default": "bf16", "bfloat16": "bf16", "fastest": "bf16",
+              "high": "tf32", "tensorfloat32": "tf32",
+              "highest": "f32", "float32": "f32"}
+STAGES = ("clip", "scan", "decode")
+SESSION_VAR = "MLD_TPU_MATMUL_PRECISION"
+STAGE_VAR = "MLD_TPU_STAGE_PRECISION"
+
+_active: Optional[str] = None   # the innermost matmul_precision's name
+
+
+def check(name: str) -> str:
+    """`name` if it is one of JAX's precision names the port maps, else
+    ValueError."""
+    if name not in ARITHMETIC:
+        raise ValueError(f"unknown matmul precision {name!r}; the port maps "
+                         f"{', '.join(ARITHMETIC)}")
+    return name
+
+
+def session() -> str:
+    """MLD_TPU_MATMUL_PRECISION, "highest" when unset or empty."""
+    return check(os.environ.get(SESSION_VAR) or "highest")
+
+
+def stage_spec() -> Dict[str, str]:
+    """MLD_TPU_STAGE_PRECISION as {stage: precision}; an entry that is not
+    ``stage=precision`` over a known stage and precision raises."""
+    out: Dict[str, str] = {}
+    for part in os.environ.get(STAGE_VAR, "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        stage, sep, name = (s.strip() for s in part.partition("="))
+        if not sep or stage not in STAGES:
+            raise ValueError(f"bad {STAGE_VAR} entry {part!r}: want "
+                             f"stage=precision over the stages "
+                             f"{', '.join(STAGES)}")
+        out.setdefault(stage, check(name))
+    return out
+
+
+def current() -> str:
+    """The precision in force: the innermost scope's, else the session's."""
+    return _active if _active is not None else session()
+
+
+def arithmetic() -> str:
+    """"f32", "tf32" or "bf16": what the GEMMs in force compute in."""
+    return ARITHMETIC[current()]
+
+
+def weight_dtype() -> torch.dtype:
+    """K1's and K5's weight arm at the precision in force: the bf16 stack
+    under default / bfloat16, the f32 one otherwise ("fastest" too, as
+    ``mld.py:308``, ``382`` pick)."""
+    return (torch.bfloat16 if current() in ("default", "bfloat16")
+            else torch.float32)
 
 
 @contextlib.contextmanager
-def strict_f32():
-    """f32 matmuls, convolutions and RNNs without TF32 inside; the caller's
-    settings are restored on the way out."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def matmul_precision(name: str):
+    """Run the body at precision `name`; the caller's precision and cuBLAS
+    and cuDNN TF32 settings are restored on the way out."""
+    global _active
+    tf32 = ARITHMETIC[check(name)] == "tf32"
+    saved = (_active, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    _active = name
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = cudnn
+        (_active, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def stage_precision(stage: str):
+    """The scope of one serving stage: its MLD_TPU_STAGE_PRECISION entry,
+    else the precision in force."""
+    if stage not in STAGES:
+        raise ValueError(f"unknown serving stage {stage!r}")
+    return matmul_precision(stage_spec().get(stage, current()))
+
+
+# ------------------------------------------------------------------ GEMMs
+def round_bits(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """f32 x rounded to nearest even, as f32: to bf16 ("bf16") or to TF32's
+    10 mantissa bits ("tf32"), the rounding cuBLAS's TF32 GEMM matches on
+    the card."""
+    if mode == "bf16":
+        return x.bfloat16().float()
+    i = x.view(torch.int32)
+    return ((i + 0x0FFF + ((i >> 13) & 1)) & -8192).view(torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """a [M, K] @ b [K, N], f32 in and out, in `mode`'s arithmetic: the
+    plain version on the CPU, cuBLAS on the card (bf16 operands with an f32
+    result through ``mm.dtype``; TF32 operands rounded on the bits, then
+    cuBLAS's TF32 GEMM, since cuBLAS may give a shape an f32 kernel where
+    TF32 is allowed). A card whose torch cannot give the bf16 GEMM an f32
+    result raises."""
+    if a.device.type == "cpu":
+        return round_bits(a, mode) @ round_bits(b, mode)
+    if a.device.type != "cuda":
+        raise ValueError(f"no {mode} GEMM for device {a.device}")
+    if mode == "bf16":
+        return torch.mm(a.bfloat16(), b.bfloat16(), out_dtype=torch.float32)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return torch.mm(round_bits(a, mode), round_bits(b, mode))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+class _ReducedLinear(torch.autograd.Function):
+    """x @ w.T + b with both operands of every product, the backward's too,
+    in `mode`'s arithmetic: the VJP dots of JAX inherit the precision."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, mode):
+        ctx.save_for_backward(x, w)
+        ctx.mode, ctx.has_bias = mode, b is not None
+        y = _mm(x.reshape(-1, x.shape[-1]), w.t(), mode)
+        if b is not None:
+            y = y + b
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.reshape(-1, w.shape[0])
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = _mm(g, w, ctx.mode).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = _mm(g.t(), x.reshape(-1, x.shape[-1]), ctx.mode)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            gb = g.sum(0)
+        return gx, gw, gb, None
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``F.linear`` at the precision in force for f32 operands (under
+    "highest" it is ``F.linear`` itself); other dtypes as ``F.linear``
+    computes them, as JAX's precision leaves bf16 dots as they are."""
+    mode = arithmetic()
+    if mode == "f32" or x.dtype != torch.float32 \
+            or w.dtype != torch.float32:
+        return F.linear(x, w, b)
+    return _ReducedLinear.apply(x, w, b, mode)
+

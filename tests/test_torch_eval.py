@@ -458,14 +458,14 @@ def test_gen_from_latent_is_the_decode(pair):
 
 
 def test_strict_f32_restores_the_callers_settings():
-    from mld_tpu_torch.eval.pipeline import strict_f32
+    from mld_tpu_torch.utils.precision import matmul_precision
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
         with pytest.raises(KeyError):
-            with strict_f32():
+            with matmul_precision("highest"):
                 assert not torch.backends.cuda.matmul.allow_tf32
                 assert not torch.backends.cudnn.allow_tf32
                 raise KeyError
