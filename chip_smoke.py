@@ -58,7 +58,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                         198, 128]), on views into packed projections
                         as the model hands them over, plus ragged cases
                         with a fully masked example (Sq and Sk off every
-                        tile, Dh = 4 and 68), f32 and bf16;
+                        tile, Dh = 4 and 68), f32 and bf16; and its two
+                        reduced arms on f32 tensors (operands rounded to
+                        TF32 under "high", bf16 operands under "default",
+                        launched by sdpa under those settings and counted
+                        by arm) at the plain VAE decode's [128, 4, 196,
+                        64] against 197 keys under [1; mask], the module
+                        denoiser's [256, 4, 3, 64], raw motion's [256, 4,
+                        198, 64 and 128] and s512's [12, 4, 512, 128],
+                        each against flash_plain at its arithmetic by RMS
+                        (at most REDUCED_RMS_RATIO of the f32 result's gap
+                        to it, which the 3xTF32 result cannot meet) and by
+                        its largest error, with SDPA's time on the same f32
+                        tensors;
      and the bf16 rounding check: K2 and K5 cut to one layer, whose RMS
      error must stay below a bar that the plain version of a kernel without
      the activation rounding, and of f32 weights, both exceed on the card;
@@ -250,14 +262,25 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      reduced GEMM of the stage replayed from its operands within 1e-5 of
      scale; K1's and K5's stacks bit for bit; highest's joints end to end
      at 1e-3), and a planted bf16 rounding of every reduced GEMM's result
-     that must miss a bar; hidden mode and raw
+     that must miss a bar; each reduced K3 call of the plain VAE decode
+     (launches counted by arm) replayed on the CPU through flash_plain
+     from its own operands at phase 3's reduced bars, and in the planted
+     run launched on the 3xTF32 arm (the behaviour before attention
+     followed the setting), which must miss them; hidden mode and raw
      motion (DDPM-50) under highest and default and one [25088, 256] x
      [256, 1024] GEMM under each setting (ms, TFLOP/s; recorded); the
      evaluators' embeddings bit-identical under default; precision_study
      on phase 11's workdir (9 arms, 5 at a time), precision_decide, and
      train_precision_study (highest, default) at phase 11's budgets;
      profile_serving of the scan at B=128, top 10;
- 16. prints each phase's seconds, the kernels JSON line, the nvidia-smi
+ 16. the bench twins (mld_tpu_torch.scripts.bench_*) once each at small
+     counts, in this process: bench_stages at B=128, bench_attention at
+     the VAE decode's and s512's shapes in K3's three f32 arms,
+     bench_fused_layer and bench_decode at B=128 in both weight arms,
+     bench_train's diffusion stage on a fixed batch at B=64 and through the
+     loop's input path on phase 6's corpus at B=32; each report must name
+     the card (nvidia-smi line) and hold its keys, all finite;
+ 17. prints each phase's seconds, the kernels JSON line, the nvidia-smi
      line, and last {"ok": true, "device": {...}}.
 Needs one card, imports nothing of JAX, and builds into build/.
 """
@@ -406,10 +429,48 @@ FLASH_KEY = ("s512 self", 12)
 # products (big.big + big.small + small.big), 495 / 3; bf16 tensor-core
 # products. Every kernel of the port runs its products on one of the two
 HBM_BYTES_S = 3.35e12
-PEAKS = {"3xTF32 165 TFLOP/s": 495e12 / 3, "bf16 MMA 989 TFLOP/s": 989e12}
-TF32X3, BF16_MMA = PEAKS
+PEAKS = {"3xTF32 165 TFLOP/s": 495e12 / 3, "bf16 MMA 989 TFLOP/s": 989e12,
+         "TF32 495 TFLOP/s": 495e12}
+TF32X3, BF16_MMA, TF32 = PEAKS
 # the unit K3 and K4 run their products on, by operand dtype
 FLASH_PEAK = {"f32": TF32X3, "bf16": BF16_MMA}
+# K3's reduced arms on f32 tensors (arithmetic, the precision that picks
+# it, the unit of its products) at the shapes the reduced settings serve:
+# the plain VAE decode's self-attention as the decode hands it over
+# (196 frames against [latent; frames] under [1; mask]), the module-path
+# denoiser's [256, 4, 3, 64], raw motion's 198 tokens at Dh = 64
+# and at its real 128, and s512's self-attention at the demo batch
+REDUCED_ARMS = (("tf32", "high", TF32), ("bf16", "default", BF16_MMA))
+REDUCED_FLASH_CASES = (
+    ("decode self 196->197", B_LARGE, 4, T_FRAMES, T_FRAMES + 1, 64,
+     "decode tokens"),
+    ("plain denoiser self", 2 * B_LARGE, 4, 3, 3, 64, None),
+    ("raw enc self dh64", 2 * B_LARGE, 4, T_FRAMES + 2, T_FRAMES + 2, 64,
+     None),
+    ("raw enc self", 2 * B_LARGE, 4, T_FRAMES + 2, T_FRAMES + 2, 128, None),
+    ("s512 self", 12, 4, S512, S512, 128, None),
+)
+# The reduced arms against their plain versions (flash_plain at the same
+# arithmetic). Kernel and plain version round the same operands at the same
+# points; they part where an f32 sum in another order moves a probability
+# across a rounding boundary, which flips it by an ulp of its type, now and
+# then: sparse errors. The fault they must not hide (attention left at
+# 3xTF32 under a reduced setting) parts every output a little: dense. So
+# the RMS of the error over the RMS of the plain output must stay below
+# REDUCED_RMS_RATIO times the same RMS of the f32 result's gap to the plain
+# version, a bar that scales with the data: on the CPU, the plain version
+# with both products summed in reverse order moves by 1/23-1/43 of that gap
+# (TF32) and 1/87-1/101 (bf16) at the shapes below on random operands, and
+# in the small decode of phase 15's rehearsal the f32 gap itself is 2.4e-4
+# of RMS, ten times below random operands' (averaging over frames shrinks
+# gap and flips alike), where a fixed bar would pass the fault. The largest
+# error over the largest |output| is held too, at bars that leave the flips
+# room (the reversed sums reach 1.5e-4 (TF32) and 9.1e-4 (bf16))
+REDUCED_RMS_RATIO = 0.2
+# the reduced arms' case whose times the kernels line carries beside
+# FLASH_KEY's: the plain VAE decode's self-attention at B = 128
+RED_DECODE = ("decode self 196->197", B_LARGE)
+REDUCED_MAX_BAR = {"tf32": 1e-3, "bf16": 4e-3}
 RAW_PRESETS = ("novae_humanml3d", "novae_stress_s512")
 # steps of the profiled sampling loop, and of the card-vs-CPU raw-motion
 # check (a full-width 1000-step run on the CPU would take minutes)
@@ -528,49 +589,29 @@ def log_tensor_core_sass(path):
 
 
 def _time_ms(torch, fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """ms a call of fn on the card: CUDA events around `iters` calls after
+    `warmup` (``mld_tpu_torch/scripts/_bench.py:time_ms``)."""
+    from mld_tpu_torch.scripts import _bench
+    return _bench.time_ms(fn, torch.device(DEVICE), iters, warmup)
 
 
 def _device_ms(torch, fn, iters=10, tries=4):
     """Device time of one fn() call: the durations of the device kernels
-    (and memsets) torch.profiler sees over `iters` calls, over iters. Unlike
-    _time_ms it leaves out the host's time between launches, which bounds
-    calls of microseconds. The profiler can drop events, most often all of
-    a short window's: a trace is kept once a second trace of `iters` calls
-    holds the same nonzero number of device kernels, a multiple of iters.
-    After `tries` traces without two that agree, the device time is not
-    measured: None, and a line says so (the event time `ms` stands)."""
-    from torch.profiler import ProfilerActivity, profile
+    (and memsets) torch.profiler sees over `iters` calls, over iters
+    (``_bench.device_ms``). Unlike _time_ms it leaves out the host's time
+    between launches, which bounds calls of microseconds. The profiler can
+    drop events, most often all of a short window's: a trace is kept once
+    a second trace of `iters` calls holds the same nonzero number of
+    device kernels, a multiple of iters. After `tries` traces without two
+    that agree, the device time is not measured: None, and a line says so
+    (the event time `ms` stands)."""
+    from mld_tpu_torch.scripts import _bench
 
-    def trace():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        return [e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(tries):
-        us = trace()
-        if us and len(us) % iters == 0 and len(us) in seen:
-            return sum(us) / 1e3 / iters
-        seen.append(len(us))
-    log(f"[kernel] device time not measured: torch.profiler saw {seen} "
-        f"device kernels in {tries} traces of {iters} calls")
-    return None
+    ms = _bench.device_ms(fn, torch.device(DEVICE), iters, tries)
+    if ms is None:
+        log(f"[kernel] device time not measured: torch.profiler saw no two "
+            f"traces of {iters} calls agree in {tries}")
+    return ms
 
 
 def _ms_text(ms):
@@ -1096,6 +1137,85 @@ def check_flash(torch, lengths, g, cases=FLASH_CASES):
     return res
 
 
+def _reduced_errs(torch, out, ref, mask=None):
+    """(RMS of out - ref over RMS of ref, largest |out - ref| over largest
+    |ref|) over the compared elements."""
+    if mask is not None:
+        out, ref = out[mask], ref[mask]
+    d = out.float() - ref.float()
+    return (d.pow(2).mean().sqrt() / ref.float().pow(2).mean().sqrt()).item(), \
+        (d.abs().max() / ref.float().abs().max()).item()
+
+
+def _reduced_over(arith, rms, mx, f32_rms):
+    """How far a reduced arm's errors (``_reduced_errs``) are along their
+    bars, the larger: 1 is at a bar; f32_rms is the f32 result's RMS gap
+    to the same plain version."""
+    if f32_rms == 0.0:
+        # the arithmetics agree here (one key: p = 1, v exact): exact or out
+        return 0.0 if rms == 0.0 else math.inf
+    return max(rms / (REDUCED_RMS_RATIO * f32_rms),
+               mx / REDUCED_MAX_BAR[arith])
+
+
+def check_flash_reduced(torch, lengths, g, cases=REDUCED_FLASH_CASES):
+    """K3's reduced arms on f32 tensors vs flash_plain at the same
+    arithmetic, each under the precision that picks it (sdpa reads it),
+    with the launches counted by arm; the library call is SDPA on the same
+    f32 tensors (its f32 function: no PyTorch call rounds the operands)."""
+    import torch.nn.functional as F
+
+    from mld_tpu_torch.models.mld import lengths_to_mask
+    from mld_tpu_torch.ops import attention
+    from mld_tpu_torch.ops.attention import NEG_INF, flash_plain, sdpa
+    from mld_tpu_torch.utils import precision
+
+    res = {}
+    for label, B, H, Sq, Sk, Dh, mask in cases:
+        raw, split = _flash_inputs(torch, B, H, Sq, Sk, Dh, g)
+        q, k, v = split(raw if torch.is_tensor(raw) else list(raw))
+        valid = bias = None
+        if mask == "decode tokens":
+            frames = (lengths * -(-B // len(lengths)))[:B]
+            valid = lengths_to_mask([Sk - T_FRAMES + n for n in frames], Sk,
+                                    DEVICE)
+            bias = torch.zeros(B, 1, 1, Sk, device=DEVICE)
+            bias.masked_fill_(~valid[:, None, None, :], NEG_INF)
+        f32 = flash_plain(q, k, v, valid)
+        for arith, prec, peak in REDUCED_ARMS:
+            what = (f"{arith} {label} q [{B}, {H}, {Sq}, {Dh}] Sk={Sk}"
+                    + (f" mask {mask}" if mask else ""))
+            with precision.matmul_precision(prec):
+                def plain(q=q, k=k, v=v, arith=arith):
+                    return flash_plain(q, k, v, valid, arithmetic=arith)
+                ref = plain()
+                r = _hold(
+                    torch, "flash_attention",
+                    lambda: sdpa(q, k, v, valid), plain,
+                    REDUCED_MAX_BAR[arith] * ref.abs().max().item(), what,
+                    lambda arith=arith: attention.FLASH_ARM_LAUNCHES[arith],
+                    library=lambda q=q, k=k, v=v: (
+                        F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=bias)),
+                    work=_flash_work(q, k, valid, peak))
+                out = sdpa(q, k, v, valid)
+            rms, mx = _reduced_errs(torch, out, ref)
+            f32_rms, _ = _reduced_errs(torch, f32, ref)
+            over = _reduced_over(arith, rms, mx, f32_rms)
+            log(f"[kernel] flash_attention {what}: rms_err {rms:.3e} (bar "
+                f"{REDUCED_RMS_RATIO:g} x the f32 result's {f32_rms:.3e}), "
+                f"max {mx:.3e} of scale (bar {REDUCED_MAX_BAR[arith]:g}): "
+                f"{over:.3f} of the bars")
+            if not over <= 1.0:
+                raise RuntimeError(f"flash_attention {arith} arm disagrees "
+                                   f"with its plain version ({what})")
+            res[(arith, (label, B))] = {**r, "rms_err": rms,
+                                        "max_rel_err": mx,
+                                        "f32_rms_gap": f32_rms,
+                                        "over_bar": over}
+    return res
+
+
 def phase_kernels(torch, mld, lengths):
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     with torch.no_grad():
@@ -1107,6 +1227,7 @@ def phase_kernels(torch, mld, lengths):
             "skip_decoder": check_skip_decoder(torch, mld.vae, lengths, g),
             "flash_causal": check_flash_causal(torch, g),
             "flash_attention": check_flash(torch, lengths, g),
+            "flash_attention_reduced": check_flash_reduced(torch, lengths, g),
         }
 
 
@@ -5090,6 +5211,15 @@ def _bf16_counts(reset=False):
     return {k: mod.BF16_LAUNCHES for k, mod in mods.items()}
 
 
+def _flash_arm_counts(reset=False):
+    """K3's launches by arm (read, or set to 0)."""
+    from mld_tpu_torch.ops import attention
+    if reset:
+        attention.FLASH_ARM_LAUNCHES.update(
+            dict.fromkeys(attention.FLASH_ARM_LAUNCHES, 0))
+    return dict(attention.FLASH_ARM_LAUNCHES)
+
+
 def _stage_settings():
     """The setting each serving stage takes under the variables in force,
     and the weight dtype K1 (scan) and K5 (decode) pick there."""
@@ -5104,10 +5234,12 @@ def _stage_settings():
 
 def prec_arm(torch, mld, label, prec, spec, ids, mask, init, z, base, smi):
     """One arm at B=128: a generate_joints call with its launches (K1 and
-    K5 by weight dtype) against what the arm's settings derive, ms a call
+    K5 by weight dtype, K3 by arm: the plain VAE decode's, in the decode
+    stage's arithmetic) against what the arm's settings derive, ms a call
     (median of PREC_ITERS warm calls), each stage's ms and the distance of
     its joints from `base` (highest's)."""
     from mld_tpu_torch.ops.fused_seq_decoder import launch_count
+    from mld_tpu_torch.utils import precision
 
     n_steps = len(mld.scheduler.timesteps())
     with _precision_env(prec, spec):
@@ -5123,13 +5255,19 @@ def prec_arm(torch, mld, label, prec, spec, ids, mask, init, z, base, smi):
                 else 2 * mld.cfg.model.num_layers}
         want_bf16 = {"skip_encoder": n_steps * bf_scan,
                      "skip_decoder": fused * bf_dec}
+        want_arms = dict.fromkeys(_flash_arm_counts(), 0)
+        want_arms[precision.ARITHMETIC[st["decode"][0]]] = \
+            want["flash_attention"]
         _reset_counts()
         _bf16_counts(reset=True)
+        _flash_arm_counts(reset=True)
         joints = mld.generate_joints(ids, mask, init_latents=init)
         _sync(torch)
         counts, bf16 = _read_counts(), _bf16_counts()
+        arms = _flash_arm_counts()
         _check_counts(counts, want, f"precision {label}")
         _check_counts(bf16, want_bf16, f"precision {label} bf16 weights")
+        _check_counts(arms, want_arms, f"precision {label} K3 arms")
         _check_joints(torch, joints, mask,
                       (B_LARGE, mld.max_frames, mld.njoints, 3))
         times = []
@@ -5157,11 +5295,13 @@ def prec_arm(torch, mld, label, prec, spec, ids, mask, init, z, base, smi):
         f"{stage_ms['scan']:.3f} ms, VAE decode {stage_ms['decode']:.4f} ms;"
         f" K1 {counts['skip_encoder']} ({bf16['skip_encoder']} on bf16 "
         f"weights), K5 {counts['skip_decoder']} ({bf16['skip_decoder']} bf16),"
-        f" K4 {counts['flash_causal']}, K3 {counts['flash_attention']}; "
+        f" K4 {counts['flash_causal']}, K3 {counts['flash_attention']} "
+        f"(by arm {arms}); "
         f"max |joints - highest's| "
         f"{'-' if dist is None else f'{dist:.3e}'} (recorded, no bar); {smi}")
     return joints, {"ms": ms, "stage_ms": stage_ms, "launches": counts,
-                    "bf16_launches": bf16, "settings": {
+                    "bf16_launches": bf16, "flash_arm_launches": arms,
+                    "settings": {
                         s: v[0] for s, v in st.items()},
                     "dist_from_highest": dist, "precision": prec,
                     "stage_precision": spec}
@@ -5176,7 +5316,7 @@ def _cpu_resummed():
     from mld_tpu_torch.ops import fused_layer, fused_seq_decoder
     from mld_tpu_torch.utils import precision
 
-    mm, plain = precision._mm, fused_layer._mm
+    mm, bmm, plain = precision._mm, precision._bmm, fused_layer._mm
 
     def reversed_sum(fn):
         def run(a, b, *mode):
@@ -5186,56 +5326,91 @@ def _cpu_resummed():
         return run
 
     precision._mm = reversed_sum(mm)
+    precision._bmm = reversed_sum(bmm)
     fused_layer._mm = fused_seq_decoder._mm = reversed_sum(plain)
     try:
         yield
     finally:
-        precision._mm = mm
+        precision._mm, precision._bmm = mm, bmm
         fused_layer._mm = fused_seq_decoder._mm = plain
 
 
 @contextlib.contextmanager
 def _card_gemms(fault=False):
     """Every GEMM the port runs on the card in a reduced arithmetic during
-    the body (``precision._mm``: its operands, arithmetic and result), in
-    order. With `fault` each of those results is rounded to bf16 on the
-    way out: the extra rounding an autocast would add, planted to show
-    that the reference's bars see it."""
+    the body (``precision._mm``: its operands, arithmetic and result) and
+    every K3 launch in a reduced arm (``attention._flash_launch``: q, k, v,
+    the key mask, the arithmetic and the output), in order, as ("gemm",
+    ...) and ("flash", ...). With `fault` each of those GEMM results is
+    rounded to bf16 on the way out (the extra rounding an autocast would
+    add) and each of those K3 calls launches the 3xTF32 arm (the
+    behaviour before attention followed the setting), planted to show that
+    the reference's bars see them."""
+    from mld_tpu_torch.ops import attention
     from mld_tpu_torch.utils import precision
 
     import torch
 
-    mm, calls, card = precision._mm, [], torch.device(DEVICE).type
+    mm, flash = precision._mm, attention._flash_launch
+    calls, card = [], torch.device(DEVICE).type
+
+    def copy(t):
+        return None if t is None else t.detach().clone()
 
     def logged(a, b, mode):
         y = mm(a, b, mode)
         if y.device.type == card:
             if fault:
                 y = y.bfloat16().float()
-            calls.append((a.detach().clone(), b.detach().clone(), mode,
-                          y.detach().clone()))
+            calls.append(("gemm", (copy(a), copy(b), mode, copy(y))))
         return y
 
-    precision._mm = logged
+    def logged_flash(q, k, v, key_valid, arithmetic="f32"):
+        if arithmetic == "f32":
+            return flash(q, k, v, key_valid, arithmetic)
+        y = flash(q, k, v, key_valid, "f32" if fault else arithmetic)
+        calls.append(("flash", (copy(q), copy(k), copy(v), copy(key_valid),
+                                arithmetic, copy(y))))
+        return y
+
+    precision._mm, attention._flash_launch = logged, logged_flash
     try:
         yield calls
     finally:
-        precision._mm = mm
+        precision._mm, attention._flash_launch = mm, flash
 
 
 def _replay_gemms(calls):
-    """The card's logged GEMMs against the plain version of each on its own
-    operands: the worst error relative to that GEMM's scale, the
-    arithmetics seen and the count."""
+    """The card's logged GEMMs and K3 calls against the plain version of
+    each on its own operands, on the CPU: the worst GEMM error relative to
+    that GEMM's scale, the worst K3 errors (``_reduced_errs``) and the
+    margin of each to its arm's bars, the arithmetics seen and the
+    counts."""
+    import torch
+
+    from mld_tpu_torch.ops.attention import flash_plain
     from mld_tpu_torch.utils import precision
 
-    worst = 0.0
-    for a, b, mode, y in calls:
+    worst, rms, mx, over = 0.0, 0.0, 0.0, 0.0
+    gemms = [c for kind, c in calls if kind == "gemm"]
+    flashes = [c for kind, c in calls if kind == "flash"]
+    for a, b, mode, y in gemms:
         want = precision._mm(a.cpu(), b.cpu(), mode)
         worst = max(worst, ((y.cpu() - want).abs().max()
                             / want.abs().max()).item())
-    return {"gemm_err": worst, "gemms": len(calls),
-            "arithmetic": sorted({c[2] for c in calls})}
+    for q, k, v, valid, arith, y in flashes:
+        args = (q.cpu(), k.cpu(), v.cpu(),
+                None if valid is None else valid.cpu())
+        want = flash_plain(*args, arithmetic=arith)
+        r, m = _reduced_errs(torch, y.cpu(), want)
+        f32_rms, _ = _reduced_errs(torch, flash_plain(*args), want)
+        rms, mx = max(rms, r), max(mx, m)
+        over = max(over, _reduced_over(arith, r, m, f32_rms))
+    return {"gemm_err": worst, "gemms": len(gemms),
+            "arithmetic": sorted({c[2] for c in gemms}),
+            "flash_rms_err": rms, "flash_max_err": mx, "flash_over_bar": over,
+            "flash_calls": len(flashes),
+            "flash_arithmetic": sorted({c[4] for c in flashes})}
 
 
 REF_STAGES = (("cond", "clip"), ("latents", "scan"), ("feats", "decode"))
@@ -5338,8 +5513,16 @@ def _ref_arm(torch, ctx, prec, spec, fault=False):
             bad.append(f"{k} card vs CPU")
         if not r["gemm_err"] <= PREC_GEMM_RTOL:
             bad.append(f"{k} GEMMs vs their plain versions")
+        if not r["flash_over_bar"] <= 1.0:
+            bad.append(f"{k} K3 calls vs their plain versions")
         if r["arithmetic"] != ([] if arith == "f32" else [arith]):
             bad.append(f"{k} GEMMs in {r['arithmetic']}, not {arith}")
+        # K3 serves the plain VAE decode (the scan is K1's, the tower K4's)
+        flash_arith = ([arith] if k == "feats" and arith != "f32"
+                       and not card.fused_decode else [])
+        if r["flash_arithmetic"] != flash_arith:
+            bad.append(f"{k} K3 calls in {r['flash_arithmetic']}, not "
+                       f"{flash_arith}")
         rec[k] = r
     return rec, settings, got, want, bad, same_stacks
 
@@ -5351,7 +5534,12 @@ def _ref_line(rec):
            if "resum" in r else "") + f", bar {r['bar']:.3e}"
         + (f"; its {r['gemms']} {'/'.join(r['arithmetic'])} GEMMs "
            f"{r['gemm_err']:.3e} of scale from their plain versions"
-           if r.get("gemms") else "") + ")"
+           if r.get("gemms") else "")
+        + (f"; its {r['flash_calls']} {'/'.join(r['flash_arithmetic'])} K3 "
+           f"calls from their plain versions at worst rms "
+           f"{r['flash_rms_err']:.3e}, max {r['flash_max_err']:.3e} of scale"
+           f" ({r['flash_over_bar']:.3f} of the bars)"
+           if r.get("flash_calls") else "") + ")"
         for k, r in rec.items())
 
 
@@ -5421,11 +5609,14 @@ def prec_reference(torch, cfg, kw, arms, texts, lengths, plant):
     rec, _, _, _, bad, _ = _ref_arm(torch, ctx, prec, spec, fault=True)
     log(f"[precision:reference {label}, planted fault] fused_decode="
         f"{bool(kw.get('fused_decode'))}: every reduced GEMM's result on "
-        f"the card rounded to bf16: " + _ref_line(rec) + f"; bars missed: "
-        f"{bad}")
-    if not bad:
-        raise RuntimeError("the precision reference did not see a planted "
-                           "bf16 rounding of every reduced GEMM's result")
+        f"the card rounded to bf16, every reduced K3 call on the 3xTF32 "
+        f"arm: " + _ref_line(rec) + f"; bars missed: {bad}")
+    seen = {"GEMMs": any("GEMMs vs" in b_ for b_ in bad),
+            "K3": any("K3 calls vs" in b_ for b_ in bad)
+            or kw.get("fused_decode")}
+    if not all(seen.values()):
+        raise RuntimeError(f"the precision reference did not see a planted "
+                           f"fault: {seen}")
     errs["planted fault"] = {**rec, "missed": bad}
     return errs
 
@@ -5703,6 +5894,55 @@ def phase_precision(torch, smi, texts, lengths):
     return runs
 
 
+# ------------------------------------------------------ 16. the bench twins
+# each twin once at a small count, through its main(argv) in this process:
+# (its module, its arguments, the keys its report must hold)
+BENCH_ROOT = os.path.join(REPO, "build", "bench_smoke")
+BENCH_RUNS = (
+    ("bench_stages", ("--batch", str(B_LARGE), "--iters", "1"),
+     ("stages_ms", "stages_device_ms", "total_ms", "motions_per_sec_total")),
+    ("bench_attention", ("--shapes", "vae_decode", "stress_s512", "--iters",
+                         "3"), ("rows",)),
+    ("bench_fused_layer", ("--batches", str(B_LARGE), "--iters", "3"),
+     ("rows",)),
+    ("bench_decode", ("--batches", str(B_LARGE), "--iters", "2"), ("rows",)),
+    ("bench_train", ("--stage", "diffusion", "--iters", "3"), ("stages",)),
+    # the loop's input path on phase 6's corpus (44 training clips)
+    ("bench_train", ("--pipeline", "--data-root", TRAIN_ROOT, "--batch",
+                     "32", "--iters", "3"), ("stages",)),
+)
+
+
+def phase_bench(torch, smi):
+    """Each bench twin once (BENCH_RUNS) on the card: its report well
+    formed (its header names the card, its keys are there) and finite."""
+    import importlib
+
+    from mld_tpu_torch.scripts import _bench
+
+    os.makedirs(BENCH_ROOT, exist_ok=True)
+    runs = {}
+    for i, (name, argv, keys) in enumerate(BENCH_RUNS):
+        mod = importlib.import_module(f"mld_tpu_torch.scripts.{name}")
+        out = os.path.join(BENCH_ROOT, f"{i}_{name}.json")
+        t0 = time.perf_counter()
+        mod.main([*argv, "--json", out])
+        secs = time.perf_counter() - t0
+        with open(out) as f:
+            report = json.load(f)
+        bad = [k for k in ("backend", "device", "nvidia_smi", "torch",
+                           "cuda", *keys) if k not in report]
+        if (bad or report["backend"] != "cuda" or not report["nvidia_smi"]
+                or not _bench.finite(report)):
+            raise RuntimeError(f"{name} {' '.join(argv)}: a malformed or "
+                               f"non-finite report (missing {bad})")
+        runs[f"{i}_{name}"] = {"seconds": secs, "report": report}
+        log(f"[bench] {name} {' '.join(argv)}: {secs:.1f} s, report "
+            f"{out}: {json.dumps(report)[:1500]}")
+    log(f"[bench] {smi}")
+    return runs
+
+
 def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                  a2m_runs, mode_runs, option_runs, e2e_runs, output_runs,
                  parallel_runs, tools_runs, precision_runs):
@@ -5712,6 +5952,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
     layer_res, layer_rounding = kr["encoder_layer"]
     dec_res, dec_rounding, dec_traced = kr["skip_decoder"]
     axis_k = tools_runs["axis"]["flash"]
+    red = kr["flash_attention_reduced"]
 
     def worst(results, dtype):
         return max(v["err"] for k, v in results.items() if k[0] == dtype)
@@ -5863,7 +6104,23 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
               **arm(axis_k[("f32", (AXIS_FLASH_CASE[0], AXIS_B))],
                     "model_axis_"),
               **arm(axis_k[("bf16", (AXIS_FLASH_CASE[0], AXIS_B))],
-                    "model_axis_bf16_")),
+                    "model_axis_bf16_"),
+              # the reduced arms of f32 tensors: the worst error of each
+              # over its cases and how far along its bars, the times at
+              # s512's self-attention and the plain VAE decode's
+              **{f"{a}_{k}": max(r[key] for (arith, _), r in red.items()
+                                 if arith == a)
+                 for a in ("tf32", "bf16") for k, key in (
+                     ("max_abs_err", "err"), ("rms_err", "rms_err"),
+                     ("over_bar", "over_bar"))},
+              **arm(red[("tf32", FLASH_KEY)], "tf32_"),
+              **arm(red[("bf16", FLASH_KEY)], "bf16_operands_"),
+              **arm(red[("tf32", RED_DECODE)], "tf32_decode_"),
+              **arm(red[("bf16", RED_DECODE)], "bf16_operands_decode_"),
+              # phase 15: K3's launches by arm in a generate_joints call
+              precision_launches_by_arm={
+                  k: r["flash_arm_launches"]
+                  for k, r in precision_runs["arms"].items()}),
     ]}
 
 
@@ -5914,7 +6171,7 @@ def main():
         raise RuntimeError(f"no mld_tpu_torch package beside {__file__}: run "
                            f"chip_smoke.py from a checkout of the repo")
     sys.path.insert(0, REPO)
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     phase_build()
     log(f"[time] build: {time.perf_counter() - t0:.1f} s")
     if argv:
@@ -5953,6 +6210,11 @@ def main():
     t0 = time.perf_counter()
     precision_runs = phase_precision(torch, smi, texts, lengths)
     log(f"[time] serving-precision path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_bench(torch, smi)
+    log(f"[time] bench twins: {time.perf_counter() - t0:.1f} s")
+    log(f"[time] whole script after the device check: "
+        f"{time.perf_counter() - start:.1f} s")
     log(json.dumps(kernels_line(kr, runs, raw_runs,
                                 runs["kernels"]["prompt_len"], train_runs,
                                 eval_runs, a2m_runs, mode_runs,

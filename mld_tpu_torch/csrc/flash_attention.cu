@@ -61,6 +61,25 @@
 //    conflicts: Q and K rows are DHP + 8 elements, f32 V rows DHP + 4.
 //  * Dh is padded to 32, 64 or 128 at compile time (zero columns add
 //    nothing to a score and are not stored).
+//
+// The reduced arms of f32 tensors (the C entry's `arm` 2 and 3) compute as
+// the JAX package's sdpa_xla (attention.py:48-73) does when its einsums
+// inherit a reduced matmul precision: q and k rounded (to TF32 under
+// "high", to bf16 under "default"), f32 scores, -1e9 at masked keys, f32
+// softmax, then the NORMALISED probabilities and v rounded alike, P.V
+// summed in f32 and stored in f32. The bf16-tensor arm above rounds the
+// unnormalised exponentials of an online softmax instead, which would put
+// the rounding at other points; so these arms take two sweeps over the key
+// tiles: the first (K only) takes each row's max and sum of exp(s - max),
+// the second recomputes the scores, rounds p = exp(s - max) / sum and
+// multiplies it by V. The scores cost twice: a third more products than
+// one sweep. TF32 operands are rounded to nearest, ties to even, on the
+// bits, as the plain version rounds (precision.round_bits), not by
+// split_tf32's add, which rounds ties away; bf16 operands by
+// __float2bfloat16_rn, the same rounding. Products of rounded operands are
+// exact, so these arms are bound by one pass of TF32 (495 TFLOP/s) or bf16
+// (989 TFLOP/s) products; each key tile's P.V goes into accumulators of
+// its own, folded into the output by a rounded add, as in the f32 arm.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +87,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "mma_sm90.cuh"
 
@@ -80,6 +100,9 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // queries a block, 16 a warp
 constexpr float kMaskFill = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
+// the C entry's arms: f32 tensors at 3xTF32, bf16 tensors, f32 tensors with
+// operands rounded to TF32, f32 tensors with bf16 operands
+constexpr int kArmF32 = 0, kArmBf16 = 1, kArmTf32 = 2, kArmBf16Ops = 3;
 
 struct Strides {
   long long b, h, r;  // elements between examples, heads and rows
@@ -434,29 +457,315 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DHP>
-int launch(const void* q, const void* k, const void* v, const void* valid,
-           void* out, int B, int H, int Sq, int Sk, int Dh, Strides sq,
-           Strides sk, Strides sv, Strides so, float sm_scale, int vec,
-           cudaStream_t stream) {
-  const size_t smem = Tile<T, DHP>::smem_bytes();
+// f32 x as TF32, rounded to nearest, ties to even, on the bits (the
+// rounding of precision.round_bits; split_tf32 rounds ties away)
+__device__ __forceinline__ uint32_t tf32_rne(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u + 0xfffu + ((u >> 13) & 1u)) & 0xffffe000u;
+}
+
+// scores of this warp's 16 rows against one key tile of f32 K in a reduced
+// arm, laid out as in scores(): s[nt] holds rows g and g + 8, keys 8 nt +
+// 2t and 8 nt + 2t + 1. bf16: qf holds the warp's Q fragments, K is
+// rounded as it is read; TF32: Q and K rounded as they are read, the head
+// dimension permuted as in scores()
+template <bool BF16OPS, int DHP, int NT, int QKSTR>
+__device__ __forceinline__ void scores_reduced(float (&s)[NT][4],
+                                               const float* qs,
+                                               const uint32_t (&qf)[DHP / 16][4],
+                                               const float* ks, int g, int t) {
+  if constexpr (BF16OPS) {
+#pragma unroll
+    for (int kk = 0; kk < DHP / 16; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* kp = ks + (8 * nt + g) * QKSTR + 16 * kk + 2 * t;
+        const float2 k0 = *reinterpret_cast<const float2*>(kp);
+        const float2 k1 = *reinterpret_cast<const float2*>(kp + 8);
+        const uint32_t bf[2] = {pack_bf16(k0.x, k0.y), pack_bf16(k1.x, k1.y)};
+        mma_bf16(s[nt], qf[kk], bf);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DHP / 8; ++kk) {
+      const float2 q0 = *reinterpret_cast<const float2*>(qs + g * QKSTR + 8 * kk + 2 * t);
+      const float2 q1 = *reinterpret_cast<const float2*>(qs + (g + 8) * QKSTR + 8 * kk + 2 * t);
+      const uint32_t a[4] = {tf32_rne(q0.x), tf32_rne(q1.x), tf32_rne(q0.y),
+                             tf32_rne(q1.y)};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 kv = *reinterpret_cast<const float2*>(
+            ks + (8 * nt + g) * QKSTR + 8 * kk + 2 * t);
+        const uint32_t b[2] = {tf32_rne(kv.x), tf32_rne(kv.y)};
+        mma_tf32(s[nt], a, b);
+      }
+    }
+  }
+}
+
+// o += p.v for one key tile of f32 V in a reduced arm, p and v rounded as
+// they are read; each 8 output columns take the tile's products in
+// accumulators of their own, added to o once. bf16: the score tiles 2c and
+// 2c + 1 are the A operand of keys 16c..16c+15; TF32: keys permuted as in
+// p_times_v()
+template <bool BF16OPS, int DHP, int NT, int VSTR>
+__device__ __forceinline__ void p_times_v_reduced(float (&o)[DHP / 8][4],
+                                                  const float (&p)[NT][4],
+                                                  const float* vs, int g,
+                                                  int t) {
+  if constexpr (BF16OPS) {
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int c = 0; c < NT / 2; ++c) {
+      pa[c][0] = pack_bf16(p[2 * c][0], p[2 * c][1]);
+      pa[c][1] = pack_bf16(p[2 * c][2], p[2 * c][3]);
+      pa[c][2] = pack_bf16(p[2 * c + 1][0], p[2 * c + 1][1]);
+      pa[c][3] = pack_bf16(p[2 * c + 1][2], p[2 * c + 1][3]);
+    }
+#pragma unroll
+    for (int nd = 0; nd < DHP / 8; ++nd) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < NT / 2; ++c) {
+        const float* v0 = vs + (16 * c + 2 * t) * VSTR + 8 * nd + g;
+        const uint32_t b[2] = {pack_bf16(v0[0], v0[VSTR]),
+                               pack_bf16(v0[8 * VSTR], v0[9 * VSTR])};
+        mma_bf16(a, pa[c], b);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nd][e] += a[e];
+    }
+  } else {
+    uint32_t pb[NT][4];
+#pragma unroll
+    for (int kc = 0; kc < NT; ++kc) {
+      pb[kc][0] = tf32_rne(p[kc][0]);
+      pb[kc][1] = tf32_rne(p[kc][2]);
+      pb[kc][2] = tf32_rne(p[kc][1]);
+      pb[kc][3] = tf32_rne(p[kc][3]);
+    }
+#pragma unroll
+    for (int nd = 0; nd < DHP / 8; ++nd) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kc = 0; kc < NT; ++kc) {
+        const float* v0 = vs + (8 * kc + 2 * t) * VSTR + g + 8 * nd;
+        const uint32_t b[2] = {tf32_rne(v0[0]), tf32_rne(v0[VSTR])};
+        mma_tf32(a, pb[kc], b);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nd][e] += a[e];
+    }
+  }
+}
+
+// The reduced arms of f32 tensors (see the head of this file): steps 0 ..
+// n_tiles - 1 are the first sweep (K tiles only), steps n_tiles .. 2 n_tiles
+// - 1 the second (K and V); the double buffer and the key flags alternate
+// by step. Scores in natural units, exp and the division as the plain
+// version takes them (expf, IEEE division).
+template <bool BF16OPS, int DHP>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_reduced_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const unsigned char* __restrict__ valid,
+                     float* __restrict__ out, int Sq, int Sk, int Dh,
+                     Strides sq, Strides sk, Strides sv, Strides so,
+                     float sm_scale, int vec) {
+  using G = Tile<float, DHP>;
+  constexpr int kBK = G::kBK;
+  constexpr int kNT = kBK / 8;
+  constexpr int kND = DHP / 8;
+  extern __shared__ float4 smem_f4[];
+  float* qs = reinterpret_cast<float*>(smem_f4);
+  float* ks = qs + G::kQ;        // [2][kBK][.]
+  float* vs = ks + 2 * G::kK;    // [2][kBK][.]
+  float* kflag = vs + 2 * G::kV; // [2][kBK]
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const unsigned char* vrow = valid ? valid + (long long)b * Sk : nullptr;
+  const int n_tiles = (Sk + kBK - 1) / kBK;
+  const int n_steps = 2 * n_tiles;
+
+  auto tile_of = [&](int i) { return i < n_tiles ? i : i - n_tiles; };
+  auto load = [&](int i) {
+    const int st = i & 1;
+    const int r0 = tile_of(i) * kBK;
+    load_tile<float, DHP>(vec, ks + st * G::kK, G::kQKStr, kb, sk.r, r0, kBK,
+                          Sk, Dh);
+    if (i >= n_tiles)
+      load_tile<float, DHP>(vec, vs + st * G::kV, G::kVStr, vb, sv.r, r0, kBK,
+                            Sk, Dh);
+  };
+
+  load_tile<float, DHP>(vec, qs, G::kQKStr, q + b * sq.b + h * sq.h, sq.r, q0,
+                        kRows, Sq, Dh);
+  load(0);
+  copy_commit();
+  if (tid < kBK) kflag[tid] = key_flag(vrow, tid, Sk);
+  copy_wait<0>();
+  __syncthreads();
+  const float* qw = qs + 16 * warp * G::kQKStr;
+  uint32_t qf[DHP / 16][4];
+  if constexpr (BF16OPS) {
+#pragma unroll
+    for (int kk = 0; kk < DHP / 16; ++kk) {
+      const float* r0 = qw + g * G::kQKStr + 16 * kk + 2 * t;
+      const float* r1 = r0 + 8 * G::kQKStr;
+      qf[kk][0] = pack_bf16(r0[0], r0[1]);
+      qf[kk][1] = pack_bf16(r1[0], r1[1]);
+      qf[kk][2] = pack_bf16(r0[8], r0[9]);
+      qf[kk][3] = pack_bf16(r1[8], r1[9]);
+    }
+  }
+
+  float o[kND][4];
+#pragma unroll
+  for (int nd = 0; nd < kND; ++nd)
+    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  // rows g and g + 8: the running max, and this thread's part of the
+  // running sum (the whole row's after the first sweep)
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_steps; ++i) {
+    const bool more = i + 1 < n_steps;
+    float flag_next = 0.f;
+    if (more) {
+      load(i + 1);
+      if (tid < kBK) flag_next = key_flag(vrow, tile_of(i + 1) * kBK + tid, Sk);
+    }
+    copy_commit();
+    copy_wait<1>();
+    __syncthreads();
+    const int st = i & 1;
+    const float* fl = kflag + st * kBK;
+
+    float s[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    scores_reduced<BF16OPS, DHP, kNT, G::kQKStr>(s, qw, qf, ks + st * G::kK,
+                                                 g, t);
+    // scaled as the plain version scales, -1e9 at masked keys, -inf past Sk
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float f = fl[8 * nt + 2 * t + (e & 1)];
+        s[nt][e] = f > 0.f ? s[nt][e] * sm_scale
+                   : f == 0.f ? kMaskFill : -CUDART_INF_F;
+      }
+    }
+    if (i < n_tiles) {
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // every tile holds a key below Sk, so the new max is finite
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        l_run[r] *= expf(m_run[r] - m_new);  // 0 on the first tile
+        m_run[r] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          l_run[e >> 1] += expf(s[nt][e] - m_run[e >> 1]);  // 0 past Sk
+      if (i == n_tiles - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+          l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = __fdiv_rn(expf(s[nt][e] - m_run[e >> 1]), l_run[e >> 1]);
+      p_times_v_reduced<BF16OPS, DHP, kNT, G::kVStr>(o, s, vs + st * G::kV, g,
+                                                     t);
+    }
+
+    if (more && tid < kBK) kflag[(st ^ 1) * kBK + tid] = flag_next;
+    __syncthreads();  // every warp is done with stage st before its refill
+  }
+
+  const int row0 = q0 + 16 * warp + g;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    float* orow = out + b * so.b + h * so.h + (long long)row * so.r;
+#pragma unroll
+    for (int nd = 0; nd < kND; ++nd) {
+      const int col = 8 * nd + 2 * t;
+      if (col < Dh) {
+        orow[col] = o[nd][2 * r];
+        orow[col + 1] = o[nd][2 * r + 1];
+      }
+    }
+  }
+}
+
+template <typename T, typename Kernel>
+int launch(Kernel kernel, size_t smem, const void* q, const void* k,
+           const void* v, const void* valid, void* out, int B, int H, int Sq,
+           int Sk, int Dh, Strides sq, Strides sk, Strides sv, Strides so,
+           float sm_scale, int vec, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kRows - 1) / kRows, H, B);
-  flash_kernel<T, DHP><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const unsigned char*>(valid),
       static_cast<T*>(out), Sq, Sk, Dh, sq, sk, sv, so, sm_scale, vec);
   return (int)cudaGetLastError();
 }
 
+// the arm's kernel at the padded head width DHP
+template <typename T, int DHP>
+int launch_arm(int arm, const void* q, const void* k, const void* v,
+               const void* valid, void* out, int B, int H, int Sq, int Sk,
+               int Dh, Strides sq, Strides sk, Strides sv, Strides so,
+               float sm_scale, int vec, cudaStream_t stream) {
+  const size_t smem = Tile<T, DHP>::smem_bytes();
+  if constexpr (std::is_same<T, float>::value) {
+    if (arm == kArmTf32)
+      return launch<T>(flash_reduced_kernel<false, DHP>, smem, q, k, v, valid,
+                       out, B, H, Sq, Sk, Dh, sq, sk, sv, so, sm_scale, vec,
+                       stream);
+    if (arm == kArmBf16Ops)
+      return launch<T>(flash_reduced_kernel<true, DHP>, smem, q, k, v, valid,
+                       out, B, H, Sq, Sk, Dh, sq, sk, sv, so, sm_scale, vec,
+                       stream);
+  }
+  return launch<T>(flash_kernel<T, DHP>, smem, q, k, v, valid, out, B, H, Sq,
+                   Sk, Dh, sq, sk, sv, so, sm_scale, vec, stream);
+}
+
 template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, const void* valid,
-              void* out, int B, int H, int Sq, int Sk, int Dh, Strides sq,
-              Strides sk, Strides sv, Strides so, float sm_scale,
-              cudaStream_t stream) {
+int launch_dh(int arm, const void* q, const void* k, const void* v,
+              const void* valid, void* out, int B, int H, int Sq, int Sk,
+              int Dh, Strides sq, Strides sk, Strides sv, Strides so,
+              float sm_scale, cudaStream_t stream) {
   // widest copy that every operand's base, strides and row length allow
   unsigned long long a = (unsigned long long)(uintptr_t)q |
                          (uintptr_t)k | (uintptr_t)v |
@@ -466,13 +775,13 @@ int launch_dh(const void* q, const void* k, const void* v, const void* valid,
   int vec = 16;
   while (vec > (int)sizeof(T) && (a & (vec - 1))) vec >>= 1;
   if (Dh <= 32)
-    return launch<T, 32>(q, k, v, valid, out, B, H, Sq, Sk, Dh, sq, sk, sv,
-                         so, sm_scale, vec, stream);
+    return launch_arm<T, 32>(arm, q, k, v, valid, out, B, H, Sq, Sk, Dh, sq,
+                             sk, sv, so, sm_scale, vec, stream);
   if (Dh <= 64)
-    return launch<T, 64>(q, k, v, valid, out, B, H, Sq, Sk, Dh, sq, sk, sv,
-                         so, sm_scale, vec, stream);
-  return launch<T, 128>(q, k, v, valid, out, B, H, Sq, Sk, Dh, sq, sk, sv, so,
-                        sm_scale, vec, stream);
+    return launch_arm<T, 64>(arm, q, k, v, valid, out, B, H, Sq, Sk, Dh, sq,
+                             sk, sv, so, sm_scale, vec, stream);
+  return launch_arm<T, 128>(arm, q, k, v, valid, out, B, H, Sq, Sk, Dh, sq,
+                            sk, sv, so, sm_scale, vec, stream);
 }
 
 }  // namespace
@@ -480,8 +789,9 @@ int launch_dh(const void* q, const void* k, const void* v, const void* valid,
 extern "C" {
 
 // q [B, H, Sq, Dh], k, v [B, H, Sk, Dh] and out [B, H, Sq, Dh]: device arrays
-// of one dtype, f32 (bf16 == 0) or bf16 (bf16 == 1), addressed through the
-// given batch, head and row strides (in elements) with unit stride along Dh.
+// of one dtype, addressed through the given batch, head and row strides (in
+// elements) with unit stride along Dh. arm: 0 f32 at 3xTF32, 1 bf16, 2 f32
+// with operands rounded to TF32, 3 f32 with bf16 operands (kArm*).
 // valid: [B, Sk] bytes, contiguous, nonzero = attend, or null for all keys.
 // Returns a cudaError_t (0 on success) after the asynchronous launch.
 int mld_flash_forward(const void* q, const void* k, const void* v,
@@ -490,18 +800,18 @@ int mld_flash_forward(const void* q, const void* k, const void* v,
                       long long q_sr, long long k_sb, long long k_sh,
                       long long k_sr, long long v_sb, long long v_sh,
                       long long v_sr, long long o_sb, long long o_sh,
-                      long long o_sr, float sm_scale, int bf16, void* stream) {
+                      long long o_sr, float sm_scale, int arm, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || Sq <= 0 || Sk <= 0 ||
-      Dh < 4 || Dh > 128 || Dh % 4 != 0)
+      Dh < 4 || Dh > 128 || Dh % 4 != 0 || arm < kArmF32 || arm > kArmBf16Ops)
     return (int)cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sr}, sk{k_sb, k_sh, k_sr},
       sv{v_sb, v_sh, v_sr}, so{o_sb, o_sh, o_sr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_dh<__nv_bfloat16>(q, k, v, valid, out, B, H, Sq, Sk, Dh, sq,
-                                    sk, sv, so, sm_scale, st);
-  return launch_dh<float>(q, k, v, valid, out, B, H, Sq, Sk, Dh, sq, sk, sv, so,
-                          sm_scale, st);
+  if (arm == kArmBf16)
+    return launch_dh<__nv_bfloat16>(arm, q, k, v, valid, out, B, H, Sq, Sk,
+                                    Dh, sq, sk, sv, so, sm_scale, st);
+  return launch_dh<float>(arm, q, k, v, valid, out, B, H, Sq, Sk, Dh, sq, sk,
+                          sv, so, sm_scale, st);
 }
 
 }  // extern "C"

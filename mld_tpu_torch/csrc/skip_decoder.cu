@@ -103,7 +103,7 @@ extern "C" int mld_flash_forward(const void* q, const void* k, const void* v,
                                  long long q_sr, long long k_sb, long long k_sh,
                                  long long k_sr, long long v_sb, long long v_sh,
                                  long long v_sr, long long o_sb, long long o_sh,
-                                 long long o_sr, float sm_scale, int bf16, void* stream);
+                                 long long o_sr, float sm_scale, int arm, void* stream);
 
 namespace {
 
@@ -743,7 +743,8 @@ int run(const float* tgt, const float* mem, const int* valid, float* out, const 
       LAUNCHED((gemm<W, kStore>(g, stream)));
       LAUNCHED(mld_flash_forward(qkv, qkv + D, qkv + 2 * D, key_ok, attn, B, H, T, T, Dh,
                                  (long long)T * D3, Dh, D3, (long long)T * D3, Dh, D3,
-                                 (long long)T * D3, Dh, D3, (long long)T * D, Dh, D, scale, 0,
+                                 (long long)T * D3, Dh, D3, (long long)T * D, Dh, D, scale,
+                                 0 /* 3xTF32 under every precision, as JAX pins HIGHEST */,
                                  stream));
       g = gemm_args(attn, D, layer_mat<W>(wt.wo_s, l, D, D), D, wt.bo_s + lD, y, D, R, D);
       g.res = x;

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from mld_tpu_torch.ops.rotation import rotation_6d_to_matrix
+from mld_tpu_torch.utils import precision
 
 SMPL_NUM_JOINTS = 24
 
@@ -59,15 +60,25 @@ def _rest_offsets(joints_rest, parents) -> np.ndarray:
 def _fk_from_matrices(rot_mats: torch.Tensor, rel: torch.Tensor, parents):
     """Forward kinematics over the tree, one joint a step: rot_mats
     [B, J, 3, 3], rel [J, 3] (``_rest_offsets``) -> (positions [B, J, 3],
-    global rotations [B, J, 3, 3])."""
+    global rotations [B, J, 3, 3]). Its products take the matmul
+    precision in force, as the JAX package's ``jnp.matmul`` and ``einsum``
+    inherit it (``precision.matmul``)."""
     B = rot_mats.shape[0]
+    mode = precision.arithmetic()
     glob_rot = [rot_mats[:, 0]]
     glob_pos = [rel[0].expand(B, 3)]
     for j in range(1, len(parents)):
         p = parents[j]
-        glob_rot.append(glob_rot[p] @ rot_mats[:, j])
-        glob_pos.append(torch.einsum("bij,j->bi", glob_rot[p], rel[j])
-                        + glob_pos[p])
+        if mode == "f32":
+            glob_rot.append(glob_rot[p] @ rot_mats[:, j])
+            offset = torch.einsum("bij,j->bi", glob_rot[p], rel[j])
+        else:
+            glob_rot.append(precision.matmul(glob_rot[p], rot_mats[:, j],
+                                             mode))
+            offset = precision.matmul(glob_rot[p],
+                                      rel[j].expand(B, 3)[..., None],
+                                      mode)[..., 0]
+        glob_pos.append(offset + glob_pos[p])
     return torch.stack(glob_pos, dim=1), torch.stack(glob_rot, dim=1)
 
 

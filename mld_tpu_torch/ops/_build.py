@@ -45,7 +45,7 @@ _SIGNATURES = {
     # (q, k, v, out, BH, S, Dh, sm_scale, bf16, stream)
     "mld_flash_causal_forward": [_P] * 4 + [_I] * 3 + [_F, _I, _P],
     # (q, k, v, valid or null, out, B, H, Sq, Sk, Dh, batch/head/row strides
-    #  of q, k, v and out, sm_scale, bf16, stream)
+    #  of q, k, v and out, sm_scale, arm (attention.FLASH_ARMS), stream)
     "mld_flash_forward": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
 }
 

@@ -16,6 +16,14 @@ TPU measurement. Its fully masked rows average v over the Sk real keys, as
 ``sdpa_xla`` does; the TPU kernel divides by Sk padded to 128 there
 (ROADMAP.md, section 3).
 
+For f32 tensors ``sdpa`` computes at the matmul precision in force
+(``utils/precision.py``), as ``sdpa_xla``'s einsums inherit JAX's: "f32"
+under highest (K3's 3xTF32 arm), q, k, the normalised probabilities and v
+rounded to TF32 under high or to bf16 under default (K3's 1xTF32 and
+bf16-operand arms, f32 sums and output). bf16 tensors are left as they
+are. The plain version rounds at the same points, and every product of its
+backward rounds its operands too (``precision.matmul``).
+
 Both wrappers are differentiable. When autograd tracks q, k or v on the
 card, the call goes through a ``torch.autograd.Function`` whose forward is
 the kernel and whose backward is the VJP of the plain version, recomputed
@@ -31,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import precision
 from . import _build, work
 from .dropout import dropout
 
@@ -43,23 +52,50 @@ MAX_DH = 128
 # kernel launches made by sdpa_flash_causal (K4) and by sdpa (K3), CUDA only
 LAUNCHES = 0
 FLASH_LAUNCHES = 0
+# K3's arms, the C entry's `arm`: f32 tensors at 3xTF32 ("f32"), at
+# operands rounded to TF32 ("tf32") or to bf16 ("bf16"), and bf16 tensors;
+# and K3's launches by arm
+FLASH_ARMS = {"f32": 0, "bf16 tensors": 1, "tf32": 2, "bf16": 3}
+FLASH_ARM_LAUNCHES = dict.fromkeys(FLASH_ARMS, 0)
+
+
+def flash_arithmetic(q: torch.Tensor) -> str:
+    """The arithmetic of sdpa's products on q's dtype: f32 tensors at the
+    precision in force ("f32", "tf32" or "bf16"), bf16 tensors "f32"
+    (their products are exact, as JAX's precision leaves bf16 dots)."""
+    return precision.arithmetic() if q.dtype == torch.float32 else "f32"
 
 
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
                 dropout_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                arithmetic: str = "f32") -> torch.Tensor:
     """K3's function in plain PyTorch (``_flash_kernel``,
     ``attention.py:77-105``): q, k, v upcast to f32, f32 scores times
     1/sqrt(Dh), -1e9 at invalid keys, f32 softmax and P.V, output in q's
     dtype. key_valid: [B, Sk] bool (True = attend) or None for all keys.
     With a generator and dropout_rate > 0, the probabilities are dropped
-    as ``sdpa_xla`` drops them (``attention.py:48-73``)."""
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    as ``sdpa_xla`` drops them (``attention.py:48-73``).
+
+    arithmetic "tf32" or "bf16" (f32 tensors): ``sdpa_xla`` at a reduced
+    precision, step by step: q and k rounded, f32 scores times 1/sqrt(Dh),
+    -1e9 at invalid keys, f32 softmax, the dropout, the normalised
+    probabilities and v rounded, P.V summed and returned in f32; the
+    backward's products round their operands too (``precision.matmul``)."""
+    if arithmetic != "f32":
+        if q.dtype != torch.float32:
+            raise ValueError(f"a {arithmetic} attention takes f32 tensors, "
+                             f"got {q.dtype}")
+        scores = precision.matmul(q, k.transpose(-1, -2), arithmetic)
+    else:
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     scores = scores * (1.0 / math.sqrt(q.shape[-1]))
     if key_valid is not None:
         scores = scores.masked_fill(~key_valid[:, None, None, :], NEG_INF)
     probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator)
+    if arithmetic != "f32":
+        return precision.matmul(probs, v, arithmetic)
     return torch.matmul(probs, v.float()).to(q.dtype)
 
 
@@ -102,9 +138,19 @@ def _check_flash(q, k, v, key_valid):
                          f"{tuple(key_valid.shape)} on {key_valid.device}")
 
 
-def flash_operands(q, k, v, key_valid):
+def flash_arm(q: torch.Tensor, arithmetic: str) -> str:
+    """K3's arm (a key of FLASH_ARMS) for q's dtype at `arithmetic`."""
+    if q.dtype == torch.bfloat16:
+        if arithmetic != "f32":
+            raise ValueError(f"a {arithmetic} attention takes f32 tensors")
+        return "bf16 tensors"
+    return arithmetic
+
+
+def flash_operands(q, k, v, key_valid, arithmetic="f32"):
     """The output K3 writes, the C entry's arguments but the stream, and the
-    operands they point into (held by the caller until the launch).
+    operands they point into (held by the caller until the launch);
+    `arithmetic` picks the arm of f32 tensors.
 
     q, k and v are passed as they lie, through their batch, head and row
     strides; only a tensor without a unit stride along Dh is copied (none
@@ -121,15 +167,16 @@ def flash_operands(q, k, v, key_valid):
             None if key_valid is None else key_valid.data_ptr(),
             out.data_ptr(), B, H, Sq, Sk, Dh,
             *(st for t in (q, k, v, out) for st in t.stride()[:3]),
-            1.0 / math.sqrt(Dh), int(q.dtype == torch.bfloat16))
+            1.0 / math.sqrt(Dh), FLASH_ARMS[flash_arm(q, arithmetic)])
     return out, args, (q, k, v, key_valid)
 
 
-def _flash_launch(q, k, v, key_valid):
-    """K3 on the current stream (no synchronisation)."""
+def _flash_launch(q, k, v, key_valid, arithmetic="f32"):
+    """K3 on the current stream (no synchronisation), in `arithmetic`'s
+    arm."""
     global FLASH_LAUNCHES
     _check_flash(q, k, v, key_valid)
-    out, args, _operands = flash_operands(q, k, v, key_valid)
+    out, args, _operands = flash_operands(q, k, v, key_valid, arithmetic)
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -137,26 +184,31 @@ def _flash_launch(q, k, v, key_valid):
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     FLASH_LAUNCHES += 1
+    FLASH_ARM_LAUNCHES[flash_arm(q, arithmetic)] += 1
     work.add("flash_attention", work.dense_attention_flops(q, k))
     return out
 
 
 class _Flash(torch.autograd.Function):
-    """K3 forward; backward the VJP of flash_plain (``_sdpa_pallas_bwd``).
-    key_valid gets no gradient."""
+    """K3 forward; backward the VJP of flash_plain (``_sdpa_pallas_bwd``)
+    in the same arithmetic. key_valid gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_valid):
+    def forward(ctx, q, k, v, key_valid, arithmetic="f32"):
         ctx.save_for_backward(q, k, v, key_valid)
-        return _flash_launch(q, k, v, key_valid)
+        ctx.arithmetic = arithmetic
+        if arithmetic == "f32":
+            return _flash_launch(q, k, v, key_valid)
+        return _flash_launch(q, k, v, key_valid, arithmetic)
 
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, key_valid = ctx.saved_tensors
         dq, dk, dv = _plain_vjp(
-            lambda q_, k_, v_: flash_plain(q_, k_, v_, key_valid),
+            lambda q_, k_, v_: flash_plain(q_, k_, v_, key_valid,
+                                           arithmetic=ctx.arithmetic),
             (q, k, v), grad_out)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,6 +218,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Bidirectional attention. q [B, H, Sq, Dh], k/v [B, H, Sk, Dh],
     key_valid [B, Sk] bool (True = attend) or None -> [B, H, Sq, Dh] in q's
     dtype.
+
+    f32 tensors compute in ``flash_arithmetic``'s arithmetic, read when
+    the call is made: K3's arm and the plain version's rounding follow it.
 
     dropout_rate > 0 (training, with the generator its masks are drawn
     from) takes the plain version with the probabilities dropped on any
@@ -181,18 +236,20 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     QKV projection, without a copy) and writes the output as [B, Sq, H, Dh]
     memory, returned as a [B, H, Sq, Dh] view, so that merging the heads
     afterwards copies nothing either."""
+    arith = flash_arithmetic(q)
     if dropout_rate > 0.0:
         if generator is None:
             raise ValueError("attention dropout needs the generator its "
                              "masks are drawn from")
-        return flash_plain(q, k, v, key_valid, dropout_rate, generator)
+        return flash_plain(q, k, v, key_valid, dropout_rate, generator,
+                           arith)
     if q.device.type == "cpu":
-        return flash_plain(q, k, v, key_valid)
+        return flash_plain(q, k, v, key_valid, arithmetic=arith)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     if _tracked(q, k, v):
-        return _Flash.apply(q, k, v, key_valid)
-    return _flash_launch(q, k, v, key_valid)
+        return _Flash.apply(q, k, v, key_valid, arith)
+    return _flash_launch(q, k, v, key_valid, arith)
 
 
 def flash_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -25,11 +25,12 @@ from torch.utils.flop_counter import FlopCounterMode
 from mld_tpu_torch.ops import work
 
 
-def count(fn: Callable) -> int:
+def count(fn: Callable, grad: bool = False) -> int:
     """Operations of one call of fn (aten ops and the kernels it
-    launched)."""
+    launched), under no_grad unless `grad` (a training step's backward)."""
     before = sum(work.FLOPS.values())
-    with torch.no_grad(), FlopCounterMode(display=False) as mode:
+    with torch.set_grad_enabled(grad), \
+            FlopCounterMode(display=False) as mode:
         fn()
     return int(mode.get_total_flops()) + sum(work.FLOPS.values()) - before
 

@@ -7,12 +7,14 @@
 comma-separated ``stage=precision`` pairs over the stages ``clip``, ``scan``
 and ``decode`` (the first pair of a stage counts, as in JAX). Both are read
 when a call is made, in JAX's names, and mapped to the card's arithmetic as
-JAX maps them on a GPU:
+a TPU computes them, the platform the JAX package's precision study ran on:
 
   default / bfloat16 / fastest   bf16 operands, f32 accumulation and result
   high / tensorfloat32           TF32 operands, f32 accumulation
   highest / float32              IEEE f32
 
+"default" as bf16 is the TPU's meaning; JAX on a GPU computes "default"
+and "high" alike in TF32 (jax 0.9.0, ``jax/_src/lax/lax.py:2013-2024``).
 On a TPU "high" is three bf16 passes; here it is TF32 (ROADMAP.md section
 3). An unknown precision or stage raises: nothing falls back to f32.
 
@@ -20,12 +22,16 @@ On a TPU "high" is three bf16 passes; here it is TF32 (ROADMAP.md section
 `name`, TF32 is on for cuBLAS and cuDNN exactly under "high", and all of it
 is restored on the way out. Outside every scope ``current()`` is the
 session's. What reads it: ``linear`` (every f32 GEMM of the models' linear
-layers, forward and backward) and ``weight_dtype`` (K1's and K5's weight
-arm, ``mld.py:305-312``, ``379-391``). Attention keeps its own precision
-under every setting (K3 and K4, as JAX's kernels pin theirs,
-``mld_tpu/ops/attention.py:89-103``, ``201-203``), and so do the evaluator
-networks, which run under ``matmul_precision("highest")`` whatever the
-session says (``mld_tpu/eval/pipeline.py:75-87``).
+layers, forward and backward), ``weight_dtype`` (K1's and K5's weight
+arm, ``mld.py:305-312``, ``379-391``), the bidirectional attention of f32
+tensors (``ops/attention.py:sdpa``: K3's arm on the card, ``matmul`` in its
+plain version, as ``sdpa_xla``'s einsums inherit JAX's precision) and the
+action presets' forward kinematics (``models/smpl.py``). Pinned whatever
+the session says: the attention inside K5 (3xTF32, as JAX pins HIGHEST
+there, ``mld_tpu/ops/fused_seq_decoder.py:47-59``), K4's causal attention
+(its own arithmetic: the served tower is bf16, where the precision changes
+no product), and the evaluator networks, which run under
+``matmul_precision("highest")`` (``mld_tpu/eval/pipeline.py:75-87``).
 
 On the CPU the GEMM of each arm is its plain version: the operands rounded
 to bf16 or TF32 on the bits, then an f32 product.
@@ -182,6 +188,50 @@ class _ReducedLinear(torch.autograd.Function):
         if ctx.has_bias and ctx.needs_input_grad[2]:
             gb = g.sum(0)
         return gx, gw, gb, None
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """a @ b (batched, same batch dims), f32 in and out, in `mode`'s
+    arithmetic on any device: both operands rounded on the bits, then an
+    f32 product. Products of rounded operands are exact in f32, so this is
+    the reduced product with f32 sums, the plain version K3's reduced arms
+    are held to."""
+    return torch.matmul(round_bits(a, mode), round_bits(b, mode))
+
+
+class _ReducedMatmul(torch.autograd.Function):
+    """a @ b with both operands of every product, the backward's too,
+    rounded to `mode` (``_bmm``), as JAX's VJP dots inherit the
+    precision."""
+
+    @staticmethod
+    def forward(ctx, a, b, mode):
+        ctx.save_for_backward(a, b)
+        ctx.mode = mode
+        return _bmm(a, b, mode)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _bmm(grad, b.transpose(-1, -2), ctx.mode)
+        if ctx.needs_input_grad[1]:
+            gb = _bmm(a.transpose(-1, -2), grad, ctx.mode)
+        return ga, gb, None
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """a @ b of f32 tensors of the same batch dims in `mode` ("f32",
+    "tf32" or "bf16"), forward and backward: ``torch.matmul`` itself under
+    "f32"."""
+    if mode == "f32":
+        return torch.matmul(a, b)
+    if mode not in ("tf32", "bf16") or a.shape[:-2] != b.shape[:-2]:
+        raise ValueError(f"reduced matmul takes tf32 or bf16 over equal "
+                         f"batch dims, got {mode!r} for {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    return _ReducedMatmul.apply(a, b, mode)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
