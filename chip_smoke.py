@@ -14,7 +14,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   2. build: compile the CUDA kernels from mld_tpu_torch/csrc/ with nvcc for
      sm_90a (one nvcc a source, in parallel) and print the build time, the
      ptxas register / shared-memory lines and each kernel's tensor-core
-     instructions in its SASS (HMMA from mma.sync, HGMMA from wgmma);
+     instructions in its SASS (HMMA from mma.sync, HGMMA from wgmma) and
+     its exponentials (MUFU.EX2);
   3. kernel vs plain, each kernel against its plain PyTorch version on the
      card at the main path's shapes, with times (CUDA events over many
      launches after a warm-up), the device time alone (torch.profiler: the
@@ -65,12 +66,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                         by arm) at the plain VAE decode's [128, 4, 196,
                         64] against 197 keys under [1; mask], the module
                         denoiser's [256, 4, 3, 64], raw motion's [256, 4,
-                        198, 64 and 128] and s512's [12, 4, 512, 128],
+                        198, 64 and 128], s512's [12, 4, 512, 128] and
+                        hidden mode's [256, 4, 79, 64], rows off every
+                        tile with a fully masked example at Dh = 68 and
+                        4, and 1,030 keys (the two-sweep kernel's rows),
                         each against flash_plain at its arithmetic by RMS
                         (at most REDUCED_RMS_RATIO of the f32 result's gap
                         to it, which the 3xTF32 result cannot meet) and by
-                        its largest error, with SDPA's time on the same f32
-                        tensors;
+                        its largest error, its time beside the two-sweep
+                        kernel's and SDPA's on the same f32 tensors;
      and the bf16 rounding check: K2 and K5 cut to one layer, whose RMS
      error must stay below a bar that the plain version of a kernel without
      the activation rounding, and of f32 weights, both exceed on the card;
@@ -450,6 +454,30 @@ REDUCED_FLASH_CASES = (
     ("raw enc self", 2 * B_LARGE, 4, T_FRAMES + 2, T_FRAMES + 2, 128, None),
     ("s512 self", 12, 4, S512, S512, 128, None),
 )
+# hidden mode's denoiser self-attention over [z; t; 77 hidden states], the
+# reduced arms' most launched shape on the text-family path (468 a call);
+# Sq and Sk off every tile with a fully masked example, at Dh = 68 and 4
+# (zero columns past Dh); and rows past what the one-sweep kernel keeps on
+# chip (1,030 keys), which take the two-sweep kernel
+REDUCED_FLASH_CASES += (
+    ("hidden denoiser self", 2 * B_LARGE, 4, 79, 79, 64, None),
+    ("odd ragged dh68", 3, 4, 131, 70, 68, "ragged"),
+    ("odd ragged dh4", 3, 4, 131, 70, 4, "ragged"),
+    ("long rows", 2, 4, 1030, 1030, 128, None),
+)
+# the reduced arms' event times, ms, when every row took the two-sweep
+# kernel (PERF.md, section 6, the K3 reduced arms row's earlier times;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+REDUCED_TWO_SWEEP_MS = {
+    ("tf32", "decode self 196->197"): 0.3364,
+    ("bf16", "decode self 196->197"): 0.2640,
+    ("tf32", "plain denoiser self"): 0.0331,
+    ("bf16", "plain denoiser self"): 0.0527,
+    ("tf32", "raw enc self"): 0.9914,
+    ("bf16", "raw enc self"): 0.6819,
+    ("tf32", "s512 self"): 0.2358,
+    ("bf16", "s512 self"): 0.1724,
+}
 # The reduced arms against their plain versions (flash_plain at the same
 # arithmetic). Kernel and plain version round the same operands at the same
 # points; they part where an f32 sum in another order moves a probability
@@ -470,6 +498,7 @@ REDUCED_RMS_RATIO = 0.2
 # the reduced arms' case whose times the kernels line carries beside
 # FLASH_KEY's: the plain VAE decode's self-attention at B = 128
 RED_DECODE = ("decode self 196->197", B_LARGE)
+RED_HIDDEN = ("hidden denoiser self", 2 * B_LARGE)
 REDUCED_MAX_BAR = {"tf32": 1e-3, "bf16": 4e-3}
 RAW_PRESETS = ("novae_humanml3d", "novae_stress_s512")
 # steps of the profiled sampling loop, and of the card-vs-CPU raw-motion
@@ -565,7 +594,8 @@ def phase_build():
 def log_tensor_core_sass(path):
     """Tensor-core instructions in each kernel's SASS, by cuobjdump: HMMA
     (mma.sync) and HGMMA (wgmma), which kernels of the compiled library run
-    on the tensor cores."""
+    on the tensor cores; and MUFU.EX2, the exponentials (an exp written
+    once in a loop's body shows as often as the compiler unrolled it)."""
     from mld_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -577,15 +607,17 @@ def log_tensor_core_sass(path):
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = Counter(HMMA=0, HGMMA=0)
+            counts[fn] = Counter(HMMA=0, HGMMA=0, EX2=0)
         elif fn:
             for op in ("HGMMA", "HMMA"):
                 if op in line:
                     counts[fn][op] += 1
                     break
+            if "MUFU.EX2" in line:
+                counts[fn]["EX2"] += 1
     for fn, n in sorted(counts.items()):
-        log(f"[build] SASS {n['HMMA']:5d} HMMA {n['HGMMA']:5d} HGMMA  "
-            f"{fn[:100]}")
+        log(f"[build] SASS {n['HMMA']:5d} HMMA {n['HGMMA']:5d} HGMMA "
+            f"{n['EX2']:4d} MUFU.EX2  {fn[:100]}")
 
 
 def _time_ms(torch, fn, iters=20, warmup=3):
@@ -1162,7 +1194,8 @@ def check_flash_reduced(torch, lengths, g, cases=REDUCED_FLASH_CASES):
     """K3's reduced arms on f32 tensors vs flash_plain at the same
     arithmetic, each under the precision that picks it (sdpa reads it),
     with the launches counted by arm; the library call is SDPA on the same
-    f32 tensors (its f32 function: no PyTorch call rounds the operands)."""
+    f32 tensors (its f32 function: no PyTorch call rounds the operands),
+    none where an example is fully masked."""
     import torch.nn.functional as F
 
     from mld_tpu_torch.models.mld import lengths_to_mask
@@ -1179,8 +1212,15 @@ def check_flash_reduced(torch, lengths, g, cases=REDUCED_FLASH_CASES):
             frames = (lengths * -(-B // len(lengths)))[:B]
             valid = lengths_to_mask([Sk - T_FRAMES + n for n in frames], Sk,
                                     DEVICE)
+        elif mask == "ragged":
+            valid = lengths_to_mask([Sk, 33, 0], Sk, DEVICE)
+        if valid is not None:
             bias = torch.zeros(B, 1, 1, Sk, device=DEVICE)
             bias.masked_fill_(~valid[:, None, None, :], NEG_INF)
+        library = None
+        if mask != "ragged":
+            def library(q=q, k=k, v=v, bias=bias):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
         f32 = flash_plain(q, k, v, valid)
         for arith, prec, peak in REDUCED_ARMS:
             what = (f"{arith} {label} q [{B}, {H}, {Sq}, {Dh}] Sk={Sk}"
@@ -1194,10 +1234,7 @@ def check_flash_reduced(torch, lengths, g, cases=REDUCED_FLASH_CASES):
                     lambda: sdpa(q, k, v, valid), plain,
                     REDUCED_MAX_BAR[arith] * ref.abs().max().item(), what,
                     lambda arith=arith: attention.FLASH_ARM_LAUNCHES[arith],
-                    library=lambda q=q, k=k, v=v: (
-                        F.scaled_dot_product_attention(q, k, v,
-                                                       attn_mask=bias)),
-                    work=_flash_work(q, k, valid, peak))
+                    library=library, work=_flash_work(q, k, valid, peak))
                 out = sdpa(q, k, v, valid)
             rms, mx = _reduced_errs(torch, out, ref)
             f32_rms, _ = _reduced_errs(torch, f32, ref)
@@ -1206,6 +1243,16 @@ def check_flash_reduced(torch, lengths, g, cases=REDUCED_FLASH_CASES):
                 f"{REDUCED_RMS_RATIO:g} x the f32 result's {f32_rms:.3e}), "
                 f"max {mx:.3e} of scale (bar {REDUCED_MAX_BAR[arith]:g}): "
                 f"{over:.3f} of the bars")
+            before = REDUCED_TWO_SWEEP_MS.get((arith, label))
+            lib = ("none (a fully masked example)" if library is None else
+                   f"{r['library_ms']:.4f} ms (device "
+                   f"{_ms_text(r['library_device_ms'])})")
+            log(f"[kernel] flash_attention {what}: {r['ms']:.4f} ms (device "
+                f"{_ms_text(r['device_ms'])}) against the two-sweep "
+                "kernel's " + (f"{before:.4f} ms" if before else
+                               "(not recorded)")
+                + f" and f32 SDPA's {lib}; bound "
+                f"{r['bound']['bound_ms']:.4f} ms")
             if not over <= 1.0:
                 raise RuntimeError(f"flash_attention {arith} arm disagrees "
                                    f"with its plain version ({what})")
@@ -6117,6 +6164,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
               **arm(red[("bf16", FLASH_KEY)], "bf16_operands_"),
               **arm(red[("tf32", RED_DECODE)], "tf32_decode_"),
               **arm(red[("bf16", RED_DECODE)], "bf16_operands_decode_"),
+              **arm(red[("bf16", RED_HIDDEN)], "bf16_operands_hidden_"),
               # phase 15: K3's launches by arm in a generate_joints call
               precision_launches_by_arm={
                   k: r["flash_arm_launches"]
