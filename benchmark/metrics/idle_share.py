@@ -1,0 +1,7 @@
+"""Share of the profiled window, %, in which no kernel, copy or set ran."""
+
+
+def read(trace):
+    if trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)

@@ -1,0 +1,6 @@
+"""K1's share of its roofline, % (``kernels/k1.py``): the least times of
+its launches in the profiled calls over their device time."""
+
+
+def read(trace):
+    return trace.roofline("k1")
