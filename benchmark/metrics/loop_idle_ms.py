@@ -1,0 +1,8 @@
+"""Device idle ms a call in the gaps that open while the host is in the
+sampling loop (``mld.loop``); None without a device lane."""
+from benchmark.metrics import _program
+
+
+def read(trace):
+    p = _program.phase(trace)
+    return None if p is None else p.idle_ms(_program.LOOP)

@@ -800,7 +800,6 @@ WEIGHT_ARMS = (("f32", "float32", F32_ATOL), ("bf16", "bfloat16", BF16_ATOL))
 
 def check_skip_encoder(torch, encoder, g):
     """K1 vs its plain version on the main path's weights."""
-    from mld_tpu_torch.ops import fused_layer
     from mld_tpu_torch.ops.fused_layer import (skip_encoder_stack,
                                                skip_encoder_stack_plain,
                                                stack_skip_encoder)
@@ -814,7 +813,7 @@ def check_skip_encoder(torch, encoder, g):
                 lambda: skip_encoder_stack(x, st, N_BLOCK, H),
                 lambda: skip_encoder_stack_plain(x, st, N_BLOCK, H),
                 atol, f"{wname} seqs={n} rows={n * S}",
-                lambda: fused_layer.LAUNCHES,
+                _count("launch.k1"),
                 work=_encoder_work(n, N_BLOCK, st))
     return res
 
@@ -823,7 +822,6 @@ def check_skip_encoder_a2m(torch, g):
     """K1 at mld_humanact12's depth (15 layers, n_block = 7) vs its plain
     version, on seeded random weights of that stack."""
     from mld_tpu_torch.models.mld import init_params
-    from mld_tpu_torch.ops import fused_layer
     from mld_tpu_torch.ops.fused_layer import (skip_encoder_stack,
                                                skip_encoder_stack_plain,
                                                stack_skip_encoder)
@@ -842,7 +840,7 @@ def check_skip_encoder_a2m(torch, g):
                 lambda: skip_encoder_stack(x, st, A2M_N_BLOCK, H),
                 lambda: skip_encoder_stack_plain(x, st, A2M_N_BLOCK, H),
                 atol, f"{wname} L={A2M_LAYERS} seqs={n} rows={n * S}",
-                lambda: fused_layer.LAUNCHES,
+                _count("launch.k1"),
                 work=_encoder_work(n, A2M_N_BLOCK, st))
     return res
 
@@ -870,7 +868,7 @@ def check_encoder_layer(torch, layer, g):
                 lambda: fused_encoder_layer(x, layer, st),
                 lambda: skip_encoder_stack_plain(x, st, 0, H),
                 atol, f"{wname} seqs={n}",
-                lambda: fused_layer.LAYER_LAUNCHES,
+                _count("launch.k2"),
                 library=(lambda: lib(x)) if (wname, n) == ("f32", 2 * B_LARGE)
                 else None,
                 work=_encoder_work(n, 0, st))
@@ -913,16 +911,15 @@ def check_skip_decoder(torch, vae, lengths, g):
     are not compared (the TPU kernel's rows there are discarded too). Each
     compared call must launch the kernels the design fixes, as the C entry
     counts them, and torch.profiler must see that many on the device."""
-    from mld_tpu_torch.ops import fused_seq_decoder as fsd
     from mld_tpu_torch.ops.fused_seq_decoder import (launch_count,
                                                      skip_decoder_stack,
                                                      skip_decoder_stack_plain,
                                                      stack_skip_decoder)
 
     def kernel(tgt, mem, valid, st, n_block=N_BLOCK):
-        before = fsd.KERNELS
+        before = _count("kernels.k5")()
         out = skip_decoder_stack(tgt, mem, valid, st, n_block, H)
-        counted = fsd.KERNELS - before
+        counted = _count("kernels.k5")() - before
         want = launch_count(n_block, mem.shape[1])
         if counted != want:
             raise RuntimeError(f"skip_decoder entry launched {counted} "
@@ -940,7 +937,7 @@ def check_skip_decoder(torch, vae, lengths, g):
                 lambda: skip_decoder_stack_plain(tgt, mem, valid, st,
                                                  N_BLOCK, H),
                 atol, f"{wname} B={B} T={T_FRAMES} M=1",
-                lambda: fsd.LAUNCHES, mask=valid, iters=10,
+                _count("launch.k5"), mask=valid, iters=10,
                 work=_decoder_work(tgt, mem, valid, st))
     # the general cross-attention path (can_fuse_decode admits M <= 8): 2
     # latent tokens, and MLD-7's 7 at B=128 in both weight arms (phase 10)
@@ -949,7 +946,7 @@ def check_skip_decoder(torch, vae, lengths, g):
     _hold(torch, "skip_decoder",
           lambda: kernel(tgt, mem, valid, st),
           lambda: skip_decoder_stack_plain(tgt, mem, valid, st, N_BLOCK, H),
-          F32_ATOL, f"f32 B=6 T={T_FRAMES} M=2", lambda: fsd.LAUNCHES,
+          F32_ATOL, f"f32 B=6 T={T_FRAMES} M=2", _count("launch.k5"),
           mask=valid, iters=5)
     tgt, mem, valid = _decode_inputs(torch, vae, lengths, B_LARGE, 7, g)
     for wname, wdt, atol in WEIGHT_ARMS:
@@ -959,7 +956,7 @@ def check_skip_decoder(torch, vae, lengths, g):
             lambda: skip_decoder_stack_plain(tgt, mem, valid, st, N_BLOCK,
                                              H),
             atol, f"{wname} B={B_LARGE} T={T_FRAMES} M=7",
-            lambda: fsd.LAUNCHES, mask=valid, iters=5,
+            _count("launch.k5"), mask=valid, iters=5,
             work=_decoder_work(tgt, mem, valid, st))
     # the bf16 rounding, at the first layer
     st16 = _first_layer(stack_skip_decoder(vae.decoder, torch.bfloat16))
@@ -998,12 +995,12 @@ def profile_decoder(torch, vae, lengths, g):
         # the profiler can drop a trace's events: up to three traces, the
         # first that holds as many kernels as the C entry counted is kept
         for _ in range(3):
-            before = fsd.KERNELS
+            before = _count("kernels.k5")()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 fsd.skip_decoder_stack(tgt, mem, valid, st, N_BLOCK, H)
                 torch.cuda.synchronize()
-            counted = fsd.KERNELS - before
+            counted = _count("kernels.k5")() - before
             traced = [e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA
                       and not e.name.startswith(("Memcpy", "Memset"))]
@@ -1043,7 +1040,6 @@ def check_flash_causal(torch, g, cases=None):
     batch's prompts."""
     import torch.nn.functional as F
 
-    from mld_tpu_torch.ops import attention
     from mld_tpu_torch.ops.attention import (flash_causal_plain,
                                              sdpa_flash_causal)
     res = {}
@@ -1066,7 +1062,7 @@ def check_flash_causal(torch, g, cases=None):
                 lambda: sdpa_flash_causal(q, k, v, scale),
                 lambda: flash_causal_plain(q, k, v, scale),
                 atol, f"{dname} [{B}, {heads}, {s}, {dh}]",
-                lambda: attention.LAUNCHES,
+                _count("launch.k4"),
                 library=lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, scale=scale),
                 work=(2 * B * heads * dh * s * (s + 1),
@@ -1111,7 +1107,6 @@ def check_flash(torch, lengths, g, cases=FLASH_CASES):
     import torch.nn.functional as F
 
     from mld_tpu_torch.models.mld import lengths_to_mask
-    from mld_tpu_torch.ops import attention
     from mld_tpu_torch.ops.attention import NEG_INF, flash_plain, sdpa
 
     res = {}
@@ -1160,7 +1155,7 @@ def check_flash(torch, lengths, g, cases=FLASH_CASES):
                 lambda: flash_plain(q, k, v, valid),
                 atol, f"{dname} {label} q [{B}, {H}, {Sq}, {Dh}] Sk={Sk}"
                 + (f" mask {mask}" if mask else ""),
-                lambda: attention.FLASH_LAUNCHES, library=library,
+                _count("launch.k3"), library=library,
                 work=_flash_work(q, k, valid, FLASH_PEAK[dname]))
             if (label, B) == FLASH_KEY or label == "decode self":
                 res[key]["library_kernels"] = _library_kernels(torch, library)
@@ -1199,7 +1194,6 @@ def check_flash_reduced(torch, lengths, g, cases=REDUCED_FLASH_CASES):
     import torch.nn.functional as F
 
     from mld_tpu_torch.models.mld import lengths_to_mask
-    from mld_tpu_torch.ops import attention
     from mld_tpu_torch.ops.attention import NEG_INF, flash_plain, sdpa
     from mld_tpu_torch.utils import precision
 
@@ -1233,7 +1227,7 @@ def check_flash_reduced(torch, lengths, g, cases=REDUCED_FLASH_CASES):
                     torch, "flash_attention",
                     lambda: sdpa(q, k, v, valid), plain,
                     REDUCED_MAX_BAR[arith] * ref.abs().max().item(), what,
-                    lambda arith=arith: attention.FLASH_ARM_LAUNCHES[arith],
+                    _count("launch.k3." + arith),
                     library=library, work=_flash_work(q, k, valid, peak))
                 out = sdpa(q, k, v, valid)
             rms, mx = _reduced_errs(torch, out, ref)
@@ -1300,22 +1294,28 @@ def _check_joints(torch, joints, mask, shape):
         raise RuntimeError("joints are not zero outside the mask")
 
 
-def _counters():
-    from mld_tpu_torch.ops import attention, fused_layer, fused_seq_decoder
-    return ((fused_layer, "LAUNCHES", "skip_encoder"),
-            (fused_seq_decoder, "LAUNCHES", "skip_decoder"),
-            (fused_seq_decoder, "KERNELS", "skip_decoder_kernels"),
-            (attention, "LAUNCHES", "flash_causal"),
-            (attention, "FLASH_LAUNCHES", "flash_attention"))
+# the launch counters a call is checked by (``utils/trace.py``'s COUNTS)
+COUNTED = {"skip_encoder": "launch.k1", "skip_decoder": "launch.k5",
+           "skip_decoder_kernels": "kernels.k5", "flash_causal": "launch.k4",
+           "flash_attention": "launch.k3"}
+
+
+def _count(prefix):
+    """A reader of the counters of `prefix` (``trace.total``)."""
+    from mld_tpu_torch.utils import trace
+    return lambda: trace.total(prefix)
 
 
 def _reset_counts():
-    for mod, attr, _ in _counters():
-        setattr(mod, attr, 0)
+    """Every launch counter to 0 (by weight dtype and arm too)."""
+    from mld_tpu_torch.utils import trace
+    for key in [k for k in trace.COUNTS
+                if k.startswith(("launch.", "kernels."))]:
+        del trace.COUNTS[key]
 
 
 def _read_counts():
-    return {name: getattr(mod, attr) for mod, attr, name in _counters()}
+    return {name: _count(prefix)() for name, prefix in COUNTED.items()}
 
 
 def _check_counts(counts, want, what):
@@ -3432,7 +3432,6 @@ def check_e2e_kernels(torch, s_full, s_small):
     the evaluation's batch, and the frozen encode's self-attention over
     [2 tokens; 96 frames] at the training batch."""
     from mld_tpu_torch.models.mld import init_params
-    from mld_tpu_torch.ops import fused_layer
     from mld_tpu_torch.ops.fused_layer import (skip_encoder_stack,
                                                skip_encoder_stack_plain,
                                                stack_skip_encoder)
@@ -3464,7 +3463,7 @@ def check_e2e_kernels(torch, s_full, s_small):
             lambda: skip_encoder_stack_plain(x, st, n_block, m.num_heads),
             atol, f"{wname} e2e small D={m.latent_dim} L="
             f"{m.denoiser_num_layers} F={m.ff_size} seqs={2 * eval_b}",
-            lambda: fused_layer.LAUNCHES,
+            _count("launch.k1"),
             work=_encoder_work(2 * eval_b, n_block, st, s, m.latent_dim,
                                m.ff_size))
     dh, T, n_tok = m.latent_dim // m.num_heads, E2E_FRAMES, 2 * m.latent_size
@@ -5250,21 +5249,22 @@ def _env(**values):
 
 def _bf16_counts(reset=False):
     """K1's and K5's launches on bf16 weights (read, or set to 0)."""
-    from mld_tpu_torch.ops import fused_layer, fused_seq_decoder
-    mods = {"skip_encoder": fused_layer, "skip_decoder": fused_seq_decoder}
+    from mld_tpu_torch.utils import trace
+    keys = {"skip_encoder": "launch.k1.bf16", "skip_decoder": "launch.k5.bf16"}
     if reset:
-        for mod in mods.values():
-            mod.BF16_LAUNCHES = 0
-    return {k: mod.BF16_LAUNCHES for k, mod in mods.items()}
+        for key in keys.values():
+            trace.COUNTS.pop(key, None)
+    return {name: trace.COUNTS[key] for name, key in keys.items()}
 
 
 def _flash_arm_counts(reset=False):
     """K3's launches by arm (read, or set to 0)."""
-    from mld_tpu_torch.ops import attention
+    from mld_tpu_torch.ops.attention import FLASH_ARMS
+    from mld_tpu_torch.utils import trace
     if reset:
-        attention.FLASH_ARM_LAUNCHES.update(
-            dict.fromkeys(attention.FLASH_ARM_LAUNCHES, 0))
-    return dict(attention.FLASH_ARM_LAUNCHES)
+        for arm in FLASH_ARMS:
+            trace.COUNTS.pop("launch.k3." + arm, None)
+    return {arm: trace.COUNTS["launch.k3." + arm] for arm in FLASH_ARMS}
 
 
 def _stage_settings():

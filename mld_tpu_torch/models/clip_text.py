@@ -30,6 +30,7 @@ from torch import nn
 
 from mld_tpu_torch.ops.attention import sdpa_flash_causal
 from mld_tpu_torch.ops.transformer import LayerNorm, Linear
+from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.precision import linear
 
 CLIP_VOCAB = 49408
@@ -262,25 +263,28 @@ class ClipTokenizer:
         (docs/ROOFLINE.md:31-39). Do NOT use buckets for "hidden" mode:
         there the denoiser conditions on all 77 hidden states.
         """
-        if self._hf is not None:
-            enc = self._hf(texts, padding="max_length", truncation=True,
-                           max_length=self.context_length, return_tensors="np")
-            out = enc["input_ids"].astype(np.int32)
-        else:
-            out = np.full((len(texts), self.context_length), CLIP_EOS,
-                          np.int32)
-            for i, text in enumerate(texts):
-                words = self._word_re.findall(
-                    text.lower())[: self.context_length - 2]
-                ids = [CLIP_BOS] + [
-                    (zlib.crc32(w.encode("utf-8")) % (CLIP_BOS - 1)) + 1
-                    for w in words] + [CLIP_EOS]
-                out[i, : len(ids)] = ids
-        if buckets:
-            # EOS is the largest vocab id and pad == EOS, so argmax finds
-            # the first EOS = the EOT position (same rule the pooling uses)
-            eot_max = int(out.argmax(axis=-1).max())
-            L = next((b for b in sorted(buckets) if b > eot_max),
-                     self.context_length)
-            out = out[:, :L]
-        return out
+        with trace.span("tokenize"):
+            if self._hf is not None:
+                enc = self._hf(texts, padding="max_length", truncation=True,
+                               max_length=self.context_length,
+                               return_tensors="np")
+                out = enc["input_ids"].astype(np.int32)
+            else:
+                out = np.full((len(texts), self.context_length), CLIP_EOS,
+                              np.int32)
+                for i, text in enumerate(texts):
+                    words = self._word_re.findall(
+                        text.lower())[: self.context_length - 2]
+                    ids = [CLIP_BOS] + [
+                        (zlib.crc32(w.encode("utf-8")) % (CLIP_BOS - 1)) + 1
+                        for w in words] + [CLIP_EOS]
+                    out[i, : len(ids)] = ids
+            if buckets:
+                # EOS is the largest vocab id and pad == EOS, so argmax
+                # finds the first EOS = the EOT position (same rule the
+                # pooling uses)
+                eot_max = int(out.argmax(axis=-1).max())
+                L = next((b for b in sorted(buckets) if b > eot_max),
+                         self.context_length)
+                out = out[:, :L]
+            return out

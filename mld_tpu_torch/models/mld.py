@@ -75,6 +75,7 @@ from mld_tpu_torch.ops.fused_denoiser import can_fuse, precompute_cond
 from mld_tpu_torch.ops.fused_layer import MAX_S
 from mld_tpu_torch.ops.fused_seq_decoder import (can_fuse_decode,
                                                  fused_vae_decode)
+from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
                                          flax_to_state_dict,
                                          state_dict_to_flax)
@@ -486,7 +487,7 @@ class MLD(nn.Module):
         draws (step_noise[i] is step i's). DDIM draws none. The loop
         and its hoisted preamble run in the scan stage's matmul precision
         (``mld.py:490-500``)."""
-        with stage_precision("scan"):
+        with stage_precision("scan"), trace.span("loop"):
             return self._diffusion_reverse(cond_emb, generator, init_latents,
                                            mask, step_noise)
 
@@ -513,27 +514,35 @@ class MLD(nn.Module):
         if fused:
             # K1's step-invariant preamble hoisted out of the loop: the
             # time-embedding table and the projected condition tokens
-            time_tab, cond_lat = precompute_cond(
-                self.denoiser, torch.as_tensor(timesteps, device=self.device),
-                cond_emb)
+            with trace.span("loop.preamble"):
+                time_tab, cond_lat = precompute_cond(
+                    self.denoiser,
+                    torch.as_tensor(timesteps, device=self.device), cond_emb)
         for i, t in enumerate(timesteps):
-            model_in = torch.cat([latents, latents]) if self.do_cfg else latents
-            if fused:
-                out = self.denoiser.fused_forward(
-                    model_in, int(t), cond_emb, time_emb=time_tab[i],
-                    cond_lat=cond_lat)
-            else:
-                out = self.denoiser(model_in, int(t), cond_emb, mask2)
-            if self.do_cfg:
-                out_uncond, out_text = out.chunk(2)
-                out = out_uncond + self.guidance_scale * (out_text - out_uncond)
-            noise = None
-            if ancestral:
-                noise = (torch.randn(latents.shape, generator=generator,
-                                     device=dev) if step_noise is None
-                         else torch.as_tensor(step_noise[i]))
-                noise = noise.to(self.device, torch.float32)
-            latents = self.scheduler.step(out, int(t), latents, noise)
+            with trace.span("loop.step"):
+                model_in = (torch.cat([latents, latents]) if self.do_cfg
+                            else latents)
+                with trace.span("loop.denoise"):
+                    if fused:
+                        out = self.denoiser.fused_forward(
+                            model_in, int(t), cond_emb, time_emb=time_tab[i],
+                            cond_lat=cond_lat)
+                    else:
+                        out = self.denoiser(model_in, int(t), cond_emb, mask2)
+                if self.do_cfg:
+                    with trace.span("loop.cfg"):
+                        out_uncond, out_text = out.chunk(2)
+                        out = out_uncond + self.guidance_scale * (
+                            out_text - out_uncond)
+                with trace.span("loop.scheduler"):
+                    noise = None
+                    if ancestral:
+                        noise = (torch.randn(latents.shape,
+                                             generator=generator, device=dev)
+                                 if step_noise is None
+                                 else torch.as_tensor(step_noise[i]))
+                        noise = noise.to(self.device, torch.float32)
+                    latents = self.scheduler.step(out, int(t), latents, noise)
         return latents
 
     # ----------------------------------------------------------- training
@@ -585,7 +594,7 @@ class MLD(nn.Module):
         in the decode stage's matmul precision, which also picks K5's
         weight arm; training call sites (`serving=False`) keep the
         precision in force (``mld.py:294-312``)."""
-        with _scope("decode", serving):
+        with trace.span("decode"), _scope("decode", serving):
             if training or dropout_generator is not None:
                 return self.vae.decode(z, mask, dropout_generator)
             with torch.no_grad():
@@ -609,8 +618,9 @@ class MLD(nn.Module):
         hold zero rot6d, whose Gram-Schmidt joints are NaN: the JAX package
         multiplies them by the mask and keeps the NaN; the port zeroes
         them.)"""
-        return self.feats2joints(feats).masked_fill(~mask[..., None, None],
-                                                    0.0)
+        with trace.span("joints"):
+            return self.feats2joints(feats).masked_fill(
+                ~mask[..., None, None], 0.0)
 
     def renorm4t2m(self, feats: torch.Tensor) -> torch.Tensor:
         """model-normalised features -> the t2m evaluators' normalisation
@@ -667,18 +677,23 @@ class MLD(nn.Module):
         that row and the prompts are not encoded (without CFG they are);
         action ids [B] -> [zeros; ids], the ids themselves, which the
         denoiser embeds (``mld.py:511-535``)."""
-        if self.condition == "action":
-            actions = torch.as_tensor(cond).to(self.device,
-                                               torch.long).reshape(-1)
-            return (torch.cat([torch.zeros_like(actions), actions])
-                    if self.do_cfg else actions)
-        if not self.do_cfg:
-            return self.encode_text_tokens(cond)
-        uncond = self.encode_uncond()
-        uncond = uncond.expand(cond.shape[0], *uncond.shape[1:])
-        cond_half = (uncond if self.condition == "text_uncond"
-                     else self.encode_text_tokens(cond))
-        return torch.cat([uncond, cond_half])
+        with trace.span("condition"):
+            if self.condition == "action":
+                actions = torch.as_tensor(cond).to(self.device,
+                                                   torch.long).reshape(-1)
+                return (torch.cat([torch.zeros_like(actions), actions])
+                        if self.do_cfg else actions)
+            if not self.do_cfg:
+                with trace.span("condition.tower"):
+                    return self.encode_text_tokens(cond)
+            with trace.span("condition.uncond"):
+                uncond = self.encode_uncond()
+            uncond = uncond.expand(cond.shape[0], *uncond.shape[1:])
+            if self.condition == "text_uncond":
+                return torch.cat([uncond, uncond])
+            with trace.span("condition.tower"):
+                cond_half = self.encode_text_tokens(cond)
+            return torch.cat([uncond, cond_half])
 
     @torch.no_grad()
     def generate_feats(self, cond: torch.Tensor, mask: torch.Tensor, *,
@@ -705,11 +720,12 @@ class MLD(nn.Module):
         """prompt ids [B, L] (or action ids [B]) + mask [B, T] -> [B, T,
         njoints, 3] joints, zero outside the mask. `init_latents` and
         `step_noise` as in diffusion_reverse."""
-        mask = mask.to(self.device)
-        feats = self.generate_feats(cond, mask, generator=generator,
-                                    init_latents=init_latents,
-                                    step_noise=step_noise)
-        return self.masked_joints(feats, mask)
+        with trace.span("generate"):
+            mask = mask.to(self.device)
+            feats = self.generate_feats(cond, mask, generator=generator,
+                                        init_latents=init_latents,
+                                        step_noise=step_noise)
+            return self.masked_joints(feats, mask)
 
     def generate(self, texts: Sequence[str], lengths: Sequence[int],
                  generator: Optional[torch.Generator] = None

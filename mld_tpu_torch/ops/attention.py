@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 
 from ..utils import precision
+from ..utils.trace import COUNTS
 from . import _build, work
 from .dropout import dropout
 
@@ -49,14 +50,12 @@ MAX_CAUSAL_DH = 128
 
 MAX_DH = 128
 
-# kernel launches made by sdpa_flash_causal (K4) and by sdpa (K3), CUDA only
-LAUNCHES = 0
-FLASH_LAUNCHES = 0
 # K3's arms, the C entry's `arm`: f32 tensors at 3xTF32 ("f32"), at
-# operands rounded to TF32 ("tf32") or to bf16 ("bf16"), and bf16 tensors;
-# and K3's launches by arm
+# operands rounded to TF32 ("tf32") or to bf16 ("bf16"), and bf16 tensors.
+# K3's launches count under COUNTS["launch.k3.<arm>"], K4's under
+# COUNTS["launch.k4"] (``utils/trace.py``; CUDA only)
 FLASH_ARMS = {"f32": 0, "bf16 tensors": 1, "tf32": 2, "bf16": 3}
-FLASH_ARM_LAUNCHES = dict.fromkeys(FLASH_ARMS, 0)
+_FLASH_ARM_KEYS = {arm: "launch.k3." + arm for arm in FLASH_ARMS}
 
 
 def flash_arithmetic(q: torch.Tensor) -> str:
@@ -174,7 +173,6 @@ def flash_operands(q, k, v, key_valid, arithmetic="f32"):
 def _flash_launch(q, k, v, key_valid, arithmetic="f32"):
     """K3 on the current stream (no synchronisation), in `arithmetic`'s
     arm."""
-    global FLASH_LAUNCHES
     _check_flash(q, k, v, key_valid)
     out, args, _operands = flash_operands(q, k, v, key_valid, arithmetic)
     lib = _build.library()
@@ -183,9 +181,8 @@ def _flash_launch(q, k, v, key_valid, arithmetic="f32"):
         err = lib.mld_flash_forward(*args, stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
-    FLASH_LAUNCHES += 1
-    FLASH_ARM_LAUNCHES[flash_arm(q, arithmetic)] += 1
-    work.add("flash_attention", work.dense_attention_flops(q, k))
+    COUNTS[_FLASH_ARM_KEYS[flash_arm(q, arithmetic)]] += 1
+    COUNTS["flops.flash_attention"] += work.dense_attention_flops(q, k)
     return out
 
 
@@ -288,7 +285,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 def _flash_causal_launch(q, k, v, sm_scale):
     """K4 on the current stream (no synchronisation)."""
-    global LAUNCHES
     _check(q, k, v)
     B, H, S, Dh = q.shape
     lib = _build.library()
@@ -302,8 +298,8 @@ def _flash_causal_launch(q, k, v, sm_scale):
     if err != 0:
         raise RuntimeError(f"causal-attention kernel launch failed: "
                            f"cudaError {err}")
-    LAUNCHES += 1
-    work.add("flash_causal", work.dense_attention_flops(q, k))
+    COUNTS["launch.k4"] += 1
+    COUNTS["flops.flash_causal"] += work.dense_attention_flops(q, k)
     return out
 
 

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.trace import COUNTS
 from . import _build, work
 
 MAX_S = 8            # short-sequence regime; the latent denoiser has S=3
@@ -40,12 +41,6 @@ def smem_bytes(D: int, F: int, H: int, S: int) -> int:
     split K."""
     return (4 * MAX_TILE_ROWS * (2 * (D + 8) + max(3 * D, F) + 8 + H * S)
             + 4 * 12 * 256)
-
-# kernel launches made by skip_encoder_stack (and those of them on bf16
-# weights) and by fused_encoder_layer (CUDA only)
-LAUNCHES = 0
-BF16_LAUNCHES = 0
-LAYER_LAUNCHES = 0
 
 
 class StackedSkipEncoder(NamedTuple):
@@ -303,17 +298,16 @@ def skip_encoder_stack(x: torch.Tensor, stacked: StackedSkipEncoder,
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream (no synchronisation) or raise, also when autograd
     tracks an input (the kernel has no backward)."""
-    global LAUNCHES, BF16_LAUNCHES
     if x.device.type == "cpu":
         return skip_encoder_stack_plain(x, stacked, n_block, num_heads)
     _build.check_no_grad("skip-encoder", x, *stacked)
     if x.device.type != "cuda":
         raise ValueError(f"no skip-encoder kernel for device {x.device}")
     out = _launch(x, stacked, n_block, num_heads)
-    LAUNCHES += 1
-    BF16_LAUNCHES += stacked.wqkv.dtype == torch.bfloat16
-    work.add("skip_encoder", work.encoder_flops(
-        x.shape[0], x.shape[1], x.shape[2], stacked.w1.shape[-1], n_block))
+    COUNTS["launch.k1.bf16" if stacked.wqkv.dtype == torch.bfloat16
+           else "launch.k1.f32"] += 1
+    COUNTS["flops.skip_encoder"] += work.encoder_flops(
+        x.shape[0], x.shape[1], x.shape[2], stacked.w1.shape[-1], n_block)
     return out
 
 
@@ -327,7 +321,6 @@ def fused_encoder_layer(x: torch.Tensor, layer,
     `stacked` (from stack_encoder_layer) saves restacking per call. CPU
     tensors take the plain version (the stack at n_block = 0); CUDA tensors
     launch the kernel or raise, also when autograd tracks an input."""
-    global LAYER_LAUNCHES
     if stacked is None:
         stacked = stack_encoder_layer(layer)
     H = layer.self_attn.num_heads
@@ -337,7 +330,8 @@ def fused_encoder_layer(x: torch.Tensor, layer,
     if x.device.type != "cuda":
         raise ValueError(f"no encoder-layer kernel for device {x.device}")
     out = _launch(x, stacked, 0, H)
-    LAYER_LAUNCHES += 1
-    work.add("encoder_layer", work.encoder_flops(
-        x.shape[0], x.shape[1], x.shape[2], stacked.w1.shape[-1], 0))
+    COUNTS["launch.k2.bf16" if stacked.wqkv.dtype == torch.bfloat16
+           else "launch.k2.f32"] += 1
+    COUNTS["flops.encoder_layer"] += work.encoder_flops(
+        x.shape[0], x.shape[1], x.shape[2], stacked.w1.shape[-1], 0)
     return out

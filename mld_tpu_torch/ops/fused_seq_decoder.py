@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.trace import COUNTS
 from . import _build, work
 from .attention import NEG_INF
 from .fused_layer import (_layer_norm, _mm, stack_matrices,
@@ -40,13 +41,6 @@ MAX_M = 8        # latent tokens the kernel takes (can_fuse_decode)
 MAX_D = 256      # one GEMM block holds a whole row for the LayerNorm epilogue
 MAX_DH = 128     # the self-attention kernel's (K3) head widths
 WIDTH_STEP = 64  # D and F: whole weight tiles (64 rows) and bf16 stages
-
-# kernel-entry calls made by skip_decoder_stack (CUDA only), those of them
-# on bf16 weights, and the device kernels those calls launched as the C
-# entry counts them (launch_count() a call)
-LAUNCHES = 0
-BF16_LAUNCHES = 0
-KERNELS = 0
 
 
 class StackedSkipDecoder(NamedTuple):
@@ -251,12 +245,12 @@ def skip_decoder_stack_plain(tgt: torch.Tensor, mem: torch.Tensor,
 
 def launch_count(n_block: int, M: int) -> int:
     """Kernels the design launches per call, which the CUDA entry's own
-    count (KERNELS) must equal: the self-attention's key mask once; per
-    layer the QKV GEMM, the self-attention (K3), the out-projection with
-    LN1, and the FFN's two GEMMs (the second with LN3); the cross-attention
-    adds two one-row-a-sequence GEMMs at M=1 (its LN2 rides on LN1's
-    epilogue) and four kernels otherwise (q, K/V, attention, out-projection
-    with LN2); one skip GEMM per output block."""
+    count (``COUNTS["kernels.k5"]``) must equal: the self-attention's key
+    mask once; per layer the QKV GEMM, the self-attention (K3), the
+    out-projection with LN1, and the FFN's two GEMMs (the second with LN3);
+    the cross-attention adds two one-row-a-sequence GEMMs at M=1 (its LN2
+    rides on LN1's epilogue) and four kernels otherwise (q, K/V, attention,
+    out-projection with LN2); one skip GEMM per output block."""
     L = 2 * n_block + 1
     return 1 + L * (5 + (2 if M == 1 else 4)) + n_block
 
@@ -343,7 +337,6 @@ def skip_decoder_stack(tgt: torch.Tensor, mem: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch the kernels on
     the current stream (no synchronisation) or raise, also when autograd
     tracks an input (the kernels have no backward)."""
-    global LAUNCHES, BF16_LAUNCHES, KERNELS
     if tgt.device.type == "cpu":
         return skip_decoder_stack_plain(tgt, mem, valid, stacked, n_block,
                                         num_heads)
@@ -371,11 +364,10 @@ def skip_decoder_stack(tgt: torch.Tensor, mem: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"skip-decoder kernels failed to launch: "
                            f"cudaError {err}")
-    LAUNCHES += 1
-    BF16_LAUNCHES += bf16
-    KERNELS += launched.value
-    work.add("skip_decoder", work.decoder_plain_flops(B, T, M, D, F_,
-                                                      n_block))
+    COUNTS["launch.k5.bf16" if bf16 else "launch.k5.f32"] += 1
+    COUNTS["kernels.k5"] += launched.value
+    COUNTS["flops.skip_decoder"] += work.decoder_plain_flops(
+        B, T, M, D, F_, n_block)
     return out
 
 

@@ -1,13 +1,13 @@
 """The work of each kernel call: floating-point operations and bytes, from
-shapes alone, and the per-kernel operation counters the wrappers add to
-where they launch.
+shapes alone, and the operations the launch wrappers count.
 
 The kernels are launched through ctypes (``ops/_build.py``), not as
 dispatcher ops, so ``torch.utils.flop_counter.FlopCounterMode`` does not
-see them. Each wrapper therefore adds its call's count to ``FLOPS[name]``
-beside its launch counter, where it launches and nowhere else; on the CPU
-the plain versions run as aten ops and the mode counts them
-(``utils/flops.py`` sums the two). A counter counts the products of the
+see them. Each wrapper therefore adds its call's count to
+``COUNTS["flops.<wrapper>"]`` (``utils/trace.py``) beside its launch
+counter, where it launches and nowhere else; on the CPU the plain versions
+run as aten ops and the mode counts them (``utils/flops.py`` sums the
+two). A counter counts the products of the
 kernel's function as its plain version computes them (a product of m x k
 by k x n is 2 m k n), so that a stage counts alike on the card and on the
 CPU: attention over every key, masked or not, and the causal attention's
@@ -19,16 +19,7 @@ it must move, from which ``chip_smoke.py`` takes each kernel's bound.
 """
 from __future__ import annotations
 
-from collections import Counter
-
 import torch
-
-# operations the kernels launched, by wrapper (CUDA only)
-FLOPS: Counter = Counter()
-
-
-def add(name: str, flops: int):
-    FLOPS[name] += int(flops)
 
 
 def encoder_flops(n_seq: int, s: int, d: int, ff: int, n_block: int) -> int:

@@ -99,7 +99,7 @@ def run_point(torch, device, label, B, H, Sq, Sk, Dh, dtype, iters):
 
     from mld_tpu_torch.ops import attention, work
     from mld_tpu_torch.ops.attention import flash_plain, sdpa
-    from mld_tpu_torch.utils import precision
+    from mld_tpu_torch.utils import precision, trace
 
     g = torch.Generator(device=device).manual_seed(0)
     q, k, v = (torch.randn(B, H, S, Dh, generator=g, device=device,
@@ -125,9 +125,10 @@ def run_point(torch, device, label, B, H, Sq, Sk, Dh, dtype, iters):
             def library():
                 return F.scaled_dot_product_attention(q, k, v)
 
-            before = attention.FLASH_ARM_LAUNCHES[arm]
+            key = "launch.k3." + arm
+            before = trace.COUNTS[key]
             out = kernel()
-            launched = attention.FLASH_ARM_LAUNCHES[arm] - before
+            launched = trace.COUNTS[key] - before
             if device.type == "cuda" and launched != 1:
                 raise AssertionError(f"{label} {arm}: {launched} launches of "
                                      f"the arm for one call")

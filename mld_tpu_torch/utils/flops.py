@@ -5,10 +5,11 @@ counterpart of ``scripts/flops.py``'s XLA cost analysis).
 aten ops ``torch.utils.flop_counter.FlopCounterMode`` counts (matrix
 products and convolutions, 2 m k n for an m x k by k x n product; the
 elementwise work is not counted) plus what the kernels launched in the
-call added to their counters (``ops/work.py``; the mode cannot see a ctypes
-launch). On the CPU the kernels' plain versions run as aten ops and the
-mode counts them; each counter counts its kernel's products as that plain
-version computes them, so a stage counts alike on both devices.
+call added to their ``flops.*`` counters (``ops/work.py``,
+``utils/trace.py``; the mode cannot see a ctypes launch). On the CPU the
+kernels' plain versions run as aten ops and the mode counts them; each
+counter counts its kernel's products as that plain version computes them,
+so a stage counts alike on both devices.
 
 XLA counts a ``lax.scan`` body once (a 50-step scan of a 64^3 matmul
 reads 2 x 64^3 + 2), so the JAX package's count of its 50-step sampler
@@ -22,17 +23,17 @@ from typing import Callable, Dict
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from mld_tpu_torch.ops import work
+from mld_tpu_torch.utils import trace
 
 
 def count(fn: Callable, grad: bool = False) -> int:
     """Operations of one call of fn (aten ops and the kernels it
     launched), under no_grad unless `grad` (a training step's backward)."""
-    before = sum(work.FLOPS.values())
+    before = trace.total("flops")
     with torch.set_grad_enabled(grad), \
             FlopCounterMode(display=False) as mode:
         fn()
-    return int(mode.get_total_flops()) + sum(work.FLOPS.values()) - before
+    return int(mode.get_total_flops()) + trace.total("flops") - before
 
 
 def generate_parts(mld, token_ids: torch.Tensor, mask: torch.Tensor,

@@ -45,6 +45,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from . import trace
+
 # JAX's precision names -> the card's arithmetic
 ARITHMETIC = {"default": "bf16", "bfloat16": "bf16", "fastest": "bf16",
               "high": "tf32", "tensorfloat32": "tf32",
@@ -142,23 +144,38 @@ def round_bits(x: torch.Tensor, mode: str) -> torch.Tensor:
     return ((i + 0x0FFF + ((i >> 13) & 1)) & -8192).view(torch.float32)
 
 
+# the span of a reduced GEMM's operand rounding, and the counters of the
+# f32 bytes a reduced linear rounds (``utils/trace.py``), by arithmetic
+_CAST_SPANS = {"bf16": "cast.bf16", "tf32": "cast.tf32"}
+_ACT_BYTES = {"bf16": "cast.act_bytes.bf16", "tf32": "cast.act_bytes.tf32"}
+_WEIGHT_BYTES = {"bf16": "cast.weight_bytes.bf16",
+                 "tf32": "cast.weight_bytes.tf32"}
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     """a [M, K] @ b [K, N], f32 in and out, in `mode`'s arithmetic: the
     plain version on the CPU, cuBLAS on the card (bf16 operands with an f32
     result through ``mm.dtype``; TF32 operands rounded on the bits, then
     cuBLAS's TF32 GEMM, since cuBLAS may give a shape an f32 kernel where
     TF32 is allowed). A card whose torch cannot give the bf16 GEMM an f32
-    result raises."""
-    if a.device.type == "cpu":
-        return round_bits(a, mode) @ round_bits(b, mode)
-    if a.device.type != "cuda":
+    result raises. The operands' rounding is the span ``cast.<mode>``; the
+    GEMM lies outside it."""
+    dev = a.device.type
+    if dev not in ("cpu", "cuda"):
         raise ValueError(f"no {mode} GEMM for device {a.device}")
+    with trace.span(_CAST_SPANS[mode]):
+        if dev == "cuda" and mode == "bf16":
+            a, b = a.bfloat16(), b.bfloat16()
+        else:
+            a, b = round_bits(a, mode), round_bits(b, mode)
+    if dev == "cpu":
+        return a @ b
     if mode == "bf16":
-        return torch.mm(a.bfloat16(), b.bfloat16(), out_dtype=torch.float32)
+        return torch.mm(a, b, out_dtype=torch.float32)
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        return torch.mm(round_bits(a, mode), round_bits(b, mode))
+        return torch.mm(a, b)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
 
@@ -171,6 +188,8 @@ class _ReducedLinear(torch.autograd.Function):
     def forward(ctx, x, w, b, mode):
         ctx.save_for_backward(x, w)
         ctx.mode, ctx.has_bias = mode, b is not None
+        trace.COUNTS[_ACT_BYTES[mode]] += x.numel() * x.element_size()
+        trace.COUNTS[_WEIGHT_BYTES[mode]] += w.numel() * w.element_size()
         y = _mm(x.reshape(-1, x.shape[-1]), w.t(), mode)
         if b is not None:
             y = y + b

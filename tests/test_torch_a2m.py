@@ -54,13 +54,13 @@ from mld_tpu_torch.models import smpl
 from mld_tpu_torch.models.actor_vae import ActorVae
 from mld_tpu_torch.models.denoiser import EmbedAction, MldDenoiser
 from mld_tpu_torch.models.mld import MLD, lengths_to_mask
-from mld_tpu_torch.ops import fused_layer
 from mld_tpu_torch.ops import rotation as trot
 from mld_tpu_torch.ops.embeddings import PositionEmbeddingSine1D
 from mld_tpu_torch.ops.fused_denoiser import (fused_denoiser_forward,
                                               precompute_cond)
 from mld_tpu_torch.ops.transformer import TransformerEncoder
 from mld_tpu_torch.train import steps
+from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.convert import flax_to_state_dict
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -449,11 +449,11 @@ def test_generate_joints_matches_jax(model_pair, fused, monkeypatch):
                                           mask, key))
     _, init_rng = jax.random.split(key)
     init = np.asarray(jmld._init_latents(init_rng, len(actions), mask))
-    before = fused_layer.LAUNCHES
+    before = trace.total("launch.k1")
     out = tmld.generate_joints(torch.from_numpy(actions),
                                lengths_to_mask(lengths, T, "cpu"),
                                init_latents=torch.from_numpy(init)).numpy()
-    assert fused_layer.LAUNCHES == before   # CPU tensors: plain versions
+    assert trace.total("launch.k1") == before   # CPU tensors: plain versions
     assert out.shape == ref.shape == (4, T, 24, 3)
     # padded frames: zero in the port; NaN in JAX (zero rot6d times the
     # mask), a recorded divergence

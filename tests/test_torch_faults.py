@@ -30,7 +30,8 @@ from mld_tpu.utils.torch_convert import torch_state_dict_to_flax
 
 from mld_tpu_torch.config import load_config
 from mld_tpu_torch.models.mld import MLD, lengths_to_mask
-from mld_tpu_torch.ops import attention, fused_layer
+from mld_tpu_torch.ops import attention
+from mld_tpu_torch.utils import trace
 
 SMALL = {"model": {"latent_dim": 64, "ff_size": 128, "num_layers": 3,
                    "denoiser_num_layers": 3, "num_heads": 4,
@@ -76,11 +77,11 @@ def test_module_path_denoiser_matches_jax(pair, monkeypatch, env):
     t = np.asarray([981, 761, 41, 1, 0, 500])
     ref = np.asarray(jmld.denoise(params, jnp.asarray(sample), jnp.asarray(t),
                                   jnp.asarray(cond)))
-    before = fused_layer.LAUNCHES
+    before = trace.total("launch.k1")
     with torch.no_grad():
         out = tmld.denoise(torch.from_numpy(sample), torch.from_numpy(t),
                            torch.from_numpy(cond)).numpy()
-    assert fused_layer.LAUNCHES == before
+    assert trace.total("launch.k1") == before
     np.testing.assert_allclose(out, ref, atol=1e-4)
     # the explicit argument overrides the switch; training ignores it
     fused = MLD(load_config(preset="mld_humanml3d", overrides=SMALL),

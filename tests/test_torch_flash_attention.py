@@ -30,6 +30,7 @@ from mld_tpu_torch.models.denoiser import RawMotionDenoiser
 from mld_tpu_torch.ops import attention
 from mld_tpu_torch.ops.attention import flash_operands, flash_plain, sdpa
 from mld_tpu_torch.ops.transformer import MultiheadAttention, TransformerDecoder
+from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.convert import flax_to_state_dict
 
 
@@ -68,9 +69,9 @@ def test_plain_matches_jax_kernel(case, jdt, tdt, atol):
                       interpret=True)
     t = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
     tv = None if valid is None else torch.from_numpy(valid)
-    before = attention.FLASH_LAUNCHES
+    before = trace.total("launch.k3")
     out = sdpa(*t, tv)
-    assert attention.FLASH_LAUNCHES == before      # CPU: the plain version
+    assert trace.total("launch.k3") == before      # CPU: the plain version
     assert out.dtype == tdt and out.shape == (B, H, Sq, Dh)
     np.testing.assert_array_equal(out.float().numpy(),
                                   flash_plain(*t, tv).float().numpy())

@@ -32,6 +32,7 @@ from mld_tpu_torch.ops.fused_layer import (fused_encoder_layer,
                                            skip_encoder_stack_plain,
                                            stack_encoder_layer)
 from mld_tpu_torch.ops.transformer import TransformerEncoderLayer
+from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
                                          flax_to_state_dict)
 
@@ -66,11 +67,11 @@ def test_plain_causal_matches_jax_kernel(shape, scale, jdt, tdt, atol):
 
 def test_causal_wrapper_takes_plain_version_on_cpu_only():
     q, k, v = (torch.from_numpy(a) for a in _qkv((2, 3, 16, 8), 2))
-    before = attention.LAUNCHES
+    before = trace.total("launch.k4")
     out = sdpa_flash_causal(q, k, v, 0.5)
     np.testing.assert_array_equal(out.numpy(),
                                   flash_causal_plain(q, k, v, 0.5).numpy())
-    assert attention.LAUNCHES == before
+    assert trace.total("launch.k4") == before
     with pytest.raises(ValueError, match="no causal-attention kernel"):
         sdpa_flash_causal(q.to("meta"), k.to("meta"), v.to("meta"))
 
@@ -107,11 +108,11 @@ def test_clip_tower_flash_matches_jax(monkeypatch, jax_flash):
     clip = ClipTextModel(width=64, layers=2, heads=4, projection_dim=64)
     clip.load_state_dict(flax_clip_to_state_dict(
         jax.tree_util.tree_map(np.asarray, params)))
-    before = attention.LAUNCHES
+    before = trace.total("launch.k4")
     with torch.no_grad():
         out = clip(torch.as_tensor(np.array(ids), dtype=torch.long),
                    mode="hidden")
-    assert attention.LAUNCHES == before
+    assert trace.total("launch.k4") == before
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 
@@ -125,10 +126,10 @@ def test_fused_encoder_layer_matches_jax(B, S, D, H, F):
     ref = jax_encoder_layer(jnp.asarray(x), params, H, interpret=True)
     layer = TransformerEncoderLayer(D, H, F)
     layer.load_state_dict(flax_to_state_dict(params))
-    before = fused_layer.LAYER_LAUNCHES
+    before = trace.total("launch.k2")
     with torch.no_grad():
         out = fused_encoder_layer(torch.from_numpy(x), layer)
-    assert fused_layer.LAYER_LAUNCHES == before
+    assert trace.total("launch.k2") == before
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
 
 

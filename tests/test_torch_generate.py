@@ -25,7 +25,7 @@ from mld_tpu.models.mld import lengths_to_mask as jax_lengths_to_mask
 
 from mld_tpu_torch.config import load_config
 from mld_tpu_torch.models.mld import MLD, lengths_to_mask
-from mld_tpu_torch.ops import attention, fused_layer, fused_seq_decoder
+from mld_tpu_torch.utils import trace
 
 SMALL = {"model": {"latent_dim": 64, "ff_size": 128, "num_layers": 3,
                    "denoiser_num_layers": 3, "num_heads": 4,
@@ -65,10 +65,10 @@ def test_generate_joints_matches_jax(pair, monkeypatch):
     _, init_rng = jax.random.split(rng)
     init = np.asarray(jmld._init_latents(init_rng, len(TEXTS), mask))
 
-    before = fused_layer.LAUNCHES
+    before = trace.total("launch.k1")
     out = tmld.generate_joints(ids, lengths_to_mask(LENGTHS, tmld.max_frames, "cpu"),
                                init_latents=torch.from_numpy(init.copy())).numpy()
-    assert fused_layer.LAUNCHES == before  # CPU tensors: plain version
+    assert trace.total("launch.k1") == before  # CPU tensors: plain version
     assert out.shape == ref.shape == (3, 40, 22, 3)
     scale = np.abs(ref).max()
     err = np.abs(out - ref).max()
@@ -100,13 +100,13 @@ def test_kernel_configuration_matches_jax(pair, monkeypatch):
     _, init_rng = jax.random.split(rng_key)
     init = np.asarray(jmld._init_latents(init_rng, len(TEXTS), mask))
 
-    counts = (fused_layer.LAUNCHES, fused_seq_decoder.LAUNCHES,
-              attention.LAUNCHES)
+    counts = (trace.total("launch.k1"), trace.total("launch.k5"),
+              trace.total("launch.k4"))
     out = tmld.generate_joints(ids, lengths_to_mask(LENGTHS, tmld.max_frames, "cpu"),
                                init_latents=torch.from_numpy(init.copy())).numpy()
     # CPU tensors: every wrapper took its plain version
-    assert (fused_layer.LAUNCHES, fused_seq_decoder.LAUNCHES,
-            attention.LAUNCHES) == counts
+    assert (trace.total("launch.k1"), trace.total("launch.k5"),
+            trace.total("launch.k4")) == counts
     assert out.shape == ref.shape == (3, 40, 22, 3)
     scale = np.abs(ref).max()
     err = np.abs(out - ref).max()
@@ -115,12 +115,12 @@ def test_kernel_configuration_matches_jax(pair, monkeypatch):
 
 def test_generate_returns_motions_per_prompt(pair):
     _, _, tmld = pair
-    before = fused_layer.LAUNCHES
+    before = trace.total("launch.k1")
     motions = tmld.generate(TEXTS, LENGTHS,
                             generator=torch.Generator().manual_seed(1))
     assert [m.shape for m in motions] == [(n, 22, 3) for n in LENGTHS]
     assert all(np.isfinite(m).all() for m in motions)
-    assert fused_layer.LAUNCHES == before
+    assert trace.total("launch.k1") == before
     again = tmld.generate(TEXTS, LENGTHS,
                           generator=torch.Generator().manual_seed(1))
     for a, b in zip(motions, again):

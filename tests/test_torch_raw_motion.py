@@ -37,7 +37,7 @@ from mld_tpu_torch.config import load_config
 from mld_tpu_torch.diffusion.schedulers import DDPMScheduler, DiffusionSchedule
 from mld_tpu_torch.models.denoiser import RawMotionDenoiser
 from mld_tpu_torch.models.mld import MLD, lengths_to_mask
-from mld_tpu_torch.ops import attention, fused_layer, fused_seq_decoder
+from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.convert import flax_to_state_dict
 
 SMALL = {"model": {"latent_dim": 64, "ff_size": 128, "num_layers": 3,
@@ -61,8 +61,8 @@ def _one_torch_thread():
 
 
 def _launches():
-    return (attention.FLASH_LAUNCHES, attention.LAUNCHES,
-            fused_layer.LAUNCHES, fused_seq_decoder.LAUNCHES)
+    return (trace.total("launch.k3"), trace.total("launch.k4"),
+            trace.total("launch.k1"), trace.total("launch.k5"))
 
 
 # -------------------------------------------------------------------- DDPM

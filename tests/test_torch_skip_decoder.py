@@ -36,6 +36,7 @@ from mld_tpu_torch.ops.fused_seq_decoder import (_attend, can_fuse_decode,
                                                  stack_skip_decoder,
                                                  workspace_bytes)
 from mld_tpu_torch.ops.transformer import SkipTransformerDecoder
+from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.convert import flax_to_state_dict
 
 
@@ -171,11 +172,11 @@ def test_wrapper_takes_plain_version_on_cpu_only():
     st = stack_skip_decoder(dec)
     args = (torch.from_numpy(tgt), torch.from_numpy(mem),
             torch.from_numpy(valid))
-    before = fused_seq_decoder.LAUNCHES
+    before = trace.total("launch.k5")
     out = skip_decoder_stack(*args, st, 1, 4)
     np.testing.assert_array_equal(
         out.numpy(), skip_decoder_stack_plain(*args, st, 1, 4).numpy())
-    assert fused_seq_decoder.LAUNCHES == before
+    assert trace.total("launch.k5") == before
     with pytest.raises(ValueError, match="no skip-decoder kernel"):
         skip_decoder_stack(*(a.to("meta") for a in args), st, 1, 4)
     # the kernels are forward-only: off the CPU an input autograd tracks is

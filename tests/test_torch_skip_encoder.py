@@ -30,6 +30,7 @@ from mld_tpu_torch.ops.fused_layer import (cluster_size, pack_fragments,
                                            skip_encoder_stack_plain,
                                            stack_skip_encoder)
 from mld_tpu_torch.ops.transformer import SkipTransformerEncoder
+from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.convert import flax_to_state_dict
 
 
@@ -84,11 +85,11 @@ def test_wrapper_takes_plain_version_on_cpu_only():
     x, _, enc = _stack_pair(L, D, H, F, B)
     st = stack_skip_encoder(enc)
     xt = torch.from_numpy(x)
-    before = fused_layer.LAUNCHES
+    before = trace.total("launch.k1")
     out = skip_encoder_stack(xt, st, 1, H)
     np.testing.assert_array_equal(
         out.numpy(), skip_encoder_stack_plain(xt, st, 1, H).numpy())
-    assert fused_layer.LAUNCHES == before
+    assert trace.total("launch.k1") == before
     with pytest.raises(ValueError, match="no skip-encoder kernel"):
         skip_encoder_stack(xt.to("meta"), st, 1, H)
 

@@ -42,10 +42,10 @@ from mld_tpu_torch.models.denoiser import MldDenoiser, RawMotionDenoiser
 from mld_tpu_torch.models.mld import MLD, lengths_to_mask
 from mld_tpu_torch.models.vae import MldVae
 from mld_tpu_torch.models.vposert_vae import VPosert
-from mld_tpu_torch.ops import attention, fused_layer, fused_seq_decoder
 from mld_tpu_torch.ops import transformer as ttf
 from mld_tpu_torch.ops.embeddings import (PositionEmbeddingSine1D,
                                           build_position_encoding)
+from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.convert import (flax_clip_to_state_dict,
                                          flax_to_state_dict)
 
@@ -78,8 +78,8 @@ def _np(tree):
 
 
 def _launches():
-    return (attention.FLASH_LAUNCHES, attention.LAUNCHES,
-            fused_layer.LAUNCHES, fused_seq_decoder.LAUNCHES)
+    return (trace.total("launch.k3"), trace.total("launch.k4"),
+            trace.total("launch.k1"), trace.total("launch.k5"))
 
 
 # ------------------------------------------------------------- pre-norm
