@@ -28,8 +28,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      each wrapper call compared must launch its kernel once (K5: the C
      entry's count of kernels too):
        K1 skip_encoder  the denoiser stack (S=3, D=256, H=4, F=1024, L=9),
-                        f32 and bf16 weights, up to the evaluation's 64 and
-                        1,920 sequences; and mld_humanact12's L=15 stack at
+                        f32 and bf16 weights, at 2, 256 and 1,024 (B=1,
+                        128 and 512 under CFG), ragged counts, and the
+                        evaluation's 64 and 1,920 sequences; and
+                        mld_humanact12's L=15 stack at
                         64 and 256 sequences;
        K2 encoder_layer one fused layer (S=3, the same widths), 2 and 256
                         sequences, f32 and bf16 weights;
@@ -311,10 +313,11 @@ B_LARGE = 128
 # the evaluation protocol's batches (phase 7): the main pass's 32 prompts,
 # the MultiModality pass's 32 prompts x 30 repeats
 EVAL_B, EVAL_MM_ROWS = 32, 32 * 30
-# sequences per call: B=1 and B=128 under CFG, counts that leave a ragged
-# last tile (the wrapper packs 10 sequences, 30 rows, a tile), and the
-# evaluation's batches under CFG
-KERNEL_SEQS = (2, 2 * B_LARGE, 201, 1001, 2 * EVAL_B, 2 * EVAL_MM_ROWS)
+# sequences per call: B=1, B=128 and B=512 under CFG, counts that leave a
+# ragged last tile (the wrapper packs 10 sequences, 30 rows, a tile, in
+# both arms), and the evaluation's batches under CFG
+KERNEL_SEQS = (2, 2 * B_LARGE, 8 * B_LARGE, 201, 1001, 2 * EVAL_B,
+               2 * EVAL_MM_ROWS)
 LAYER_SEQS = (2, 2 * B_LARGE)
 # action-to-motion (phase 8): mld_humanact12's denoiser stack is 15 layers
 # (n_block = 7) over [z; t; action]; its sequences: the a2m evaluation's

@@ -2,8 +2,9 @@
 // (sm_90a): cp.async copies into shared memory, streaming 16-byte loads,
 // the TF32 split of an f32 operand, mma.sync products, ldmatrix fragment
 // loads, 2^x on the multi-function unit, bulk and tensor-map (TMA) copies
-// on mbarriers, named barriers, and warpgroup products (wgmma) with their
-// shared-memory descriptors and fences.
+// on mbarriers, named barriers, stores into other blocks' shared memory of
+// a cluster that complete on their mbarriers, and warpgroup products
+// (wgmma) with their shared-memory descriptors and fences.
 //
 // Fragment layouts (PTX ISA, mma.sync), for lane = 4 g + t of a warp:
 //   m16n8k8 TF32  A (16 x 8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
@@ -221,6 +222,36 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   }
 }
 
+// ------------------------------------------------ stores across a cluster
+// a 16-byte store into the shared memory of block `rank` of the cluster, at
+// dst's offset, whose bytes complete on the barrier at bar's offset there
+// (st.async: the writer neither waits nor fences; the reader waits on its
+// barrier, which expects the bytes)
+__device__ __forceinline__ void st_async_remote(void* dst, const uint4& v, uint64_t* bar,
+                                                unsigned rank) {
+  asm volatile(
+      "{\n.reg .b32 ra, rb;\nmapa.shared::cluster.u32 ra, %0, %6;\n"
+      "mapa.shared::cluster.u32 rb, %1, %6;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [ra], {%2, %3, %4, %5}, "
+      "[rb];\n}\n" ::"r"(smem_addr(dst)),
+      "r"(smem_addr(bar)), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(rank)
+      : "memory");
+}
+
+// mbar_wait, acquiring at cluster scope what other blocks wrote
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  for (unsigned polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+        "[%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
 // registers written by other instructions are ready for the next wgmma
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -302,6 +333,20 @@ __device__ __forceinline__ void wgmma_bf16_n32(float (&d)[16], const uint32_t (&
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d (+)= a . b with both operands in shared memory, K-major: a 64 x 16 bf16
+// (desc_a), b 16 x 32 bf16 (desc_b); d 64 x 32 f32 as above
+__device__ __forceinline__ void wgmma_bf16_ss_n32(float (&d)[16], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // the same with a 64 x 16 bf16 A (the m16n8k16 A layout) and b 16 x 128 bf16

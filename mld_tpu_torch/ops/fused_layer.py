@@ -9,8 +9,9 @@ tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
 The per-layer weights are stacked once, when parameters are loaded
 (``stack_skip_encoder``), into ``[L, in, out]`` matrices (f32, or bf16 for the
 bf16-weight arm), f32 ``[L, K]`` vectors, and a copy of each matrix in the
-order the kernel's tensor-core fragments read it (``pack_fragments``), which
-only the kernel reads. LayerNorm eps is 1e-5, as in the TPU kernel
+order the kernel reads it (``pack_fragments``: the f32 arm's mma.sync
+fragments; ``pack_tiles``: the bf16 arm's wgmma tiles), which only the kernel
+reads. LayerNorm eps is 1e-5, as in the TPU kernel
 (``fused_layer.py:78``).
 
 ``fused_encoder_layer`` is the single fused layer (port of the Pallas
@@ -19,6 +20,7 @@ skip linears, launched through the same CUDA entry at ``n_block = 0``.
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -29,18 +31,31 @@ from . import _build, work
 
 MAX_S = 8            # short-sequence regime; the latent denoiser has S=3
 MAX_TILE_ROWS = 32   # rows (sequences x S) a tile holds: two m16 tiles
+                     # (f32 arm), wgmma's N (bf16 arm)
 LN_EPS = 1e-5
 SMEM_LIMIT = 227 * 1024
 CLUSTERS = (8, 4, 2, 1)  # blocks that can share a tile, largest first
+TILE = 64            # the bf16 arm's weight tiles: 64 features x 64 k
+MIN_STAGES = 4       # the bf16 arm's shallowest ring of weight tiles
 
 
-def smem_bytes(D: int, F: int, H: int, S: int) -> int:
-    """The kernel's shared memory: f32 rows of the 32-row tile for x, t and
-    the QKV / FFN hidden buffer (each padded by 8 floats), the attention
-    probabilities, and 12 x 256 partial sums for the products whose 16 warps
-    split K."""
-    return (4 * MAX_TILE_ROWS * (2 * (D + 8) + max(3 * D, F) + 8 + H * S)
-            + 4 * 12 * 256)
+def smem_bytes(D: int, F: int, H: int, S: int, bf16: bool = False) -> int:
+    """The kernel's shared memory. f32 arm: f32 rows of the 32-row tile for
+    x, t and the QKV / FFN hidden buffer (each padded by 8 floats), the
+    attention probabilities, and 12 x 256 partial sums for the products
+    whose 16 warps split K. bf16 arm (``skip_encoder.cu:bf16_arm::Layout``)
+    at its shallowest ring: MIN_STAGES 8 KB weight tiles, bf16 operand
+    panels for 2D columns, the larger of the f32 QKV rows and the FFN
+    hidden's bf16 panels with f32 rows behind them (padded to 1 KB), x's f32
+    rows (padded by 4 floats), the probabilities, barriers, and 1 KB for
+    the alignment of the swizzled tiles."""
+    rows = MAX_TILE_ROWS
+    if not bf16:
+        return 4 * rows * (2 * (D + 8) + max(3 * D, F) + 8 + H * S) + 4 * 12 * 256
+    x = 4 * rows * (D + 4)
+    big = max(4 * rows * (3 * D + 4), 2 * rows * F + x)
+    return (1024 + MIN_STAGES * (TILE * 128 + 16) + 2 * rows * 2 * D
+            + -(-big // 1024) * 1024 + x + -(-4 * rows * H * S // 16) * 16 + 16)
 
 
 class StackedSkipEncoder(NamedTuple):
@@ -81,24 +96,36 @@ _KERNEL_FIELDS = ("pqkv", "bqkv", "pwo", "bo", "ln1s", "ln1b", "pw1", "b1",
 
 
 def pack_fragments(m: torch.Tensor) -> torch.Tensor:
-    """[L, K, N] matrices -> [L, K * N] in the order the kernel's mma.sync B
-    fragments read them, 16 bytes a lane: k pairs (two mma k steps: 16 rows
-    in f32, 32 in bf16), in each pair the n-tiles of 8 columns, in each
-    n-tile the 32 lanes (lane = 4 g + t holds column g), in each lane step 0
-    then step 1 of its weights: f32 (m16n8k8, k permuted so that t <-> 2t,
-    t + 4 <-> 2t + 1) rows 2t and 2t + 1 of the step; bf16 (m16n8k16) rows
-    2t, 2t + 1, 2t + 8, 2t + 9. A warp's load of one n-tile is then 512
-    contiguous bytes, and a run of n-tiles is contiguous."""
+    """f32 [L, K, N] matrices -> [L, K * N] in the order the f32 arm's
+    mma.sync B fragments read them, 16 bytes a lane: k pairs (two m16n8k8
+    steps, 16 rows), in each pair the n-tiles of 8 columns, in each n-tile
+    the 32 lanes (lane = 4 g + t holds column g), in each lane step 0 then
+    step 1 of its weights, rows 2t and 2t + 1 of the step (k permuted so
+    that t <-> 2t, t + 4 <-> 2t + 1). A warp's load of one n-tile is then
+    512 contiguous bytes, and a run of n-tiles is contiguous."""
     L, K, N = m.shape
-    if m.dtype == torch.bfloat16:
-        # k = 32p + 16s + 8h + 2t + e, n = 8j + g -> (p, j, g, t, s, h, e)
-        v = m.reshape(L, K // 32, 2, 2, 4, 2, N // 8, 8)
-        v = v.permute(0, 1, 6, 7, 4, 2, 3, 5)
-    else:
-        # k = 16p + 8s + 2t + e, n = 8j + g -> (p, j, g, t, s, e)
-        v = m.reshape(L, K // 16, 2, 4, 2, N // 8, 8)
-        v = v.permute(0, 1, 5, 6, 3, 2, 4)
+    # k = 16p + 8s + 2t + e, n = 8j + g -> (p, j, g, t, s, e)
+    v = m.reshape(L, K // 16, 2, 4, 2, N // 8, 8)
+    v = v.permute(0, 1, 5, 6, 3, 2, 4)
     return v.reshape(L, K * N).contiguous()
+
+
+def pack_tiles(m: torch.Tensor) -> torch.Tensor:
+    """bf16 [L, K, N] matrices -> [L, K * N] as the bf16 arm's bulk copies
+    bring them into shared memory, wgmma's A operand (K-major): the
+    transpose [N, K] cut into tiles of 64 output features x 64 k (8 KB),
+    feature tiles outermost, then k; in a tile 64 rows (features) of 128
+    bytes, in wgmma's 128-byte swizzle: the 16-byte chunk c of row f (k =
+    8c .. 8c + 7 of the tile) stored at chunk c ^ (f % 8)."""
+    L, K, N = m.shape
+    if K % TILE or N % TILE:  # widths the kernel refuses (_check): as they are
+        return m.reshape(L, K * N).contiguous()
+    # n = 64 mt + f, k = 64 ks + 8 c + e -> (mt, ks, f, c, e)
+    v = m.transpose(1, 2).reshape(L, N // TILE, TILE, K // TILE, 8, 8)
+    v = v.permute(0, 1, 3, 2, 4, 5)
+    f = torch.arange(TILE, device=m.device)[:, None]
+    chunk = torch.arange(8, device=m.device)[None, :] ^ (f % 8)
+    return v[:, :, :, f, chunk].reshape(L, K * N).contiguous()
 
 
 def stack_matrices(ws, weight_dtype) -> torch.Tensor:
@@ -130,6 +157,7 @@ def _stack_layers(layers, skips, D: int, device,
         return stack_matrices(ws, weight_dtype)
 
     vec = stack_vectors
+    pack = pack_tiles if weight_dtype == torch.bfloat16 else pack_fragments
     wsx, wss, bs = stack_skip_linears(skips, D, device, weight_dtype)
     mats = dict(wqkv=mat(l.self_attn.in_proj_weight for l in layers),
                 wo=mat(l.self_attn.out_proj.weight for l in layers),
@@ -145,7 +173,7 @@ def _stack_layers(layers, skips, D: int, device,
         ln2s=vec(l.norm2.weight for l in layers),
         ln2b=vec(l.norm2.bias for l in layers),
         bs=bs, **mats,
-        **{p: pack_fragments(mats[m]) for p, m in zip(_PACKED, _MATRICES)})
+        **{p: pack(mats[m]) for p, m in zip(_PACKED, _MATRICES)})
 
 
 def stack_skip_encoder(encoder, weight_dtype=torch.float32
@@ -220,11 +248,14 @@ def _check(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
     F_ = st.w1.shape[-1]
     if not 1 <= S <= MAX_S:
         raise ValueError(f"the kernel is for S <= {MAX_S} tokens (S={S})")
+    bf16 = st.wqkv.dtype == torch.bfloat16
     if (D % num_heads or (D // num_heads) % 4 or D % 64 or F_ % 64
-            or smem_bytes(D, F_, num_heads, S) > SMEM_LIMIT):
+            or (bf16 and D > 256)
+            or smem_bytes(D, F_, num_heads, S, bf16) > SMEM_LIMIT):
         raise ValueError(f"unsupported widths D={D} H={num_heads} F={F_}: "
-                         f"the kernel takes D and F multiples of 64, heads "
-                         f"of a multiple of 4, and a 32-row tile that fits "
+                         f"the kernel takes D and F multiples of 64 (bf16 "
+                         f"weights: D <= 256), heads of a multiple of 4, and "
+                         f"a 32-row tile that fits "
                          f"{SMEM_LIMIT} bytes of shared memory")
     shapes = {"wqkv": (L, D, 3 * D), "bqkv": (L, 3 * D), "wo": (L, D, D),
               "bo": (L, D), "ln1s": (L, D), "ln1b": (L, D),
@@ -254,37 +285,95 @@ def seq_per_block(n_seq: int, S: int) -> int:
     return max(1, min(MAX_TILE_ROWS // S, n_seq))
 
 
-def cluster_size(n_tiles: int, D: int, F: int, num_sms: int) -> int:
+def cluster_size(n_tiles: int, D: int, F: int, num_sms: int,
+                 bf16: bool = False, num_heads: int = 1) -> int:
     """Blocks that share a tile, each multiplying 1/c of every product's
     columns: the largest c of CLUSTERS that keeps n_tiles x c blocks within
-    the SMs and splits D and F (so 3D) into c x n-tiles of 8 columns."""
+    the SMs and splits D and F (so 3D) into c x n-tiles of 8 columns (the
+    f32 arm's mma.sync) or c x tiles of 64 output features (the bf16 arm's
+    wgmma, whose M is 64: c <= 4 at D = 256), whose blocks also split the
+    heads (c divides num_heads)."""
+    n = TILE if bf16 else 8
     for c in CLUSTERS:
-        if n_tiles * c <= num_sms and D % (8 * c) == 0 and F % (8 * c) == 0:
+        if (n_tiles * c <= num_sms and D % (n * c) == 0 and F % (n * c) == 0
+                and (not bf16 or num_heads % c == 0)):
             return c
     return 1
 
 
-def _launch(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
-            num_heads: int) -> torch.Tensor:
+class _Plan(NamedTuple):
+    """What a checked launch on a stack keeps for the next: weak references
+    to the stack's tensors (the same stack came back if they still name
+    them), its weights' pointers in the C entry's order, the tile and the
+    cluster."""
+    refs: tuple
+    weights: tuple
+    spb: int
+    cluster: int
+
+
+# Launches already checked, by stack and input shape. A serving call
+# launches K1 on one stack fifty times, and its loop is host-paced at B=128
+# once the kernel is fast: _check's 21 tensor checks (some 40 us a call on a
+# CPU) then run once, not fifty times
+_PLANS: dict = {}
+_SMS: dict = {}
+
+
+def _plan(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
+          num_heads: int, num_sms: int = None) -> _Plan:
+    key = (id(st.wqkv), tuple(x.shape), x.device, n_block, num_heads)
+    plan = _PLANS.get(key)
+    if (plan is not None and x.dtype == torch.float32 and x.is_contiguous()
+            and all(r() is t for r, t in zip(plan.refs, st))):
+        return plan
     _check(x, st, n_block, num_heads)
     B, S, D = x.shape
-    lib = _build.library()
-    out = torch.empty_like(x)
-    F_ = st.w1.shape[-1]
+    if num_sms is None:
+        if x.device not in _SMS:
+            _SMS[x.device] = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+        num_sms = _SMS[x.device]
     spb = seq_per_block(B, S)
-    tiles = -(-B // spb)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    cluster = cluster_size(tiles, D, F_, sms)
+    cluster = cluster_size(-(-B // spb), D, st.w1.shape[-1], num_sms,
+                           st.wqkv.dtype == torch.bfloat16, num_heads)
+    if len(_PLANS) >= 64:   # stacks come and go with loaded weights
+        _PLANS.clear()
+    plan = _PLANS[key] = _Plan(
+        tuple(weakref.ref(t) for t in st),
+        tuple(getattr(st, f).data_ptr() for f in _KERNEL_FIELDS), spb, cluster)
+    return plan
+
+
+def launch_args(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
+                num_heads: int):
+    """The C entry's arguments but the stream, for x and the stack (checked
+    on first use): (args, out, skip), out and the skip scratch freshly
+    allocated."""
+    plan = _plan(x, st, n_block, num_heads)
+    B, S, D = x.shape
+    out = torch.empty_like(x)
+    tiles = -(-B // plan.spb)
     # the skip stack of each block, [blocks, n_block, 32, D]
-    skip = torch.empty(tiles * cluster * n_block * MAX_TILE_ROWS * D,
+    skip = torch.empty(tiles * plan.cluster * n_block * MAX_TILE_ROWS * D,
                        device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), out.data_ptr(), skip.data_ptr() if n_block else None,
+            *plan.weights, B, S, D, num_heads, st.w1.shape[-1], n_block,
+            plan.spb, plan.cluster, int(st.wqkv.dtype == torch.bfloat16))
+    return args, out, skip
+
+
+def _launch(x: torch.Tensor, st: StackedSkipEncoder, n_block: int,
+            num_heads: int) -> torch.Tensor:
+    args, out, _skip = launch_args(x, st, n_block, num_heads)
+    lib = _build.library()
+    if x.device.index == torch.cuda.current_device():
         err = lib.mld_skip_encoder_forward(
-            x.data_ptr(), out.data_ptr(), skip.data_ptr() if n_block else None,
-            *(getattr(st, f).data_ptr() for f in _KERNEL_FIELDS),
-            B, S, D, num_heads, F_, n_block, spb, cluster,
-            int(st.wqkv.dtype == torch.bfloat16), stream)
+            *args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = lib.mld_skip_encoder_forward(
+                *args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"skip-encoder kernel launch failed: cudaError "
                            f"{err}")

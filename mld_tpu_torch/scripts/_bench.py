@@ -88,6 +88,48 @@ def device_ms(fn: Callable, device: torch.device, iters: int = 10,
     return None
 
 
+def edit_source(source: str, name: str, edits) -> str:
+    """``csrc/<source>`` with each (old, new[, count]) edit of a parts
+    study's variant applied; old must occur count times (1 if not given),
+    so that a change of the source fails here first."""
+    from mld_tpu_torch.ops import _build
+
+    src = (_build.CSRC / source).read_text()
+    for old, new, *count in edits:
+        want = count[0] if count else 1
+        if src.count(old) != want:
+            raise RuntimeError(f"variant {name}: {old!r} is in the source "
+                               f"{src.count(old)} times, not {want}")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variant(source: str, entry: str, name: str, edits, out_dir: str):
+    """A parts study's variant of the kernel in ``csrc/<source>``
+    (``edit_source``), built by nvcc into ``<out_dir>/<name>/``; returns its
+    C entry ``entry`` with the signature ``ops/_build.py`` gives it."""
+    import ctypes
+
+    from mld_tpu_torch.ops import _build
+
+    src = edit_source(source, name, edits)
+    d = os.path.join(out_dir, name)
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, source)
+    with open(path, "w") as f:
+        f.write(src)
+    lib = os.path.join(d, "libparts.so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+           "-shared", "-o", lib, path]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-3000:]}")
+    fn = getattr(ctypes.CDLL(lib), entry)
+    fn.argtypes = _build._SIGNATURES[entry]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def bound_ms(flops: float, nbytes: float, unit: str) -> Dict[str, object]:
     """The least time the card could take: its operations over the peak of
     the unit it runs them on (PEAK_FLOPS) or its bytes over the memory

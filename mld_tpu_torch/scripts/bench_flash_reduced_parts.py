@@ -28,10 +28,7 @@ a packed QKV projection, no key mask. Needs the card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -75,30 +72,6 @@ VARIANTS = {"whole": (), "copies": (_NO_PRODUCTS,), "products": _NO_COPIES,
             "no_mma": _NO_COPIES + _NO_MMA}
 
 
-def _build_variant(name, edits, out_dir):
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name}: {old!r} is not in the "
-                               f"source once")
-        src = src.replace(old, new)
-    d = os.path.join(out_dir, name)
-    os.makedirs(d, exist_ok=True)
-    path = os.path.join(d, "flash_attention.cu")
-    with open(path, "w") as f:
-        f.write(src)
-    lib = os.path.join(d, "libparts.so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-           "-shared", "-o", lib, path]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-3000:]}")
-    fn = ctypes.CDLL(lib).mld_flash_forward
-    fn.argtypes = _build._SIGNATURES["mld_flash_forward"]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _operands(B, H, Sq, Sk, Dh, g):
     """q, k, v as head views of packed projections, as the port's
     attention hands them over."""
@@ -117,7 +90,9 @@ def run(iters: int) -> dict:
     out_dir = str(_build.BUILD_DIR / "reduced_parts")
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         libs = dict(zip(VARIANTS, pool.map(
-            lambda kv: _build_variant(kv[0], kv[1], out_dir),
+            lambda kv: _bench.build_variant("flash_attention.cu",
+                                            "mld_flash_forward", *kv,
+                                            out_dir),
             VARIANTS.items())))
     g = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream

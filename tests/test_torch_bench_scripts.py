@@ -7,6 +7,7 @@ twin raises rather than fall back to the CPU, and none imports JAX or the
 JAX package. Their kernels and times on
 the card are ``chip_smoke.py``'s (its bench phase).
 """
+import importlib
 import json
 import os
 import subprocess
@@ -182,3 +183,17 @@ def test_the_twins_import_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module,source", [
+    ("bench_flash_reduced_parts", "flash_attention.cu"),
+    ("bench_skip_encoder_parts", "skip_encoder.cu")])
+def test_parts_study_variants_match_the_source(module, source):
+    # each variant of a parts study edits lines of the kernel's source that
+    # must be there as many times as it says (the study builds them on the
+    # card only; a change of the kernel fails here first)
+    mod = importlib.import_module(f"mld_tpu_torch.scripts.{module}")
+    whole = _bench.edit_source(source, "whole", ())
+    for name, edits in mod.VARIANTS.items():
+        assert (_bench.edit_source(source, name, edits) != whole) == bool(edits)
+

@@ -25,10 +25,10 @@ from mld_tpu_torch.ops import fused_layer
 from mld_tpu_torch.ops.fused_denoiser import (fused_denoiser_forward,
                                               precompute_cond)
 from mld_tpu_torch.ops.fused_layer import (cluster_size, pack_fragments,
-                                           seq_per_block,
+                                           pack_tiles, seq_per_block,
                                            skip_encoder_stack,
                                            skip_encoder_stack_plain,
-                                           stack_skip_encoder)
+                                           smem_bytes, stack_skip_encoder)
 from mld_tpu_torch.ops.transformer import SkipTransformerEncoder
 from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.convert import flax_to_state_dict
@@ -110,6 +110,31 @@ def test_kernel_argument_checks():
         fused_layer._check(xt, st._replace(b1=st.b1.double()), 1, H)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_is_checked_once_a_stack(dtype):
+    # the wrapper checks a stack and shape once and keeps the C entry's
+    # fixed arguments; the same stack again reuses them, another stack (new
+    # tensors) or an input the kernel refuses is checked again
+    L, D, H, F, B = 3, 64, 2, 128, 4
+    _, _, enc = _stack_pair(L, D, H, F, B)
+    st = stack_skip_encoder(enc, dtype)
+    x = torch.zeros(B, 3, D)
+    plan = fused_layer._plan(x, st, 1, H, num_sms=132)
+    assert fused_layer._plan(x, st, 1, H, num_sms=132) is plan
+    assert plan.weights == tuple(getattr(st, f).data_ptr()
+                                 for f in fused_layer._KERNEL_FIELDS)
+    assert (plan.spb, plan.cluster) == (
+        seq_per_block(B, 3),
+        cluster_size(1, D, F, 132, dtype == torch.bfloat16, H))
+    other = stack_skip_encoder(enc, dtype)
+    assert fused_layer._plan(x, other, 1, H, num_sms=132) is not plan
+    with pytest.raises(ValueError, match="f32"):
+        fused_layer._plan(x.double(), st, 1, H, num_sms=132)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_layer._plan(torch.zeros(3, B, D).transpose(0, 1), st, 1, H,
+                          num_sms=132)
+
+
 @pytest.mark.parametrize("n_seq,expect", [(2, 2), (132, 10), (133, 10),
                                           (256, 10), (4096, 10)])
 def test_tile_choice(n_seq, expect):
@@ -117,25 +142,43 @@ def test_tile_choice(n_seq, expect):
     assert seq_per_block(n_seq, 3) == expect
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K,N", [(256, 768), (1024, 256), (64, 128)])
-def test_pack_fragments_is_the_kernels_read_order(dtype, K, N):
-    # csrc/skip_encoder.cu: lane 4g + t loads 16 bytes of n-tile j at k pair
-    # p, element 2s + e of step s (f32) or 4s + e (bf16), from element
-    # ((p * N/8 + j) * 32 + lane) * per_lane + ...
-    w = torch.randn(2, K, N).to(dtype)
-    pair, per_step = (32, 4) if dtype == torch.bfloat16 else (16, 2)
+def test_pack_fragments_is_the_kernels_read_order(K, N):
+    # csrc/skip_encoder.cu, f32 arm: lane 4g + t loads 16 bytes of n-tile j
+    # at k pair p, element 2s + e of step s, from element
+    # ((p * N/8 + j) * 32 + lane) * 4 + ...; b0 = row 2t, b1 = row 2t+1 of
+    # the step (k permuted)
+    w = torch.randn(2, K, N)
     p, j, g, t, st, e = np.meshgrid(
-        np.arange(K // pair), np.arange(N // 8), np.arange(8), np.arange(4),
-        np.arange(2), np.arange(per_step), indexing="ij")
-    idx = ((p * (N // 8) + j) * 32 + 4 * g + t) * 2 * per_step + st * per_step + e
-    if dtype == torch.bfloat16:   # b0 = rows 2t, 2t+1; b1 = rows 2t+8, 2t+9
-        k = p * pair + st * 16 + (e // 2) * 8 + 2 * t + e % 2
-    else:                         # b0 = row 2t, b1 = row 2t+1 (k permuted)
-        k = p * pair + st * 8 + 2 * t + e
+        np.arange(K // 16), np.arange(N // 8), np.arange(8), np.arange(4),
+        np.arange(2), np.arange(2), indexing="ij")
+    idx = ((p * (N // 8) + j) * 32 + 4 * g + t) * 4 + st * 2 + e
+    k = p * 16 + st * 8 + 2 * t + e
     n = 8 * j + g
     packed = pack_fragments(w)
-    assert packed.shape == (2, K * N) and packed.dtype == dtype
+    assert packed.shape == (2, K * N) and packed.dtype == torch.float32
+    for layer in range(2):
+        np.testing.assert_array_equal(packed[layer].numpy()[idx.ravel()],
+                                      w[layer].numpy()[k.ravel(), n.ravel()])
+    assert np.array_equal(np.sort(idx.ravel()), np.arange(K * N))
+
+
+@pytest.mark.parametrize("K,N", [(256, 768), (1024, 256), (256, 1024),
+                                 (64, 128)])
+def test_pack_tiles_is_the_kernels_read_order(K, N):
+    # csrc/skip_encoder.cu, bf16 arm: the producer copies tile (mt, ks) of a
+    # matrix, 8 KB from byte (mt * K/64 + ks) * 8192, and wgmma reads its
+    # element (output feature 64 mt + f, k = 64 ks + 8 c + e) at byte
+    # f * 128 + (c ^ (f % 8)) * 16 + 2 e (K-major, 128-byte swizzle)
+    w = torch.randn(2, K, N).to(torch.bfloat16)
+    mt, ks, f, c, e = np.meshgrid(
+        np.arange(N // 64), np.arange(K // 64), np.arange(64), np.arange(8),
+        np.arange(8), indexing="ij")
+    idx = (mt * (K // 64) + ks) * 4096 + f * 64 + (c ^ (f % 8)) * 8 + e
+    k = 64 * ks + 8 * c + e
+    n = 64 * mt + f
+    packed = pack_tiles(w)
+    assert packed.shape == (2, K * N) and packed.dtype == torch.bfloat16
     for layer in range(2):
         np.testing.assert_array_equal(
             packed[layer].float().numpy()[idx.ravel()],
@@ -143,14 +186,53 @@ def test_pack_fragments_is_the_kernels_read_order(dtype, K, N):
     assert np.array_equal(np.sort(idx.ravel()), np.arange(K * N))
 
 
-@pytest.mark.parametrize("n_tiles,D,F,expect", [
-    (1, 256, 1024, 8), (16, 256, 1024, 8), (17, 256, 1024, 4),
-    (33, 256, 1024, 4), (34, 256, 1024, 2), (26, 256, 1024, 4),
-    (67, 256, 1024, 1), (1, 128, 512, 8), (1, 16, 64, 2), (1, 24, 48, 1)])
-def test_cluster_choice(n_tiles, D, F, expect):
+def test_pack_tiles_keeps_widths_the_kernel_refuses():
+    # a stack whose widths are not whole tiles is still stacked (the plain
+    # version runs it on the CPU); the kernel refuses it in _check
+    w = torch.randn(2, 48, 96).to(torch.bfloat16)
+    assert torch.equal(pack_tiles(w), w.reshape(2, 48 * 96))
+
+
+@pytest.mark.parametrize("dtype,pack", [(torch.float32, pack_fragments),
+                                        (torch.bfloat16, pack_tiles)])
+def test_stack_packs_each_arm_in_its_order(dtype, pack):
+    L, D, H, F, B = 3, 64, 2, 128, 4
+    _, _, enc = _stack_pair(L, D, H, F, B)
+    st = stack_skip_encoder(enc, dtype)
+    for packed, mat in (("pqkv", "wqkv"), ("pwo", "wo"), ("pw1", "w1"),
+                        ("pw2", "w2"), ("psx", "wsx"), ("pss", "wss")):
+        assert torch.equal(getattr(st, packed), pack(getattr(st, mat)))
+
+
+@pytest.mark.parametrize("n_tiles,D,F,bf16,H,expect", [
+    (1, 256, 1024, False, 4, 8), (16, 256, 1024, False, 4, 8),
+    (17, 256, 1024, False, 4, 4), (33, 256, 1024, False, 4, 4),
+    (34, 256, 1024, False, 4, 2), (26, 256, 1024, False, 4, 4),
+    (67, 256, 1024, False, 4, 1), (1, 128, 512, False, 4, 8),
+    (1, 16, 64, False, 4, 2), (1, 24, 48, False, 4, 1),
+    # bf16: whole 64-feature tiles of wgmma a block, so at most D / 64, and
+    # whole heads a block
+    (1, 256, 1024, True, 4, 4), (26, 256, 1024, True, 4, 4),
+    (33, 256, 1024, True, 4, 4), (34, 256, 1024, True, 4, 2),
+    (66, 256, 1024, True, 4, 2), (67, 256, 1024, True, 4, 1),
+    (103, 256, 1024, True, 4, 1), (1, 128, 512, True, 4, 2),
+    (1, 64, 128, True, 4, 1), (1, 256, 1024, True, 2, 2),
+    (1, 256, 1024, True, 8, 4)])
+def test_cluster_choice(n_tiles, D, F, bf16, H, expect):
     # on a 132-SM card: the most blocks a tile that keep every block on an
-    # SM and give each block whole n-tiles (8 columns) of D and F
-    assert cluster_size(n_tiles, D, F, 132) == expect
+    # SM and give each block whole n-tiles of D and F (8 columns for the f32
+    # arm's mma.sync, 64 output features and whole heads for the bf16 arm's
+    # wgmma)
+    assert cluster_size(n_tiles, D, F, 132, bf16, H) == expect
+
+
+@pytest.mark.parametrize("D,F,H,S,fits", [
+    (256, 1024, 4, 3, True), (256, 1024, 4, 8, True), (64, 128, 4, 3, True),
+    (128, 512, 4, 3, True), (512, 2048, 8, 3, False)])
+def test_bf16_ring_fits(D, F, H, S, fits):
+    # the bf16 arm's buffers beside a ring of MIN_STAGES weight tiles (the C
+    # entry requires ring_stages >= 4) fit shared memory at the port's widths
+    assert (smem_bytes(D, F, H, S, bf16=True) <= fused_layer.SMEM_LIMIT) == fits
 
 
 def _denoiser_pair(D, TD, layers, seed=0):
