@@ -65,6 +65,7 @@ from mld_tpu_torch.data.humanml.motion_process import recover_from_ric
 from mld_tpu_torch.diffusion.schedulers import (DDIMScheduler, DDPMScheduler,
                                                 DiffusionSchedule)
 from mld_tpu_torch.models.actor_vae import ActorVae
+from mld_tpu_torch.models import denoise_graph
 from mld_tpu_torch.models.clip_text import (CLIP_CONTEXT, ClipTextModel,
                                             ClipTokenizer)
 from mld_tpu_torch.models.denoiser import MldDenoiser, RawMotionDenoiser
@@ -256,6 +257,12 @@ class MLD(nn.Module):
     loop, decode) in its MLD_TPU_STAGE_PRECISION setting, else the
     session's MLD_TPU_MATMUL_PRECISION (``utils/precision.py``).
 
+    Serving replays the raw-motion denoiser's guided call as one CUDA
+    graph a step (``models/denoise_graph.py``: the same kernels and
+    numbers, the host freed of its ~430 launches), on the card and only
+    while no trace span or profiler watches; otherwise every step is
+    eager.
+
     Neither switch is a fallback: with it on, the kernel launches on the
     card or the call raises. The raw-motion family has no VAE (``vae`` is
     None) and its denoiser works on the frames, so neither switch applies
@@ -303,6 +310,7 @@ class MLD(nn.Module):
                 + (f" ({n_tokens} tokens exceeds the fused stack's {MAX_S})"
                    if n_tokens > MAX_S else ""))
         self.fused_denoiser = fused_denoiser
+        self._graph = None
 
         pe_max_len = max(500, self.max_frames + 8)
         den_kw = dict(
@@ -511,6 +519,9 @@ class MLD(nn.Module):
         timesteps = self.scheduler.timesteps()
         ancestral = isinstance(self.scheduler, DDPMScheduler)
         fused = self.use_fused_denoiser()
+        graph = None
+        if self.raw_motion and denoise_graph.allowed(self.device):
+            graph = self._denoiser_graph(shape, cond_emb, mask2)
         if fused:
             # K1's step-invariant preamble hoisted out of the loop: the
             # time-embedding table and the projected condition tokens
@@ -527,6 +538,8 @@ class MLD(nn.Module):
                         out = self.denoiser.fused_forward(
                             model_in, int(t), cond_emb, time_emb=time_tab[i],
                             cond_lat=cond_lat)
+                    elif graph is not None:
+                        out = graph(model_in, t)
                     else:
                         out = self.denoiser(model_in, int(t), cond_emb, mask2)
                 if self.do_cfg:
@@ -537,13 +550,35 @@ class MLD(nn.Module):
                 with trace.span("loop.scheduler"):
                     noise = None
                     if ancestral:
-                        noise = (torch.randn(latents.shape,
-                                             generator=generator, device=dev)
-                                 if step_noise is None
-                                 else torch.as_tensor(step_noise[i]))
-                        noise = noise.to(self.device, torch.float32)
+                        with trace.span("loop.noise"):
+                            noise = self._step_noise(latents.shape, generator,
+                                                     dev, step_noise, i)
                     latents = self.scheduler.step(out, int(t), latents, noise)
         return latents
+
+    def _denoiser_graph(self, shape, cond_emb, mask2):
+        """The graph of the guided module-path denoiser call at this
+        call's shapes, precision and parameters (captured again when one
+        of them changed), holding the call's condition and mask."""
+        sample = torch.empty((cond_emb.shape[0],) + tuple(shape[1:]),
+                             device=self.device)
+        k = denoise_graph.key(self.denoiser, sample, cond_emb, mask2)
+        if self._graph is None or self._graph.key != k:
+            self._graph = None
+            self._graph = denoise_graph.DenoiserGraph(self.denoiser, k,
+                                                      sample, cond_emb, mask2)
+        return self._graph.condition(cond_emb, mask2)
+
+    def _step_noise(self, shape, generator, dev, step_noise, i):
+        """Step i's ancestral noise on the model's device: drawn from
+        `generator` on `dev` (its bytes counted under ``noise.bytes``), or
+        step_noise[i]."""
+        if step_noise is not None:
+            noise = torch.as_tensor(step_noise[i])
+        else:
+            noise = torch.randn(shape, generator=generator, device=dev)
+            trace.COUNTS["noise.bytes"] += noise.numel() * noise.element_size()
+        return noise.to(self.device, torch.float32)
 
     # ----------------------------------------------------------- training
     def encode_motion(self, feats: torch.Tensor, mask: torch.Tensor, *,

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mld_tpu_torch.utils import trace
 from mld_tpu_torch.utils.precision import linear
 
 from .attention import sdpa
@@ -170,7 +171,9 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerDecoderLayer(nn.Module):
     """Post- or pre-norm decoder layer: self-attn over tgt, cross-attn to
-    memory, FFN (cross_attention.py:297-382)."""
+    memory, FFN (cross_attention.py:297-382), each sublayer with its norm
+    in a span of its own (``attn.self``, ``attn.cross``, ``ffn``;
+    ``utils/trace.py``)."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
                  activation: str = "gelu", eps: float = FLAX_LN_EPS,
@@ -199,17 +202,24 @@ class TransformerDecoderLayer(nn.Module):
             return drop(self.linear2(h))
 
         if self.normalize_before:
-            x = self.norm1(tgt)
-            tgt = tgt + drop(self.self_attn(x, x, x, tgt_valid, generator))
-            x = self.norm2(tgt)
-            tgt = tgt + drop(self.multihead_attn(x, memory, memory,
-                                                 memory_valid, generator))
-            return tgt + ffn(self.norm3(tgt))
-        tgt = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt, tgt_valid,
-                                                   generator)))
-        tgt = self.norm2(tgt + drop(self.multihead_attn(
-            tgt, memory, memory, memory_valid, generator)))
-        return self.norm3(tgt + ffn(tgt))
+            with trace.span("attn.self"):
+                x = self.norm1(tgt)
+                tgt = tgt + drop(self.self_attn(x, x, x, tgt_valid,
+                                                generator))
+            with trace.span("attn.cross"):
+                x = self.norm2(tgt)
+                tgt = tgt + drop(self.multihead_attn(x, memory, memory,
+                                                     memory_valid, generator))
+            with trace.span("ffn"):
+                return tgt + ffn(self.norm3(tgt))
+        with trace.span("attn.self"):
+            tgt = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt,
+                                                       tgt_valid, generator)))
+        with trace.span("attn.cross"):
+            tgt = self.norm2(tgt + drop(self.multihead_attn(
+                tgt, memory, memory, memory_valid, generator)))
+        with trace.span("ffn"):
+            return self.norm3(tgt + ffn(tgt))
 
 
 class TransformerEncoder(nn.Module):

@@ -2,7 +2,10 @@
 ops by self time (the twin of ``scripts/profile_serving.py``), and the
 program's spans.
 
-Builds ``mld_humanml3d`` at full width with random weights, runs the stage
+Builds ``--preset`` (default ``mld_humanml3d``; ``novae_humanml3d`` for
+the raw-motion loop, whose decoder layers and ancestral draws have spans
+of their own, with ``--train-timesteps`` to cut its DDPM-1000) at full
+width with random weights, runs the stage
 once to warm it, traces ``--iters`` calls with the program's spans on
 (``utils/trace.py``), writes the Chrome trace and aggregates the CUDA
 lane's events (kernels, copies, sets) by name: where the time goes inside
@@ -16,6 +19,8 @@ sets) with any ``MLD_TPU_STAGE_PRECISION`` overlay.
     python -m mld_tpu_torch.scripts.profile_serving --stage scan --batch 128
     python -m mld_tpu_torch.scripts.profile_serving --stage decode
     python -m mld_tpu_torch.scripts.profile_serving --stage total --top 10
+    python -m mld_tpu_torch.scripts.profile_serving --preset \
+        novae_humanml3d --train-timesteps 10 --stage total --batch 32
 
 Runs on the card unless ``--device`` names another; on the CPU the lane
 read is the host's operators (their self time).
@@ -185,7 +190,7 @@ def stage_call(mld, stage: str, B: int, seed: int = 0):
         return lambda: mld.encode_text_tokens(ids)
     if stage == "scan":
         cond = randn(2 * B, 1, mld.cfg.model.text_encoded_dim)
-        return lambda: mld.diffusion_reverse(cond, gen)
+        return lambda: mld.diffusion_reverse(cond, gen, mask=mask)
     return lambda: mld.generate_joints(ids, mask, generator=gen)
 
 
@@ -195,6 +200,10 @@ def parse_args(argv=None):
     p.add_argument("--stage", default="decode",
                    choices=["decode", "ric", "clip", "scan", "total"])
     p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--preset", default="mld_humanml3d")
+    p.add_argument("--train-timesteps", type=int, default=None,
+                   help="cut the schedule's train timesteps (the steps of "
+                        "ancestral DDPM)")
     p.add_argument("--iters", type=int, default=8)
     p.add_argument("--top", type=int, default=30)
     p.add_argument("--keep", default=None,
@@ -224,8 +233,11 @@ def _profile(args, device, session):
     from mld_tpu_torch.utils import precision, trace
 
     cuda = device.type == "cuda"
-    mld = MLD(load_config(preset="mld_humanml3d"), device=device,
-              generator=torch.Generator().manual_seed(0))
+    overrides = ({} if args.train_timesteps is None else
+                 {"model": {"scheduler": {
+                     "num_train_timesteps": args.train_timesteps}}})
+    mld = MLD(load_config(preset=args.preset, overrides=overrides),
+              device=device, generator=torch.Generator().manual_seed(0))
     fn = stage_call(mld, args.stage, args.batch)
 
     def sync():
@@ -251,7 +263,8 @@ def _profile(args, device, session):
 
     rows, total, lanes = parse_trace(trace_dir, args.top,
                                      DEVICE_CATS if cuda else HOST_CATS)
-    summary = {"stage": args.stage, "batch": args.batch,
+    summary = {"preset": args.preset, "stage": args.stage,
+               "batch": args.batch,
                "iters": args.iters,
                "device": (torch.cuda.get_device_name(device) if cuda
                           else "cpu"),

@@ -10,7 +10,7 @@ its parent and ``export_chrome_trace`` writes them out. ``enable(on)`` is
 the only switch. Tracing changes no number the program computes.
 
 The spans of a call (``models/mld.py``, ``models/clip_text.py``,
-``utils/precision.py``)::
+``ops/transformer.py``, ``utils/precision.py``)::
 
     tokenize                         ClipTokenizer.__call__
     generate                         MLD.generate_joints
@@ -23,8 +23,14 @@ The spans of a call (``models/mld.py``, ``models/clip_text.py``,
           loop.denoise               the denoiser call
           loop.cfg                   the guidance chunk and combine
           loop.scheduler             the scheduler's update
+            loop.noise               ancestral DDPM's noise draw
       decode                         MLD.decode_latent
       joints                         MLD.masked_joints
+    attn.self, attn.cross, ffn       a TransformerDecoderLayer's sublayers
+                                     with their norms (inside loop.denoise
+                                     for the raw-motion trans_dec denoiser,
+                                     inside decode for the plain VAE and
+                                     ACTOR decoders)
     cast.bf16, cast.tf32             a reduced GEMM's operand rounding
 
 Counters. ``COUNTS`` is always on: one integer add where the work is
@@ -41,9 +47,14 @@ launched. Its keys:
     cast.act_bytes.<bf16|tf32>     f32 bytes of the activations and
     cast.weight_bytes.<bf16|tf32>  weights a reduced linear rounds before
                                    its GEMM (forward only; CPU too)
+    noise.bytes                    bytes of ancestral DDPM's noise drawn
+                                   from the generator (CPU too; replayed
+                                   ``step_noise`` is not counted)
 
 The launch and flops counters count on the card only (the CPU runs the
-plain versions). ``total(prefix)`` sums a family: ``total("launch.k3")``
+plain versions). A CUDA graph replay of the raw-motion denoiser call
+(``models/denoise_graph.py``) adds what its capture counted, so the
+counters read as if every step ran eagerly. ``total(prefix)`` sums a family: ``total("launch.k3")``
 is every K3 launch.
 """
 from __future__ import annotations

@@ -23,17 +23,27 @@ TEXT_SMALL = {"model": {"latent_dim": 32, "ff_size": 64, "num_layers": 3,
 ACTION_SMALL = {"model": {"latent_dim": 32, "ff_size": 64, "num_layers": 3,
                           "denoiser_num_layers": 3, "num_heads": 4,
                           "scheduler": {"num_inference_timesteps": 3}}}
+RAW_SMALL = {"model": {"latent_dim": 32, "ff_size": 64,
+                       "denoiser_num_layers": 2, "num_heads": 2,
+                       "text_encoded_dim": 48, "clip_layers": 2,
+                       "clip_heads": 2, "clip_compute_dtype": "float32",
+                       "scheduler": {"num_train_timesteps": 3}},
+             "dataset": {"max_motion_len": 12}}
 TEXTS = ["a man kicks something with his left leg.", "someone jumps"]
 TEXT_LENGTHS = [24, 13]
 ACTION_LENGTHS = [60, 31]
-# where each span sits: its nearest mld.* ancestor (None: a root)
+RAW_LENGTHS = [12, 7]
+# where each span sits: its nearest mld.* ancestor (None: a root); a
+# decoder layer's sublayers sit in the decode, or in the raw-motion
+# denoiser's call
 PARENT = {"tokenize": None, "generate": None,
           "condition": "generate", "condition.uncond": "condition",
           "condition.tower": "condition", "loop": "generate",
           "loop.preamble": "loop", "loop.step": "loop",
           "loop.denoise": "loop.step", "loop.cfg": "loop.step",
-          "loop.scheduler": "loop.step", "decode": "generate",
-          "joints": "generate"}
+          "loop.scheduler": "loop.step", "loop.noise": "loop.scheduler",
+          "decode": "generate", "joints": "generate"}
+SUBLAYERS = ("attn.self", "attn.cross", "ffn")
 
 
 @pytest.fixture(autouse=True)
@@ -56,6 +66,12 @@ def action_mld():
                device="cpu", fused_denoiser=True)
 
 
+@pytest.fixture(scope="module")
+def raw_mld():
+    return MLD(load_config(preset="novae_humanml3d", overrides=RAW_SMALL),
+               device="cpu")
+
+
 def _text_call(mld):
     mask = lengths_to_mask(TEXT_LENGTHS, mld.max_frames, "cpu")
     init = torch.randn((len(TEXTS), mld.latent_size, mld.latent_dim),
@@ -73,6 +89,15 @@ def _action_call(mld):
                                        init_latents=init)
 
 
+def _raw_call(mld):
+    mask = lengths_to_mask(RAW_LENGTHS, mld.max_frames, "cpu")
+    init = torch.randn((len(TEXTS), mld.max_frames, mld.nfeats),
+                       generator=torch.Generator().manual_seed(5))
+    return lambda: mld.generate_joints(
+        mld.tokenize(TEXTS), mask, init_latents=init,
+        generator=torch.Generator().manual_seed(6))
+
+
 def _profiled(fn):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = fn()
@@ -86,12 +111,15 @@ def _mld_parent(e):
     return p
 
 
-def test_spans_off_record_nothing_and_allocate_nothing(text_mld):
+def test_spans_off_record_nothing_and_allocate_nothing(text_mld, raw_mld):
     assert not trace.enabled()
     assert trace.span("loop") is trace.span("decode")
+    for name in SUBLAYERS + ("loop.noise",):
+        assert trace.span(name) is trace._OFF
     assert isinstance(trace.span("loop"), type(trace._OFF))
-    _, spans = _profiled(_text_call(text_mld))
-    assert spans == []
+    for fn in (_text_call(text_mld), _raw_call(raw_mld)):
+        _, spans = _profiled(fn)
+        assert spans == []
 
 
 @pytest.mark.parametrize("kind", ["text", "action"])
@@ -107,6 +135,8 @@ def test_span_tree(text_mld, action_mld, kind):
     want = {"generate": 1, "condition": 1, "loop": 1, "loop.preamble": 1,
             "loop.step": steps, "loop.denoise": steps, "loop.cfg": steps,
             "loop.scheduler": steps, "decode": 1, "joints": 1}
+    # the plain VAE decoder's and the ACTOR decoder's layers
+    want.update(dict.fromkeys(SUBLAYERS, mld.cfg.model.num_layers))
     if kind == "text":
         want.update({"tokenize": 1, "condition.uncond": 1,
                      "condition.tower": 1})
@@ -119,7 +149,7 @@ def test_span_tree(text_mld, action_mld, kind):
         if name.startswith("cast."):
             assert parent is not None and parent.name != "mld.generate"
             continue
-        want_parent = PARENT[name]
+        want_parent = "decode" if name in SUBLAYERS else PARENT[name]
         assert (parent.name[len("mld."):] if parent else None) \
             == want_parent, name
     for step in (e for e in spans if e.name == "mld.loop.step"):
@@ -132,10 +162,51 @@ def test_span_tree(text_mld, action_mld, kind):
                    for c in spans if _mld_parent(c) is step)
 
 
-@pytest.mark.parametrize("kind", ["text", "action"])
-def test_tracing_changes_no_number(text_mld, action_mld, kind):
-    mld = text_mld if kind == "text" else action_mld
-    fn = _text_call(mld) if kind == "text" else _action_call(mld)
+def test_raw_motion_span_tree_and_noise_bytes(raw_mld):
+    """The raw-motion call's spans: a decoder layer's sublayers inside each
+    denoiser call, the ancestral draw inside each scheduler update; and
+    B * T * 263 * 4 noise bytes a step, counted with the spans off too."""
+    mld = raw_mld
+    steps = len(mld.scheduler.timesteps())
+    layers = mld.cfg.model.denoiser_num_layers
+    before = trace.COUNTS["noise.bytes"]
+    trace.enable(True)
+    with precision.matmul_precision("default"):
+        _, spans = _profiled(_raw_call(mld))
+    trace.enable(False)
+    step_bytes = len(TEXTS) * mld.max_frames * mld.nfeats * 4
+    assert trace.COUNTS["noise.bytes"] - before == steps * step_bytes
+    names = collections.Counter(e.name[len("mld."):] for e in spans)
+    want = {"tokenize": 1, "generate": 1, "condition": 1,
+            "condition.uncond": 1, "condition.tower": 1, "loop": 1,
+            "loop.step": steps, "loop.denoise": steps, "loop.cfg": steps,
+            "loop.scheduler": steps, "loop.noise": steps, "joints": 1}
+    want.update(dict.fromkeys(SUBLAYERS, steps * layers))
+    assert {n: c for n, c in names.items()
+            if not n.startswith("cast.")} == want
+    for e in spans:
+        name = e.name[len("mld."):]
+        if name.startswith("cast."):
+            continue
+        parent = _mld_parent(e)
+        want_parent = "loop.denoise" if name in SUBLAYERS else PARENT[name]
+        assert (parent.name[len("mld."):] if parent else None) \
+            == want_parent, name
+        if parent is not None:
+            assert parent.time_range.start <= e.time_range.start
+            assert e.time_range.end <= parent.time_range.end
+    before = trace.COUNTS["noise.bytes"]
+    with precision.matmul_precision("default"):
+        _raw_call(mld)()
+    assert trace.COUNTS["noise.bytes"] - before == steps * step_bytes
+
+
+@pytest.mark.parametrize("kind", ["text", "action", "raw"])
+def test_tracing_changes_no_number(text_mld, action_mld, raw_mld, kind):
+    mld, fn = {"text": (text_mld, _text_call), "action": (action_mld,
+                                                          _action_call),
+               "raw": (raw_mld, _raw_call)}[kind]
+    fn = fn(mld)
     with precision.matmul_precision("default"):
         off = fn()
         trace.enable(True)
