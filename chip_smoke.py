@@ -77,6 +77,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                         to it, which the 3xTF32 result cannot meet) and by
                         its largest error, its time beside the two-sweep
                         kernel's and SDPA's on the same f32 tensors;
+       LIN linear_bf16  the serving precision's bf16 linear at each shape
+                        of scripts/bench_linear_bf16.py:SHAPES (raw
+                        motion's 12,544 rows at K, N of 263 to 1,536 and
+                        its 64-128 memory rows, the t2m plain decode's at
+                        B=128 and 512, the ACTOR decode's, no bias, one
+                        row, K in segments, unaligned rows), its whole
+                        result against precision.linear_plain on the CPU
+                        within 1e-5 of scale, beside the casts, cuBLAS and
+                        bias add it replaced (the plain version on the
+                        card);
      and the bf16 rounding check: K2 and K5 cut to one layer, whose RMS
      error must stay below a bar that the plain version of a kernel without
      the activation rounding, and of f32 weights, both exceed on the card;
@@ -267,17 +277,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      CPU's own change with every GEMM summed in reverse order; each
      reduced GEMM of the stage replayed from its operands within 1e-5 of
      scale; K1's and K5's stacks bit for bit; highest's joints end to end
-     at 1e-3), and a planted bf16 rounding of every reduced GEMM's result
-     that must miss a bar; each reduced K3 call of the plain VAE decode
-     (launches counted by arm) replayed on the CPU through flash_plain
-     from its own operands at phase 3's reduced bars, and in the planted
-     run launched on the 3xTF32 arm (the behaviour before attention
-     followed the setting), which must miss them; hidden mode and raw
-     motion (DDPM-50) under highest and default and one [25088, 256] x
-     [256, 1024] GEMM under each setting (ms, TFLOP/s; recorded); the
-     evaluators' embeddings bit-identical under default; precision_study
-     on phase 11's workdir (9 arms, 5 at a time), precision_decide, and
-     train_precision_study (highest, default) at phase 11's budgets;
+     at 1e-3; every bf16 reduced linear on the card a launch of the bf16
+     linear kernel: the f32 bytes of x it took equal cast.act_bytes.bf16,
+     in each arm's call and in each reference), and a planted bf16
+     rounding of every reduced GEMM's result that must miss a bar; each
+     reduced K3 call of the plain VAE decode (launches counted by arm)
+     replayed on the CPU through flash_plain from its own operands at
+     phase 3's reduced bars, and in the planted run launched on the
+     3xTF32 arm (the behaviour before attention followed the setting),
+     which must miss them; hidden mode and raw motion (DDPM-50) under
+     highest and default (with the bf16 linear's launches a call) and one
+     [25088, 256] x [256, 1024] GEMM under each setting (ms, TFLOP/s;
+     recorded); the evaluators' embeddings bit-identical under default;
+     precision_study on phase 11's workdir (9 arms, 5 at a time),
+     precision_decide, and train_precision_study (highest, default) at phase 11's budgets;
      profile_serving of the scan at B=128, top 10;
  16. the bench twins (mld_tpu_torch.scripts.bench_*) once each at small
      counts, in this process: bench_stages at B=128, bench_attention at
@@ -1260,6 +1273,37 @@ def check_flash_reduced(torch, lengths, g, cases=REDUCED_FLASH_CASES):
     return res
 
 
+def check_linear_bf16(torch):
+    """The bf16 linear kernel at each shape of
+    ``scripts/bench_linear_bf16.py:SHAPES`` (the raw-motion denoiser's, the
+    t2m plain decode's at B=128 and 512, the ACTOR decode's, and edges:
+    no bias, one row, K in segments, unaligned rows): its whole result
+    against its plain version on the CPU (``precision.linear_plain``)
+    within PREC_GEMM_RTOL of scale and one launch counted a call, with
+    its event and device ms, the plain version's on the card (the two
+    casts, cuBLAS GEMM and bias add it replaced) and the bound."""
+    from mld_tpu_torch.scripts import bench_linear_bf16 as bench
+
+    rows = {}
+    for label, M, K, N, bias in bench.SHAPES:
+        r = bench.run_shape(torch, torch.device(DEVICE), label, M, K, N,
+                            bias, 10)
+        rows[label] = r
+        log(f"[kernel] linear_bf16 {label} [{M}, {K}] x [{K}, {N}]"
+            f"{'' if bias else ', no bias'}: {r['rel_err']:.3e} of scale "
+            f"from its plain version (bar {PREC_GEMM_RTOL:g}), "
+            f"{r['launches']} launch; kernel {r['ms']:.4f} ms (device "
+            f"{_ms_text(r['device_ms'])}), casts + cuBLAS + add "
+            f"{r['plain_ms']:.4f} ms (device "
+            f"{_ms_text(r['plain_device_ms'])}), bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}; {r['share']:.1%} of it)")
+        if not (r["rel_err"] <= PREC_GEMM_RTOL and r["launches"] == 1):
+            raise RuntimeError(f"linear_bf16 {label}: {r['rel_err']:.3e} "
+                               f"of scale from its plain version, "
+                               f"{r['launches']} launches counted a call")
+    return rows
+
+
 def phase_kernels(torch, mld, lengths):
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     with torch.no_grad():
@@ -1272,6 +1316,7 @@ def phase_kernels(torch, mld, lengths):
             "flash_causal": check_flash_causal(torch, g),
             "flash_attention": check_flash(torch, lengths, g),
             "flash_attention_reduced": check_flash_reduced(torch, lengths, g),
+            "linear_bf16": check_linear_bf16(torch),
         }
 
 
@@ -5285,11 +5330,12 @@ def _stage_settings():
 def prec_arm(torch, mld, label, prec, spec, ids, mask, init, z, base, smi):
     """One arm at B=128: a generate_joints call with its launches (K1 and
     K5 by weight dtype, K3 by arm: the plain VAE decode's, in the decode
-    stage's arithmetic) against what the arm's settings derive, ms a call
-    (median of PREC_ITERS warm calls), each stage's ms and the distance of
-    its joints from `base` (highest's)."""
+    stage's arithmetic) against what the arm's settings derive, and the
+    bf16 linear kernel's, which must take every bf16 reduced linear
+    (`_lin_bytes`); ms a call (median of PREC_ITERS warm calls), each
+    stage's ms and the distance of its joints from `base` (highest's)."""
     from mld_tpu_torch.ops.fused_seq_decoder import launch_count
-    from mld_tpu_torch.utils import precision
+    from mld_tpu_torch.utils import precision, trace
 
     n_steps = len(mld.scheduler.timesteps())
     with _precision_env(prec, spec):
@@ -5311,10 +5357,15 @@ def prec_arm(torch, mld, label, prec, spec, ids, mask, init, z, base, smi):
         _reset_counts()
         _bf16_counts(reset=True)
         _flash_arm_counts(reset=True)
-        joints = mld.generate_joints(ids, mask, init_latents=init)
-        _sync(torch)
+        with _lin_bytes() as lin_seen:
+            joints = mld.generate_joints(ids, mask, init_latents=init)
+            _sync(torch)
         counts, bf16 = _read_counts(), _bf16_counts()
         arms = _flash_arm_counts()
+        lin = trace.COUNTS["launch.lin.bf16"]
+        if _lin_missed(lin_seen):
+            raise RuntimeError(f"precision {label}: "
+                               f"{_lin_missed(lin_seen)}")
         _check_counts(counts, want, f"precision {label}")
         _check_counts(bf16, want_bf16, f"precision {label} bf16 weights")
         _check_counts(arms, want_arms, f"precision {label} K3 arms")
@@ -5346,11 +5397,12 @@ def prec_arm(torch, mld, label, prec, spec, ids, mask, init, z, base, smi):
         f" K1 {counts['skip_encoder']} ({bf16['skip_encoder']} on bf16 "
         f"weights), K5 {counts['skip_decoder']} ({bf16['skip_decoder']} bf16),"
         f" K4 {counts['flash_causal']}, K3 {counts['flash_attention']} "
-        f"(by arm {arms}); "
+        f"(by arm {arms}), bf16 linear {lin} (every bf16 reduced linear); "
         f"max |joints - highest's| "
         f"{'-' if dist is None else f'{dist:.3e}'} (recorded, no bar); {smi}")
     return joints, {"ms": ms, "stage_ms": stage_ms, "launches": counts,
                     "bf16_launches": bf16, "flash_arm_launches": arms,
+                    "lin_launches": lin,
                     "settings": {
                         s: v[0] for s, v in st.items()},
                     "dist_from_highest": dist, "precision": prec,
@@ -5388,20 +5440,23 @@ def _cpu_resummed():
 @contextlib.contextmanager
 def _card_gemms(fault=False):
     """Every GEMM the port runs on the card in a reduced arithmetic during
-    the body (``precision._mm``: its operands, arithmetic and result) and
+    the body (``precision._mm``: its operands, arithmetic and result), every
+    launch of the bf16 linear kernel (``precision._linear_bf16``: x, w, the
+    bias and the result; the forward of every bf16 linear on the card) and
     every K3 launch in a reduced arm (``attention._flash_launch``: q, k, v,
     the key mask, the arithmetic and the output), in order, as ("gemm",
-    ...) and ("flash", ...). With `fault` each of those GEMM results is
-    rounded to bf16 on the way out (the extra rounding an autocast would
-    add) and each of those K3 calls launches the 3xTF32 arm (the
-    behaviour before attention followed the setting), planted to show that
-    the reference's bars see them."""
+    ...), ("lin", ...) and ("flash", ...). With `fault` each of those GEMM
+    and linear results is rounded to bf16 on the way out (the extra
+    rounding an autocast would add) and each of those K3 calls launches the
+    3xTF32 arm (the behaviour before attention followed the setting),
+    planted to show that the reference's bars see them."""
     from mld_tpu_torch.ops import attention
     from mld_tpu_torch.utils import precision
 
     import torch
 
-    mm, flash = precision._mm, attention._flash_launch
+    mm, lin, flash = (precision._mm, precision._linear_bf16,
+                      attention._flash_launch)
     calls, card = [], torch.device(DEVICE).type
 
     def copy(t):
@@ -5415,6 +5470,13 @@ def _card_gemms(fault=False):
             calls.append(("gemm", (copy(a), copy(b), mode, copy(y))))
         return y
 
+    def logged_lin(x, w, b=None):
+        y = lin(x, w, b)
+        if fault:
+            y = y.bfloat16().float()
+        calls.append(("lin", (copy(x), copy(w), copy(b), copy(y))))
+        return y
+
     def logged_flash(q, k, v, key_valid, arithmetic="f32"):
         if arithmetic == "f32":
             return flash(q, k, v, key_valid, arithmetic)
@@ -5424,18 +5486,58 @@ def _card_gemms(fault=False):
         return y
 
     precision._mm, attention._flash_launch = logged, logged_flash
+    precision._linear_bf16 = logged_lin
     try:
         yield calls
     finally:
         precision._mm, attention._flash_launch = mm, flash
+        precision._linear_bf16 = lin
+
+
+@contextlib.contextmanager
+def _lin_bytes():
+    """The f32 bytes of x the bf16 linear kernel took in the body
+    ("x_bytes", at ``precision._linear_bf16``) beside those every bf16
+    reduced linear forward counted (``cast.act_bytes.bf16``, "act_bytes"):
+    equal only where each such forward launched the kernel. Filled when
+    the body ends; counts graph replays in "act_bytes" alone, so the body
+    runs eagerly."""
+    from mld_tpu_torch.utils import precision, trace
+
+    lin, seen = precision._linear_bf16, {"x_bytes": 0}
+
+    def spy(x, w, b=None):
+        seen["x_bytes"] += x.numel() * x.element_size()
+        return lin(x, w, b)
+
+    act = trace.COUNTS["cast.act_bytes.bf16"]
+    precision._linear_bf16 = spy
+    try:
+        yield seen
+    finally:
+        precision._linear_bf16 = lin
+        seen["act_bytes"] = trace.COUNTS["cast.act_bytes.bf16"] - act
+
+
+def _lin_missed(seen):
+    """What _lin_bytes saw, as a fault, or None: bf16 forwards on the card
+    that did not go through the kernel (the CPU launches none)."""
+    import torch
+
+    if seen["x_bytes"] == seen["act_bytes"] \
+            or torch.device(DEVICE).type != "cuda":
+        return None
+    return (f"bf16 reduced linears counted {seen['act_bytes']} bytes of "
+            f"x, the linear kernel took {seen['x_bytes']}")
 
 
 def _replay_gemms(calls):
-    """The card's logged GEMMs and K3 calls against the plain version of
-    each on its own operands, on the CPU: the worst GEMM error relative to
-    that GEMM's scale, the worst K3 errors (``_reduced_errs``) and the
-    margin of each to its arm's bars, the arithmetics seen and the
-    counts."""
+    """The card's logged GEMMs, bf16 linear launches and K3 calls against
+    the plain version of each on its own operands, on the CPU: the worst
+    GEMM or linear error relative to that call's scale (a linear replayed
+    as ``precision.linear_plain`` in bf16, as the CPU computes it),
+    the worst K3 errors (``_reduced_errs``) and the margin of each to its
+    arm's bars, the arithmetics seen and the counts."""
     import torch
 
     from mld_tpu_torch.ops.attention import flash_plain
@@ -5443,9 +5545,14 @@ def _replay_gemms(calls):
 
     worst, rms, mx, over = 0.0, 0.0, 0.0, 0.0
     gemms = [c for kind, c in calls if kind == "gemm"]
+    lins = [c for kind, c in calls if kind == "lin"]
     flashes = [c for kind, c in calls if kind == "flash"]
-    for a, b, mode, y in gemms:
-        want = precision._mm(a.cpu(), b.cpu(), mode)
+    replays = [(precision._mm(a.cpu(), b.cpu(), mode), y)
+               for a, b, mode, y in gemms]
+    replays += [(precision.linear_plain(
+        x.cpu(), w.cpu(), None if b is None else b.cpu(), "bf16"), y)
+        for x, w, b, y in lins]
+    for want, y in replays:
         worst = max(worst, ((y.cpu() - want).abs().max()
                             / want.abs().max()).item())
     for q, k, v, valid, arith, y in flashes:
@@ -5456,8 +5563,10 @@ def _replay_gemms(calls):
         f32_rms, _ = _reduced_errs(torch, flash_plain(*args), want)
         rms, mx = max(rms, r), max(mx, m)
         over = max(over, _reduced_over(arith, r, m, f32_rms))
-    return {"gemm_err": worst, "gemms": len(gemms),
-            "arithmetic": sorted({c[2] for c in gemms}),
+    return {"gemm_err": worst, "gemms": len(gemms) + len(lins),
+            "lins": len(lins),
+            "arithmetic": sorted({c[2] for c in gemms}
+                                 | ({"bf16"} if lins else set())),
             "flash_rms_err": rms, "flash_max_err": mx, "flash_over_bar": over,
             "flash_calls": len(flashes),
             "flash_arithmetic": sorted({c[4] for c in flashes})}
@@ -5537,7 +5646,7 @@ def _ref_arm(torch, ctx, prec, spec, fault=False):
                    if precision.ARITHMETIC[settings[stage]] != "f32"]
         with _cpu_resummed():
             resum, _ = _ref_stages(ctx, cpu, "cpu", keys=reduced)
-        with _card_gemms(fault) as calls:
+        with _lin_bytes() as lin_seen, _card_gemms(fault) as calls:
             got, gemms = _ref_stages(ctx, card, DEVICE, calls)
         with precision.stage_precision("scan"):
             stacks = [(card.denoiser.stacked_encoder(),
@@ -5550,6 +5659,10 @@ def _ref_arm(torch, ctx, prec, spec, fault=False):
                       for st_card, st_cpu in stacks
                       for a, b in zip(st_card, st_cpu))
     rec, bad = {}, [] if same_stacks else ["K1 / K5 stacks"]
+    # every bf16 reduced linear the card ran went through the kernel, and
+    # so was logged and replayed
+    if _lin_missed(lin_seen):
+        bad.append(_lin_missed(lin_seen))
     for k, stage in REF_STAGES:
         scale = want[k].abs().max().item()
         r = {"err": (got[k].cpu() - want[k]).abs().max().item(),
@@ -5583,6 +5696,7 @@ def _ref_line(rec):
         + (f", the CPU's own sums reversed {r['resum']:.3e}"
            if "resum" in r else "") + f", bar {r['bar']:.3e}"
         + (f"; its {r['gemms']} {'/'.join(r['arithmetic'])} GEMMs "
+           f"({r['lins']} of them bf16 linear launches) "
            f"{r['gemm_err']:.3e} of scale from their plain versions"
            if r.get("gemms") else "")
         + (f"; its {r['flash_calls']} {'/'.join(r['flash_arithmetic'])} K3 "
@@ -5723,7 +5837,7 @@ def prec_gemm_bound(torch, smi, texts, lengths):
     PREC_GEMM_RTOL of scale."""
     from mld_tpu_torch.config import load_config
     from mld_tpu_torch.models.mld import MLD, lengths_to_mask
-    from mld_tpu_torch.utils import precision
+    from mld_tpu_torch.utils import precision, trace
 
     out = {}
     M, K, N = PREC_GEMM
@@ -5768,16 +5882,19 @@ def prec_gemm_bound(torch, smi, texts, lengths):
             with _precision_env(prec):
                 mld.generate_joints(ids, mask, generator=g)
                 times = []
+                _reset_counts()
                 for _ in range(PREC_BIND_ITERS):
                     t0 = time.perf_counter()
                     mld.generate_joints(ids, mask, generator=g)
                     _sync(torch)
                     times.append(time.perf_counter() - t0)
             ms = statistics.median(times) * 1e3
-            out[f"{label} {prec}"] = {"ms": ms}
+            # a graph replay adds what its capture counted
+            lin = trace.COUNTS["launch.lin.bf16"] / PREC_BIND_ITERS
+            out[f"{label} {prec}"] = {"ms": ms, "lin_launches": lin}
             log(f"[precision:bind] {label} B={B_LARGE} at {prec}: {ms:.3f} "
-                f"ms a call (median of {PREC_BIND_ITERS}); recorded, not "
-                f"claimed; {smi}")
+                f"ms a call (median of {PREC_BIND_ITERS}), {lin:g} bf16 "
+                f"linear launches a call; recorded, not claimed; {smi}")
         del mld
         torch.cuda.empty_cache()
     return out
@@ -5993,6 +6110,34 @@ def phase_bench(torch, smi):
     return runs
 
 
+def lin_entry(lin, precision_runs):
+    """The kernels line's entry of the bf16 linear: the launches of phase
+    15's default arm (a generate_joints call at B=128, the counters zeroed
+    just before it), of every arm, and of a hidden-mode and a raw-motion
+    call under highest and default (`prec_gemm_bound`); phase 3's times at
+    each shape (`check_linear_bf16`), where the library path is the plain
+    version on the card (two casts, cuBLAS, the bias add: what the kernel
+    replaced)."""
+    arms = precision_runs["arms"]
+    return {
+        "name": "linear_bf16", "route": "cuda",
+        "source": "mld_tpu_torch/csrc/linear_bf16.cu", "replaces": None,
+        "launches": arms["default default"]["lin_launches"],
+        "precision_launches": {k: r["lin_launches"]
+                               for k, r in arms.items()},
+        "bind_launches_a_call": {k: r["lin_launches"] for k, r in
+                                 precision_runs["bind"].items()
+                                 if "lin_launches" in r},
+        "max_rel_err": max(r["rel_err"] for r in lin.values()),
+        "shapes": {label: {"M": r["M"], "K": r["K"], "N": r["N"],
+                           "ms": r["ms"], "device_ms": r["device_ms"],
+                           "bound_ms": r["bound_ms"],
+                           "bound_by": r["bound_by"], "share": r["share"],
+                           "library_ms": r["plain_ms"],
+                           "library_device_ms": r["plain_device_ms"]}
+                   for label, r in lin.items()}}
+
+
 def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
                  a2m_runs, mode_runs, option_runs, e2e_runs, output_runs,
                  parallel_runs, tools_runs, precision_runs):
@@ -6172,6 +6317,7 @@ def kernels_line(kr, runs, raw_runs, prompt_len, train_runs, eval_runs,
               precision_launches_by_arm={
                   k: r["flash_arm_launches"]
                   for k, r in precision_runs["arms"].items()}),
+        lin_entry(kr["linear_bf16"], precision_runs),
     ]}
 
 

@@ -47,6 +47,8 @@ _SIGNATURES = {
     # (q, k, v, valid or null, out, B, H, Sq, Sk, Dh, batch/head/row strides
     #  of q, k, v and out, sm_scale, arm (attention.FLASH_ARMS), stream)
     "mld_flash_forward": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
+    # (x, w, b or null, y, M, N, K, stream)
+    "mld_linear_bf16_forward": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 

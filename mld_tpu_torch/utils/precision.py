@@ -34,7 +34,9 @@ no product), and the evaluator networks, which run under
 ``matmul_precision("highest")`` (``mld_tpu/eval/pipeline.py:75-87``).
 
 On the CPU the GEMM of each arm is its plain version: the operands rounded
-to bf16 or TF32 on the bits, then an f32 product.
+to bf16 or TF32 on the bits, then an f32 product. On the card the bf16
+arm's forward linear is one kernel (``ops/linear_bf16.py``): the operands
+rounded on chip, the products, the bias added to the f32 sums.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.linear_bf16 import linear_bf16 as _linear_bf16
 from . import trace
 
 # JAX's precision names -> the card's arithmetic
@@ -145,7 +148,8 @@ def round_bits(x: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 # the span of a reduced GEMM's operand rounding, and the counters of the
-# f32 bytes a reduced linear rounds (``utils/trace.py``), by arithmetic
+# f32 bytes a reduced linear rounds (``utils/trace.py``), by arithmetic; the
+# card's bf16 forward linear rounds inside its kernel, outside any span
 _CAST_SPANS = {"bf16": "cast.bf16", "tf32": "cast.tf32"}
 _ACT_BYTES = {"bf16": "cast.act_bytes.bf16", "tf32": "cast.act_bytes.tf32"}
 _WEIGHT_BYTES = {"bf16": "cast.weight_bytes.bf16",
@@ -159,7 +163,8 @@ def _mm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     cuBLAS's TF32 GEMM, since cuBLAS may give a shape an f32 kernel where
     TF32 is allowed). A card whose torch cannot give the bf16 GEMM an f32
     result raises. The operands' rounding is the span ``cast.<mode>``; the
-    GEMM lies outside it."""
+    GEMM lies outside it. On the card it serves the backward's bf16 GEMMs
+    and the TF32 arm; the bf16 forward linear is ``_linear_bf16``."""
     dev = a.device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"no {mode} GEMM for device {a.device}")
@@ -180,9 +185,24 @@ def _mm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def linear_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                 mode: str) -> torch.Tensor:
+    """x [M, K] @ w [N, K].T + b through ``_mm`` and a separate bias add:
+    the forward of a reduced linear everywhere but the card's bf16 arm. On
+    the CPU it is the plain version the card's bf16 linear kernel is held
+    to (the operands rounded on the bits, an f32 product, the bias added);
+    on the card in bf16 it is the path that kernel replaced (two casts,
+    cuBLAS with an f32 result, a broadcast add)."""
+    y = _mm(x, w.t(), mode)
+    return y if b is None else y + b
+
+
 class _ReducedLinear(torch.autograd.Function):
     """x @ w.T + b with both operands of every product, the backward's too,
-    in `mode`'s arithmetic: the VJP dots of JAX inherit the precision."""
+    in `mode`'s arithmetic: the VJP dots of JAX inherit the precision. The
+    forward of a CUDA tensor in bf16 is the kernel ``_linear_bf16`` (the
+    rounding, the GEMM and the bias in one launch); every other forward is
+    ``linear_plain`` and the backward goes through ``_mm``."""
 
     @staticmethod
     def forward(ctx, x, w, b, mode):
@@ -190,9 +210,11 @@ class _ReducedLinear(torch.autograd.Function):
         ctx.mode, ctx.has_bias = mode, b is not None
         trace.COUNTS[_ACT_BYTES[mode]] += x.numel() * x.element_size()
         trace.COUNTS[_WEIGHT_BYTES[mode]] += w.numel() * w.element_size()
-        y = _mm(x.reshape(-1, x.shape[-1]), w.t(), mode)
-        if b is not None:
-            y = y + b
+        x2 = x.reshape(-1, x.shape[-1])
+        if mode == "bf16" and x.device.type == "cuda":
+            y = _linear_bf16(x2.contiguous(), w.contiguous(), b)
+        else:
+            y = linear_plain(x2, w, b, mode)
         return y.reshape(*x.shape[:-1], w.shape[0])
 
     @staticmethod

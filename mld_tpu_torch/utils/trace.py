@@ -32,6 +32,10 @@ The spans of a call (``models/mld.py``, ``models/clip_text.py``,
                                      inside decode for the plain VAE and
                                      ACTOR decoders)
     cast.bf16, cast.tf32             a reduced GEMM's operand rounding
+                                     (``precision._mm``); the card's bf16
+                                     forward linear rounds inside its
+                                     kernel, so on the card cast.bf16
+                                     surrounds only the backward's casts
 
 Counters. ``COUNTS`` is always on: one integer add where the work is
 launched. Its keys:
@@ -41,12 +45,16 @@ launched. Its keys:
     launch.k3.<arm>            K3 (sdpa) by arm, ``attention.FLASH_ARMS``
     launch.k4                  K4 (sdpa_flash_causal)
     launch.k5.<f32|bf16>       K5's entry (skip_decoder_stack) by weights
+    launch.lin.bf16            the bf16 linear kernel (linear_bf16), the
+                               forward of every reduced bf16 linear
     kernels.k5                 the device kernels K5's entries launched
     flops.<wrapper>            the operations each launch wrapper counted
                                (``ops/work.py``)
     cast.act_bytes.<bf16|tf32>     f32 bytes of the activations and
-    cast.weight_bytes.<bf16|tf32>  weights a reduced linear rounds before
-                                   its GEMM (forward only; CPU too)
+    cast.weight_bytes.<bf16|tf32>  weights a reduced linear rounds for
+                                   its GEMM (forward only; CPU too; on the
+                                   card's bf16 arm inside linear_bf16's
+                                   kernel)
     noise.bytes                    bytes of ancestral DDPM's noise drawn
                                    from the generator (CPU too; replayed
                                    ``step_noise`` is not counted)
